@@ -9,7 +9,9 @@ counters, plain PyTorch versions) with their CUDA sources in `csrc/`.
 Ported so far: the 3D Poisson Q1 main path (structured mesh, QkFEM space,
 Dirichlet constraints, volume assembly, slabbed residual, stencil
 compilation, CG, fused CG, the CG + Jacobi backend and the stationary
-driver). See ROADMAP.md for what remains.
+driver) and its multigrid solve routes (LatticeGMG, VarCoeffGMG on the
+fused structured Q1 operator, fp64 defect-correction refinement). See
+ROADMAP.md for what remains.
 """
 
 __version__ = "0.1.0"

@@ -13,8 +13,9 @@ gridoperator/default/assembler.hh:84-279 element sweep):
 Boundary and skeleton face groups wait for ROADMAP slice 7: a local
 operator that has boundary or skeleton kernels is accepted only with
 `skip_boundary=True` (the pure-Dirichlet shortcut, where those terms
-vanish). Assembled Jacobians and the probed `jacobian_diagonal` wait for a
-later PR.
+vanish). `element_jacobians`, the assembled `jacobian` (a sparse COO
+tensor) and `jacobian_diagonal` probe the element kernels with a vmapped
+jvp, as the reference does.
 
 There is no jit: PyTorch runs eagerly. Context tensors (tabulations,
 factors, element origins) are built once per (dtype, device) and cached.
@@ -22,7 +23,7 @@ factors, element origins) are built once per (dtype, device) and cached.
 from __future__ import annotations
 
 import torch
-from torch.func import jvp
+from torch.func import jvp, vmap
 
 from dune_pdelab_tpu_torch.assembly.dofmaps import make_leaf_dof_map
 from dune_pdelab_tpu_torch.assembly.geometry import VolumeGeometry
@@ -140,3 +141,65 @@ class GridOperator:
         if self.cg is not None:
             jz = torch.where(mask, z, jz)
         return jz
+
+    # ------------------------------------------------------------------
+    # element Jacobians, assembled Jacobian, diagonal
+    # ------------------------------------------------------------------
+    def element_jacobians(self, x, time=0.0):
+        """Per-element dense volume Jacobian blocks (E, nlocal, nlocal):
+        one vmapped jvp over the nlocal unit tangents (the reference's
+        _probe; localoperator/blockdiagonal.hh:190 analog)."""
+        dm = self.dof_maps[0]
+        u = dm.gather(x)                                  # (E, nloc)
+        E, nloc = u.shape
+        if not self.has["alpha_volume"]:
+            return torch.zeros((E, nloc, nloc), dtype=x.dtype, device=x.device)
+        lop = self.lop.set_time(time)
+        vctx = self._volume_ctx(time, x.dtype, x.device)
+        eye = torch.eye(nloc, dtype=x.dtype, device=x.device)
+
+        def column(sel):
+            _, col = jvp(lambda v: lop.alpha_volume(vctx, v), (u,),
+                         (sel.expand(E, nloc),))
+            return col                                    # (E, nloc)
+
+        cols = vmap(column)(eye)                          # (nloc, E, nloc)
+        return cols.permute(1, 2, 0)                      # (E, nloc, nloc)
+
+    def _element_dofs_on(self, device):
+        return torch.as_tensor(self.space.element_dofs, device=device)
+
+    def jacobian(self, x, time=0.0):
+        """Assembled sparse Jacobian, a coalesced torch.sparse_coo_tensor
+        with the reference's BCOO triples: symmetric constraint elimination
+        (entries in a constrained row or column dropped) and unit rows on
+        constrained DOFs."""
+        n = self.space.ndofs
+        J = self.element_jacobians(x, time)
+        B, ni, nj = J.shape
+        gd = self._element_dofs_on(x.device)
+        rows = gd[:, :, None].expand(B, ni, nj).reshape(-1)
+        cols = gd[:, None, :].expand(B, ni, nj).reshape(-1)
+        data = J.reshape(-1)
+        if self.cg is not None:
+            mask = self.cg.mask_on(x.device)
+            keep = ~mask[rows] & ~mask[cols]
+            rows, cols, data = rows[keep], cols[keep], data[keep]
+            cidx = torch.nonzero(mask).reshape(-1)
+            rows = torch.cat([rows, cidx])
+            cols = torch.cat([cols, cidx])
+            data = torch.cat([data, torch.ones(len(cidx), dtype=data.dtype,
+                                               device=data.device)])
+        with torch.sparse.check_sparse_tensor_invariants():
+            return torch.sparse_coo_tensor(torch.stack([rows, cols]), data,
+                                           (n, n)).coalesce()
+
+    def jacobian_diagonal(self, x, time=0.0):
+        """diag(J) of the volume terms; constrained rows -> 1."""
+        J = self.element_jacobians(x, time)
+        d = torch.zeros(self.space.ndofs, dtype=x.dtype, device=x.device)
+        d = d.index_add(0, self._element_dofs_on(x.device).reshape(-1),
+                        torch.diagonal(J, dim1=1, dim2=2).reshape(-1))
+        if self.cg is not None:
+            d = torch.where(self.cg.mask_on(x.device), 1.0, d)
+        return d

@@ -38,12 +38,13 @@ PROXY_MIN_ELEMENTS = 200_000
 class StencilOperator:
     """y = mask ? z : stencil(z) with zero Dirichlet columns."""
 
-    def __init__(self, dims, k, weights, offsets, mask):
+    def __init__(self, dims, k, weights, offsets, mask, interior_classes):
         self.dims = tuple(dims)          # dof grid dims, dim0 fastest
         self.k = k
         self.weights = weights           # (nclass, ntaps) numpy float64
         self.offsets = offsets           # (ntaps, dim) numpy
         self.mask = mask                 # (N,) bool tensor or None
+        self.interior_classes = interior_classes   # residue class per row of weights
         self.uses_stencil27 = (k == 1 and weights.shape[0] == 1
                                and len(self.dims) == 3)
         self.w27 = (tap_tensor(offsets, weights[0]) if self.uses_stencil27
@@ -167,7 +168,8 @@ def compile_stencil(go, x_lin=None, time=0.0, check=True, dtype=None,
         st_p = compile_stencil(go_p, None, time, check, dtype, device)
         if st_p is None:
             return None
-        return StencilOperator(dims, k, st_p.weights, st_p.offsets, mask)
+        return StencilOperator(dims, k, st_p.weights, st_p.offsets, mask,
+                               st_p.interior_classes)
 
     if x_lin is None:
         x_lin = torch.zeros(space.ndofs, dtype=dtype, device=device)
@@ -202,7 +204,7 @@ def compile_stencil(go, x_lin=None, time=0.0, check=True, dtype=None,
             t = int(np.nonzero((offsets == j - i).all(axis=1))[0][0])
             weights[cidx, t] = col[flat(i)]
 
-    st = StencilOperator(dims, k, weights, offsets, mask)
+    st = StencilOperator(dims, k, weights, offsets, mask, classes)
     if check and not _global_stencil_parity(go, st, x_lin, time):
         return None   # not translation invariant (anywhere in the domain)
     return st

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-All `csrc/*.cu` sources are compiled with nvcc for sm_90a into one shared
-library with a plain C interface, loaded with ctypes. The library lands in
+All `csrc/*.cu` sources are compiled with nvcc for sm_90a (one nvcc process
+per source, run in parallel) and linked into one shared library with a
+plain C interface, loaded with ctypes. The library lands in
 `build/torch_kernels/` at the repository root under a name keyed by a hash
 of the sources and flags, so an edit rebuilds and an unchanged tree reuses
 it. A missing nvcc or a failed compile raises with the compiler's output;
@@ -26,12 +27,16 @@ from dune_pdelab_tpu_torch.utils.common import full_fp32_on_cuda
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
+_FUSED = [_P, _P, _P, _I, _I, _I, _P, _I, _I, _D, _P, _P, _P, _P, _I, _P]
 # C entry points: name -> argtypes (all return the cudaError_t as int)
 _SIGNATURES = {
+    "dpt_structured_fused_f32": _FUSED,
+    "dpt_structured_fused_f64": _FUSED,
     "dpt_window_nblocks": [_I, _I, _I],
     "dpt_stencil27_f32": [_P, _P, _P, _I, _I, _I, _P, _P],
     "dpt_stencil27_f64": [_P, _P, _P, _I, _I, _I, _P, _P],
@@ -78,15 +83,28 @@ def library() -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        # one nvcc per source, all started together, then one link
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT,
+                                                text=True)))
+        logs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+        link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        if all(rc == 0 for _, _, rc in logs):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append((link, proc.stdout + proc.stderr, proc.returncode))
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{build_log}")
+        build_log = "".join(text for _, text, _ in logs)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        for cmd, text, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():

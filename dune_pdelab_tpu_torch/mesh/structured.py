@@ -67,6 +67,15 @@ class StructuredMesh:
         g = mi[:, None, :] + off[None, :, :]
         return self.lower + g * self.h
 
+    def coarsen(self, factor: int = 2) -> "StructuredMesh":
+        """Uniformly coarsened mesh (for geometric multigrid hierarchies).
+        Mapped meshes, whose coarsening keeps every factor-th vertex plane
+        in the reference, are refused at construction (ROADMAP slice 11)."""
+        if any(c % factor for c in self.cells):
+            raise ValueError(f"cells {self.cells} not divisible by {factor}")
+        return StructuredMesh(self.lower, self.upper,
+                              tuple(c // factor for c in self.cells))
+
     def __repr__(self):
         return (f"StructuredMesh(dim={self.dim}, cells={self.cells}, "
                 f"periodic={self.periodic}, uniform={self.uniform})")

@@ -3,13 +3,17 @@
 PyTorch port of dune_pdelab_tpu/solvers/linear.py (reference:
 dune/pdelab/backend/istl/seqistlsolverbackend.hh:112-1060 and the
 matrix-free backends, matrixfree/backends.hh:64), limited to CG with no,
-Richardson or Jacobi preconditioning on two operator tiers:
+Richardson, Jacobi or a callable preconditioner on two operator tiers:
 
   * compiled stencil: compile_stencil's StencilOperator, whose apply is the
     stencil27 kernel for a k = 1 3D operator on a CUDA tensor (its plain
     version on a CPU tensor, the plain multi-class form for k > 1 or 2D);
     Jacobi takes the stencil's exact diagonal;
-  * general-jvp: go.jacobian_apply (torch.func.jvp) per apply.
+  * general-jvp: go.jacobian_apply (torch.func.jvp) per apply; Jacobi takes
+    go.jacobian_diagonal.
+
+A callable `precond(go, x_lin, time) -> M` (e.g. a LatticeGMG) runs on the
+general-jvp tier, as in the reference (solvers/linear.py:302-312).
 
 Unlike the reference, no exception of the stencil tier is swallowed: a
 kernel that fails to build or launch raises. The tier taken shows in
@@ -31,7 +35,7 @@ class LinearSolverBackend:
     """Configurable Krylov backend.
 
     solver:  'cg'
-    precond: 'none' | 'richardson' | 'jacobi'
+    precond: 'none' | 'richardson' | 'jacobi' | callable(go, x_lin, time) -> M
     use_stencil: try the compiled-stencil tier before the general-jvp one
     Assembled operators (lattice-ELL, BCOO) wait for ROADMAP slice 6.
     """
@@ -49,11 +53,7 @@ class LinearSolverBackend:
             raise NotImplementedError(
                 f"solver {self.solver!r} is not ported yet (BiCGStab, MINRES, "
                 "GMRES and the Richardson loop: ROADMAP slice 3 remainder)")
-        if callable(self.precond):
-            raise NotImplementedError(
-                "callable preconditioners (ILU, SSOR, AMG) are not ported yet "
-                "(ROADMAP slice 10)")
-        if self.precond not in _PRECONDS:
+        if not callable(self.precond) and self.precond not in _PRECONDS:
             raise NotImplementedError(
                 f"preconditioner {self.precond!r} is not ported yet "
                 "(block_jacobi, chebyshev, block_gs: ROADMAP slice 7)")
@@ -70,15 +70,14 @@ class LinearSolverBackend:
             self._setup_cache[key] = st
         return self._setup_cache[key]
 
-    def _jacobi_diag(self, go, st, b):
+    def _jacobi_diag(self, go, st, x_lin, b, time):
         key = (id(go), "diag", b.dtype, str(b.device))
         if key not in self._setup_cache:
             if st is None:
-                raise NotImplementedError(
-                    "Jacobi on the general-jvp tier needs go.jacobian_diagonal "
-                    "(vmapped jvp probing, gridoperator.py:1314-1335 of the "
-                    "reference), which is not ported yet")
-            self._setup_cache[key] = st.diagonal(dtype=b.dtype, device=b.device)
+                self._setup_cache[key] = go.jacobian_diagonal(
+                    x_lin.to(device=b.device, dtype=b.dtype), time)
+            else:
+                self._setup_cache[key] = st.diagonal(dtype=b.dtype, device=b.device)
         return self._setup_cache[key]
 
     def report(self, go=None) -> str:
@@ -102,8 +101,9 @@ class LinearSolverBackend:
 
     def solve(self, go, x_lin, b, reduction, time=0.0, x0=None):
         """Solve J(x_lin) z = b to relative `reduction`; returns (z, stats)."""
+        custom = callable(self.precond)
         st = None
-        if self.use_stencil and getattr(go.lop, "is_linear", False):
+        if self.use_stencil and not custom and getattr(go.lop, "is_linear", False):
             st = self._stencil_for(go, x_lin, time)
         if st is not None:
             A = st
@@ -117,8 +117,12 @@ class LinearSolverBackend:
         else:
             A = lambda z: go.jacobian_apply(x_lin, z, time)
             path = "general-jvp (matrix-free batched assembly per apply)"
-        if self.precond == "jacobi":
-            diag = self._jacobi_diag(go, st, b)
+        if custom:
+            M = self.precond(go, x_lin, time)
+            path = ("general-jvp (matrix-free) + custom preconditioner "
+                    f"{type(self.precond).__name__}")
+        elif self.precond == "jacobi":
+            diag = self._jacobi_diag(go, st, x_lin, b, time)
             M = lambda r: r / diag
         else:
             M = krylov._identity

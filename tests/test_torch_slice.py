@@ -101,8 +101,9 @@ def test_readme_chain_matches_jax(chains):
 
 def test_backend_general_jvp_tier(chains):
     """Without the stencil tier, CG + Richardson runs on the jvp apply and
-    gives the same solution; Jacobi there needs jacobian_diagonal (not
-    ported) and says so."""
+    gives the same solution; Jacobi there takes go.jacobian_diagonal, equal
+    to the stencil's diagonal, so it takes the same iterations; a callable
+    preconditioner runs on this tier too."""
     _, (tV, _, tgo) = chains
     b = tgo.residual(tV.zero(F64))
     ref, s_ref = SEQ_CG_Jacobi().solve(tgo, tV.zero(F64), b, 1e-10)
@@ -110,11 +111,17 @@ def test_backend_general_jvp_tier(chains):
     z, s = plain.solve(tgo, tV.zero(F64), b, 1e-12)
     assert "general-jvp" in plain.report()
     assert _rel(z.numpy(), ref.numpy()) <= 1e-8
-    with pytest.raises(NotImplementedError, match="jacobian_diagonal"):
-        LinearSolverBackend(use_stencil=False).solve(tgo, tV.zero(F64), b, 1e-8)
+    jac = LinearSolverBackend(use_stencil=False)
+    z, s = jac.solve(tgo, tV.zero(F64), b, 1e-10)
+    assert "general-jvp" in jac.report() and s.iterations == s_ref.iterations
+    assert _rel(z.numpy(), ref.numpy()) <= 1e-10
+    diag = tgo.jacobian_diagonal(tV.zero(F64))
+    custom = LinearSolverBackend(precond=lambda go, x, t: (lambda r: r / diag))
+    z, s = custom.solve(tgo, tV.zero(F64), b, 1e-10)
+    assert "custom preconditioner" in custom.report()
+    assert s.iterations == s_ref.iterations and _rel(z.numpy(), ref.numpy()) <= 1e-10
     for kw, slice_ in [(dict(solver="bicgstab"), "slice 3"),
-                       (dict(precond="block_jacobi"), "slice 7"),
-                       (dict(precond=lambda go, x, t: None), "slice 10")]:
+                       (dict(precond="block_jacobi"), "slice 7")]:
         with pytest.raises(NotImplementedError, match=slice_):
             LinearSolverBackend(**kw)
 

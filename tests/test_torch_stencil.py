@@ -99,6 +99,23 @@ def test_proxy_branch_matches_direct_probe(dim, k, cells, monkeypatch):
     assert np.abs(st.weights - jst.weights).max() <= 1e-12 * scale
 
 
+@pytest.mark.parametrize("dim,k,cells", CASES[:2])
+def test_interior_classes_match_jax(dim, k, cells, monkeypatch):
+    """StencilOperator stores the residue classes as the reference does,
+    and the proxy branch of compile_stencil passes them on."""
+    jgo, tgo = _pair(dim, k, cells)
+    want = [tuple(c) for c in j_compile(jgo).interior_classes]
+    st = tst.compile_stencil(tgo, dtype=torch.float64)
+    assert [tuple(c) for c in st.interior_classes] == want
+    assert len(want) == st.weights.shape[0] == k**dim
+    # threshold = the proxy mesh's own element count, so the proxy does
+    # not recurse (see Queue 3 of ROADMAP.md)
+    monkeypatch.setattr(tst, "PROXY_MIN_ELEMENTS", max(8, 4 * k + 4) ** dim)
+    _, tgo_big = _pair(dim, k, tuple(2 * c + 1 for c in cells))
+    st_p = tst.compile_stencil(tgo_big, dtype=torch.float64)
+    assert [tuple(c) for c in st_p.interior_classes] == want
+
+
 @pytest.mark.parametrize("dim,k,cells", CASES)
 def test_apply_and_diagonal_match_jax(dim, k, cells):
     jgo, tgo = _pair(dim, k, cells)
