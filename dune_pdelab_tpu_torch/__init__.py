@@ -9,9 +9,10 @@ counters, plain PyTorch versions) with their CUDA sources in `csrc/`.
 Ported so far: the 3D Poisson Q1 main path (structured mesh, QkFEM space,
 Dirichlet constraints, volume assembly, slabbed residual, stencil
 compilation, CG, fused CG, the CG + Jacobi backend and the stationary
-driver) and its multigrid solve routes (LatticeGMG, VarCoeffGMG on the
-fused structured Q1 operator, fp64 defect-correction refinement). See
-ROADMAP.md for what remains.
+solver), its multigrid solve routes (LatticeGMG, VarCoeffGMG on the
+fused structured Q1 operator, fp64 defect-correction refinement) and the
+assembled lattice-ELL path (ELL assembly and SpMV, lattice ILU(0)/ILU(n),
+the Krylov solvers and their backends). See ROADMAP.md for what remains.
 """
 
 __version__ = "0.1.0"
@@ -24,4 +25,12 @@ from dune_pdelab_tpu_torch.constraints import (
     set_constrained_dofs, set_nonconstrained_dofs, copy_constrained_dofs,
 )
 from dune_pdelab_tpu_torch.assembly import GridOperator
+from dune_pdelab_tpu_torch.linalg.krylov import (
+    cg, bicgstab, minres, restarted_gmres, richardson_loop, SolverStats, SOLVERS,
+)
+from dune_pdelab_tpu_torch.solvers.linear import (
+    LinearSolverBackend, SEQ_CG_Jacobi, SEQ_BCGS_Jacobi, SEQ_GMRES_Jacobi,
+    MatrixFree_CG_Richardson, SEQ_CG_ILU0, SEQ_BCGS_ILU0, SEQ_CG_ILUn,
+    SEQ_BCGS_ILUn,
+)
 from dune_pdelab_tpu_torch.solvers import StationaryLinearProblemSolver

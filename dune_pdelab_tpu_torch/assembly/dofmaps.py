@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dune_pdelab_tpu_torch.utils.common import device_key
+
 
 class IndexDofMap:
     """General index-array path."""
@@ -29,7 +31,7 @@ class IndexDofMap:
         self._dofs = {}
 
     def _on(self, device):
-        key = str(device)
+        key = device_key(device)
         if key not in self._dofs:
             self._dofs[key] = torch.as_tensor(self._dofs_np, device=device)
         return self._dofs[key]

@@ -14,8 +14,9 @@ Boundary and skeleton face groups wait for ROADMAP slice 7: a local
 operator that has boundary or skeleton kernels is accepted only with
 `skip_boundary=True` (the pure-Dirichlet shortcut, where those terms
 vanish). `element_jacobians`, the assembled `jacobian` (a sparse COO
-tensor) and `jacobian_diagonal` probe the element kernels with a vmapped
-jvp, as the reference does.
+tensor) probe the element kernels with a vmapped jvp, as the reference
+does; `jacobian_diagonal` runs the same probes one at a time and sums
+through the DOF map.
 
 There is no jit: PyTorch runs eagerly. Context tensors (tabulations,
 factors, element origins) are built once per (dtype, device) and cached.
@@ -29,7 +30,7 @@ from dune_pdelab_tpu_torch.assembly.dofmaps import make_leaf_dof_map
 from dune_pdelab_tpu_torch.assembly.geometry import VolumeGeometry
 from dune_pdelab_tpu_torch.fe.quadrature import quadrature_rule
 from dune_pdelab_tpu_torch.ops.base import LeafTab, VolumeContext
-from dune_pdelab_tpu_torch.utils.common import full_fp32_on_cuda
+from dune_pdelab_tpu_torch.utils.common import device_key, full_fp32_on_cuda
 
 _KERNELS = ("alpha_volume", "lambda_volume", "alpha_boundary",
             "lambda_boundary", "alpha_skeleton", "lambda_skeleton")
@@ -83,7 +84,7 @@ class GridOperator:
     # context construction (cached per dtype and device)
     # ------------------------------------------------------------------
     def _volume_ctx(self, time, dtype, device) -> VolumeContext:
-        key = (dtype, str(device))
+        key = (dtype, device_key(device))
         if key not in self._ctx_cache:
             if torch.device(device).type == "cuda":
                 full_fp32_on_cuda()
@@ -195,11 +196,27 @@ class GridOperator:
                                            (n, n)).coalesce()
 
     def jacobian_diagonal(self, x, time=0.0):
-        """diag(J) of the volume terms; constrained rows -> 1."""
-        J = self.element_jacobians(x, time)
+        """diag(J) of the volume terms; constrained rows -> 1.
+
+        One jvp per local basis function (J_e[:, b, b] of the b-th probe),
+        summed by the DOF map: strided slice-adds on a structured space, so
+        the result is the same from run to run (no atomics)."""
+        dm = self.dof_maps[0]
         d = torch.zeros(self.space.ndofs, dtype=x.dtype, device=x.device)
-        d = d.index_add(0, self._element_dofs_on(x.device).reshape(-1),
-                        torch.diagonal(J, dim1=1, dim2=2).reshape(-1))
+        if self.has["alpha_volume"]:
+            u = dm.gather(x)                              # (E, nloc)
+            E, nloc = u.shape
+            lop = self.lop.set_time(time)
+            vctx = self._volume_ctx(time, x.dtype, x.device)
+            diag = torch.empty_like(u)
+            for b in range(nloc):
+                sel = torch.zeros(nloc, dtype=x.dtype, device=x.device)
+                sel[b] = 1.0
+                _, col = jvp(lambda v: lop.alpha_volume(vctx, v), (u,),
+                             (sel.expand(E, nloc),))
+                diag[:, b] = col[:, b]
+                del col
+            d = dm.scatter_add(d, diag)
         if self.cg is not None:
             d = torch.where(self.cg.mask_on(x.device), 1.0, d)
         return d

@@ -32,6 +32,7 @@ from dune_pdelab_tpu_torch.kernels.structured_fused import (
     TAB_WIDTH, FusedCoefficients, structured_fused,
 )
 from dune_pdelab_tpu_torch.space.space import to_numpy
+from dune_pdelab_tpu_torch.utils.common import device_key
 
 # coefficient evaluation works on z-slabs of about this many elements
 _EVAL_SLAB_ELEMENTS = 1 << 22
@@ -148,9 +149,7 @@ class FusedOperator:
         self._state = {}
 
     def state(self, dtype, device):
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+        device = device_key(device)
         key = (dtype, device)
         if key not in self._state:
             self._state[key] = (

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from dune_pdelab_tpu_torch.space.space import FunctionSpace
+from dune_pdelab_tpu_torch.utils.common import device_key
 
 
 class DirichletConstraints:
@@ -25,10 +26,10 @@ class DirichletConstraints:
         self.mask_np = np.asarray(mask, dtype=bool)
         self.mask = torch.as_tensor(self.mask_np, device=device)
         self.nconstrained = int(self.mask_np.sum())
-        self._masks = {str(self.mask.device): self.mask}
+        self._masks = {device_key(self.mask.device): self.mask}
 
     def mask_on(self, device) -> torch.Tensor:
-        key = str(torch.device(device))
+        key = device_key(device)
         if key not in self._masks:
             self._masks[key] = self.mask.to(device)
         return self._masks[key]

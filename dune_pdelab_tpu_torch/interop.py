@@ -55,6 +55,19 @@ def lattice_gmg_from_numpy(dims, k, stencils, transfers, coarse_lu, *, pre=2,
     return gmg
 
 
+def ell_from_numpy(dims, k, offsets, values, mask, device=None,
+                   dtype=torch.float64):
+    """Port EllMatrix from a JAX EllMatrix's arrays as numpy (`ell.dims`,
+    `ell.k`, `ell.offsets`, `np.asarray(ell.values)`, `np.asarray(ell.mask)`
+    or None), the values held in `dtype` on `device`."""
+    from dune_pdelab_tpu_torch.assembly.ell import EllMatrix
+
+    m = None if mask is None else torch.as_tensor(
+        np.array(mask, dtype=bool).reshape(-1), device=device)
+    return EllMatrix(tuple(int(d) for d in dims), int(k), np.asarray(offsets),
+                     torch.as_tensor(np.array(values), dtype=dtype, device=device), m)
+
+
 def vector_from_numpy(x, device=None, dtype=torch.float64):
     """Port DOF vector from a numpy array."""
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)

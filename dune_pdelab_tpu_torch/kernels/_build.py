@@ -38,6 +38,8 @@ _SIGNATURES = {
     "dpt_structured_fused_f32": _FUSED,
     "dpt_structured_fused_f64": _FUSED,
     "dpt_window_nblocks": [_I, _I, _I],
+    "dpt_ell27_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "dpt_ell27_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
     "dpt_stencil27_f32": [_P, _P, _P, _I, _I, _I, _P, _P],
     "dpt_stencil27_f64": [_P, _P, _P, _I, _I, _I, _P, _P],
     "dpt_fused_cg_k1_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],

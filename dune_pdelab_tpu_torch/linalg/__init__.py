@@ -1,1 +1,3 @@
-from dune_pdelab_tpu_torch.linalg.krylov import SolverStats, cg  # noqa: F401
+from dune_pdelab_tpu_torch.linalg.krylov import (  # noqa: F401
+    SOLVERS, SolverStats, bicgstab, cg, minres, restarted_gmres, richardson_loop,
+)

@@ -36,6 +36,7 @@ import torch
 from dune_pdelab_tpu_torch.assembly.stencil import StencilOperator, compile_stencil
 from dune_pdelab_tpu_torch.linalg import krylov
 from dune_pdelab_tpu_torch.linalg.multigrid import _transfer_1d
+from dune_pdelab_tpu_torch.utils.common import device_key
 
 
 def _transpose_transfer_1d(idx, w, ncd):
@@ -242,16 +243,16 @@ class LatticeGMG:
             reals = dict(dtype=v.dtype, device=v.device)
             return (torch.as_tensor(idx, **ints), torch.as_tensor(w, **reals),
                     torch.as_tensor(ridx, **ints), torch.as_tensor(rw, **reals))
-        return self._cached(("transfer", l, d, v.dtype, str(v.device)), build)
+        return self._cached(("transfer", l, d, v.dtype, device_key(v.device)), build)
 
     def _dinv(self, l, r):
         return self._cached(
-            ("dinv", l, r.dtype, str(r.device)),
+            ("dinv", l, r.dtype, device_key(r.device)),
             lambda: 1.0 / self.stencils[l].diagonal(dtype=r.dtype, device=r.device))
 
     def _coarse_solve(self, r):
         lu, piv = self._cached(
-            ("lu", r.dtype, str(r.device)),
+            ("lu", r.dtype, device_key(r.device)),
             lambda: (self._coarse_lu[0].to(r.device, r.dtype),
                      self._coarse_lu[1].to(r.device)))
         return torch.linalg.lu_solve(lu, piv, r[:, None])[:, 0]

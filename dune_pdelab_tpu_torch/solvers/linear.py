@@ -2,82 +2,122 @@
 
 PyTorch port of dune_pdelab_tpu/solvers/linear.py (reference:
 dune/pdelab/backend/istl/seqistlsolverbackend.hh:112-1060 and the
-matrix-free backends, matrixfree/backends.hh:64), limited to CG with no,
-Richardson, Jacobi or a callable preconditioner on two operator tiers:
+matrix-free backends, matrixfree/backends.hh:64). Solvers: cg, bicgstab,
+minres, gmres(restart) and the Richardson loop; preconditioners: none,
+Richardson, Jacobi or a callable. The operator tiers, in the reference's
+order of choice:
 
-  * compiled stencil: compile_stencil's StencilOperator, whose apply is the
-    stencil27 kernel for a k = 1 3D operator on a CUDA tensor (its plain
-    version on a CPU tensor, the plain multi-class form for k > 1 or 2D);
-    Jacobi takes the stencil's exact diagonal;
-  * general-jvp: go.jacobian_apply (torch.func.jvp) per apply; Jacobi takes
-    go.jacobian_diagonal.
+  * a callable `precond(go, x_lin, time) -> M` (a LatticeGMG, an ILU)
+    always runs on the general-jvp tier, even with matrix_free=False
+    (reference :302-312);
+  * matrix_free=False: the assembled lattice-ELL matrix (assemble_ell; its
+    apply is the ell27 kernel for a k = 1 3D operator on a CUDA tensor);
+    where the space does not qualify, or use_ell=False, the sparse COO
+    Jacobian (go.jacobian), with the declined tier in `report()`;
+  * compiled stencil: compile_stencil's StencilOperator (the stencil27
+    kernel for a k = 1 3D operator on a CUDA tensor); Jacobi takes the
+    stencil's exact diagonal;
+  * general-jvp: go.jacobian_apply (torch.func.jvp) per apply.
 
-A callable `precond(go, x_lin, time) -> M` (e.g. a LatticeGMG) runs on the
-general-jvp tier, as in the reference (solvers/linear.py:302-312).
-
-Unlike the reference, no exception of the stencil tier is swallowed: a
-kernel that fails to build or launch raises. The tier taken shows in
-`report()` and in the kernels' launch counters.
+Jacobi takes go.jacobian_diagonal on every tier but the stencil one, as in
+the reference. Unlike the reference, no exception of a faster tier is
+swallowed: a kernel that fails to build or launch raises. The tier taken
+shows in `report()` and in the kernels' launch counters.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any
 
+from dune_pdelab_tpu_torch.assembly.ell import EllMatrix, assemble_ell
 from dune_pdelab_tpu_torch.assembly.stencil import compile_stencil
 from dune_pdelab_tpu_torch.linalg import krylov
+from dune_pdelab_tpu_torch.utils.common import device_key
 
 _PRECONDS = (None, "none", "richardson", "jacobi")
+_LATER = {"block_jacobi": 7, "chebyshev": 7, "block_gs": 7}
+
+
+def _kernel_how(uses_kernel, name, device):
+    if not uses_kernel:
+        return "plain torch (k > 1 or 2D: no kernel)"
+    if device.type == "cuda":
+        return f"{name} CUDA kernel"
+    return f"{name} plain torch (CPU tensor)"
 
 
 @dataclass
 class LinearSolverBackend:
     """Configurable Krylov backend.
 
-    solver:  'cg'
+    solver:  'cg' | 'bicgstab' | 'minres' | 'gmres' | 'loop'
     precond: 'none' | 'richardson' | 'jacobi' | callable(go, x_lin, time) -> M
+    matrix_free: True -> stencil / go.jacobian_apply tiers;
+             False -> assembled (lattice-ELL, else sparse COO) matvec
     use_stencil: try the compiled-stencil tier before the general-jvp one
-    Assembled operators (lattice-ELL, BCOO) wait for ROADMAP slice 6.
+    use_ell: on the assembled path, prefer the lattice-ELL layout
     """
 
     solver: str = "cg"
     precond: Any = "jacobi"
     maxiter: int = 5000
+    restart: int = 30
+    matrix_free: bool = True
     use_stencil: bool = True
+    use_ell: bool = True
     stats_history: list = field(default_factory=list)
     _setup_cache: dict = field(default_factory=dict, repr=False)
     _last_path: dict = field(default_factory=dict, repr=False)
 
     def __post_init__(self):
-        if self.solver != "cg":
-            raise NotImplementedError(
-                f"solver {self.solver!r} is not ported yet (BiCGStab, MINRES, "
-                "GMRES and the Richardson loop: ROADMAP slice 3 remainder)")
+        if self.solver not in krylov.SOLVERS:
+            raise ValueError(f"unknown solver {self.solver!r}; one of "
+                             f"{sorted(krylov.SOLVERS)}")
         if not callable(self.precond) and self.precond not in _PRECONDS:
+            slice_ = _LATER.get(self.precond)
+            if slice_ is None:
+                raise ValueError(f"unknown preconditioner {self.precond!r}")
             raise NotImplementedError(
-                f"preconditioner {self.precond!r} is not ported yet "
-                "(block_jacobi, chebyshev, block_gs: ROADMAP slice 7)")
+                f"preconditioner {self.precond!r} is not ported yet (block_jacobi, "
+                "chebyshev, block_gs: ROADMAP slice 7; SSOR and AMG backends: "
+                "slice 10)")
+
+    def _reasons(self, go):
+        return self._setup_cache.setdefault((id(go), "tier_reasons"), {})
 
     def _stencil_for(self, go, x_lin, time):
         key = (id(go), "stencil")
         if key not in self._setup_cache:
-            reasons = self._setup_cache.setdefault((id(go), "tier_reasons"), {})
             st = compile_stencil(go, x_lin, time)
             if st is None:
-                reasons["stencil"] = ("compile_stencil declined (space/mesh/"
-                                      "operator not a translation-invariant "
-                                      "lattice)")
+                self._reasons(go)["stencil"] = (
+                    "compile_stencil declined (space/mesh/operator not a "
+                    "translation-invariant lattice)")
             self._setup_cache[key] = st
         return self._setup_cache[key]
 
-    def _jacobi_diag(self, go, st, x_lin, b, time):
-        key = (id(go), "diag", b.dtype, str(b.device))
+    def _assembled_for(self, go, x_lin, time):
+        """The lattice-ELL matrix, else the sparse COO Jacobian; assembled
+        once for a linear operator, at each solve for a nonlinear one."""
+        key = (id(go), "matval")
+        if key not in self._setup_cache or not getattr(go.lop, "is_linear", False):
+            mat = assemble_ell(go, x_lin, time) if self.use_ell else None
+            if mat is None:
+                self._reasons(go)["lattice-ELL"] = (
+                    "use_ell=False" if not self.use_ell else
+                    "assemble_ell declined (not a single-leaf C0 Qk lattice space)")
+                mat = go.jacobian(x_lin, time)
+            self._setup_cache[key] = mat
+        return self._setup_cache[key]
+
+    def _jacobi_diag(self, go, op, x_lin, b, time):
+        key = (id(go), "diag", b.dtype, device_key(b.device))
         if key not in self._setup_cache:
-            if st is None:
-                self._setup_cache[key] = go.jacobian_diagonal(
-                    x_lin.to(device=b.device, dtype=b.dtype), time)
+            if op is not None:
+                d = op.diagonal(dtype=b.dtype, device=b.device)
             else:
-                self._setup_cache[key] = st.diagonal(dtype=b.dtype, device=b.device)
+                d = go.jacobian_diagonal(x_lin.to(device=b.device, dtype=b.dtype), time)
+            self._setup_cache[key] = d.to(device=b.device, dtype=b.dtype)
         return self._setup_cache[key]
 
     def report(self, go=None) -> str:
@@ -94,45 +134,111 @@ class LinearSolverBackend:
             reasons = self._setup_cache.get((gid, "tier_reasons"), {})
             for tier, why in reasons.items():
                 lines.append(f"  declined {tier}: {why}")
-            if "general-jvp" in p and not reasons:
+            if not self.matrix_free and not reasons:
+                lines.append("  (assembled path requested: matrix_free="
+                             "False; stencil tiers not attempted)")
+            if self.matrix_free and "general-jvp" in p and not reasons:
                 lines.append("  (stencil tier not attempted: nonlinear "
                              "operator or use_stencil=False)")
         return "\n".join(lines)
 
-    def solve(self, go, x_lin, b, reduction, time=0.0, x0=None):
-        """Solve J(x_lin) z = b to relative `reduction`; returns (z, stats)."""
-        custom = callable(self.precond)
+    def _operator(self, go, x_lin, b, time):
+        """(A, the stencil Jacobi reads its diagonal from or None, path)."""
+        if callable(self.precond):
+            return (lambda z: go.jacobian_apply(x_lin, z, time), None,
+                    "general-jvp (matrix-free) + custom preconditioner "
+                    f"{type(self.precond).__name__}")
+        if not self.matrix_free:
+            mat = self._assembled_for(go, x_lin, time)
+            if isinstance(mat, EllMatrix):
+                how = _kernel_how(mat.uses_ell27, "ell27", b.device)
+                return mat, None, f"assembled EllMatrix [{how}]"
+            return (lambda z: mat @ z, None,
+                    "assembled sparse COO matvec (slowest assembled tier)")
         st = None
-        if self.use_stencil and not custom and getattr(go.lop, "is_linear", False):
+        if self.use_stencil and getattr(go.lop, "is_linear", False):
             st = self._stencil_for(go, x_lin, time)
         if st is not None:
-            A = st
-            if not st.uses_stencil27:
-                how = "plain torch (k > 1 or 2D: no kernel)"
-            elif b.device.type == "cuda":
-                how = "stencil27 CUDA kernel"
-            else:
-                how = "stencil27 plain torch (CPU tensor)"
-            path = f"compiled stencil StencilOperator [{how}]"
-        else:
-            A = lambda z: go.jacobian_apply(x_lin, z, time)
-            path = "general-jvp (matrix-free batched assembly per apply)"
-        if custom:
+            how = _kernel_how(st.uses_stencil27, "stencil27", b.device)
+            return st, st, f"compiled stencil StencilOperator [{how}]"
+        return (lambda z: go.jacobian_apply(x_lin, z, time), None,
+                "general-jvp (matrix-free batched assembly per apply)")
+
+    def solve(self, go, x_lin, b, reduction, time=0.0, x0=None):
+        """Solve J(x_lin) z = b to relative `reduction`; returns (z, stats)."""
+        A, op, path = self._operator(go, x_lin, b, time)
+        if callable(self.precond):
             M = self.precond(go, x_lin, time)
-            path = ("general-jvp (matrix-free) + custom preconditioner "
-                    f"{type(self.precond).__name__}")
         elif self.precond == "jacobi":
-            diag = self._jacobi_diag(go, st, x_lin, b, time)
+            diag = self._jacobi_diag(go, op, x_lin, b, time)
             M = lambda r: r / diag
         else:
             M = krylov._identity
-        z, stats = krylov.cg(A, b, x0=x0, M=M, tol=reduction,
-                             maxiter=self.maxiter)
+        kw = {"restart": self.restart} if self.solver == "gmres" else {}
+        z, stats = krylov.SOLVERS[self.solver](A, b, x0=x0, M=M, tol=reduction,
+                                               maxiter=self.maxiter, **kw)
         self.stats_history.append(stats)
         self._last_path[id(go)] = path
         return z, stats
 
 
+# Convenience constructors mirroring common reference backends -------------
+
 def SEQ_CG_Jacobi(**kw):
     """ISTLBackend_SEQ_CG_Jac analog (seqistlsolverbackend.hh)."""
     return LinearSolverBackend(solver="cg", precond="jacobi", **kw)
+
+
+def SEQ_BCGS_Jacobi(**kw):
+    """ISTLBackend_SEQ_BCGS_Jac analog."""
+    return LinearSolverBackend(solver="bicgstab", precond="jacobi", **kw)
+
+
+def SEQ_GMRES_Jacobi(**kw):
+    return LinearSolverBackend(solver="gmres", precond="jacobi", **kw)
+
+
+def SEQ_CG_ILU0(**kw):
+    """ISTLBackend_SEQ_CG_ILU0 analog: CG with the fine-grained parallel
+    lattice ILU(0) (linalg/ilu.py; needs a single-leaf C0 Qk space)."""
+    from dune_pdelab_tpu_torch.linalg.ilu import ilu0_preconditioner
+    return LinearSolverBackend(solver="cg", precond=ilu0_preconditioner, **kw)
+
+
+def SEQ_BCGS_ILU0(**kw):
+    """ISTLBackend_SEQ_BCGS_ILU0 analog."""
+    from dune_pdelab_tpu_torch.linalg.ilu import ilu0_preconditioner
+    return LinearSolverBackend(solver="bicgstab", precond=ilu0_preconditioner, **kw)
+
+
+def SEQ_CG_ILUn(level=1, **kw):
+    """ISTLBackend_SEQ_CG_ILUn analog: lattice ILU with fill level n."""
+    from dune_pdelab_tpu_torch.linalg.ilu import ilun_preconditioner
+    return LinearSolverBackend(solver="cg", precond=ilun_preconditioner(level), **kw)
+
+
+def SEQ_BCGS_ILUn(level=1, **kw):
+    """ISTLBackend_SEQ_BCGS_ILUn analog."""
+    from dune_pdelab_tpu_torch.linalg.ilu import ilun_preconditioner
+    return LinearSolverBackend(solver="bicgstab", precond=ilun_preconditioner(level),
+                               **kw)
+
+
+def MatrixFree_CG_Richardson(**kw):
+    """ISTLBackend_SEQ_MatrixFree_Richardson analog (matrixfree/backends.hh)."""
+    return LinearSolverBackend(solver="cg", precond="richardson", **kw)
+
+
+def _not_ported(name, what, slice_):
+    def make(*args, **kw):
+        raise NotImplementedError(f"{name}: {what} is not ported yet "
+                                  f"(ROADMAP slice {slice_})")
+    make.__name__ = name
+    return make
+
+
+SEQ_CG_BlockJacobi = _not_ported("SEQ_CG_BlockJacobi", "block Jacobi", 7)
+SEQ_CG_SSOR = _not_ported("SEQ_CG_SSOR", "linalg/preconditioners.py (SSOR)", 7)
+SEQ_BCGS_SSOR = _not_ported("SEQ_BCGS_SSOR", "linalg/preconditioners.py (SSOR)", 7)
+SEQ_CG_AMG = _not_ported("SEQ_CG_AMG", "linalg/amg.py", 10)
+SEQ_BCGS_AMG = _not_ported("SEQ_BCGS_AMG", "linalg/amg.py", 10)

@@ -31,6 +31,18 @@ def full_fp32_on_cuda() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def device_key(device) -> torch.device:
+    """The one cache key of a device: "cuda", "cuda:0" and
+    torch.device("cuda", 0) all give torch.device("cuda", 0) (an unindexed
+    CUDA device is the current one). Strings of devices differ ("cuda" vs
+    "cuda:0"), and a cache keyed on them builds its tensors twice."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device()
+                         if torch.cuda.is_available() else 0)
+    return d
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 

@@ -137,6 +137,23 @@ def test_interpolate_and_helpers(dim, k, cells):
         np.asarray(jpt.set_nonconstrained_dofs(jc, 0.0, jnp.asarray(xj))))
 
 
+def test_device_key_normalises_cuda_spellings():
+    """The device-keyed caches (GridOperator contexts, DOF maps, constraint
+    masks, LatticeGMG levels, backend diagonals, fused operators) share one
+    key per device; no CUDA device is needed to compute it."""
+    from dune_pdelab_tpu_torch.utils.common import device_key
+
+    keys = {device_key(d) for d in ("cuda", "cuda:0", torch.device("cuda", 0),
+                                    torch.device("cuda"))}
+    if not torch.cuda.is_available():
+        assert keys == {torch.device("cuda", 0)}
+    assert len(keys) == 1 and device_key("cuda:1") != device_key("cuda:0")
+    assert device_key("cpu") == device_key(torch.device("cpu")) == torch.device("cpu")
+    _, tV = _spaces(3, 1, (2, 2, 2))
+    tc = tpt.constraints(True, tV)
+    assert tc.mask_on("cpu") is tc.mask_on(torch.device("cpu")) is tc.mask
+
+
 def test_unported_mesh_options_raise():
     with pytest.raises(NotImplementedError, match="slice 11"):
         tpt.StructuredMesh([0, 0], [1, 1], (4, 4), periodic=(True, False))

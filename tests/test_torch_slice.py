@@ -30,7 +30,8 @@ from dune_pdelab_tpu_torch.assembly.slabbed import residual_slabbed
 from dune_pdelab_tpu_torch.assembly.stencil import compile_stencil
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM as TFEM
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem as TProblem
-from dune_pdelab_tpu_torch.solvers import SEQ_CG_Jacobi, LinearSolverBackend
+from dune_pdelab_tpu_torch.solvers import (
+    SEQ_CG_AMG, SEQ_CG_Jacobi, SEQ_CG_SSOR, LinearSolverBackend)
 
 pytestmark = pytest.mark.fast
 torch.set_num_threads(1)
@@ -120,10 +121,13 @@ def test_backend_general_jvp_tier(chains):
     z, s = custom.solve(tgo, tV.zero(F64), b, 1e-10)
     assert "custom preconditioner" in custom.report()
     assert s.iterations == s_ref.iterations and _rel(z.numpy(), ref.numpy()) <= 1e-10
-    for kw, slice_ in [(dict(solver="bicgstab"), "slice 3"),
+    for kw, slice_ in [(dict(precond="chebyshev"), "slice 7"),
                        (dict(precond="block_jacobi"), "slice 7")]:
         with pytest.raises(NotImplementedError, match=slice_):
             LinearSolverBackend(**kw)
+    for make, slice_ in [(SEQ_CG_AMG, "slice 10"), (SEQ_CG_SSOR, "slice 7")]:
+        with pytest.raises(NotImplementedError, match=slice_):
+            make()
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|dune_pdelab_tpu)(\.|\s|$)", re.M)
