@@ -38,14 +38,25 @@ Phases (each passes or raises; there is no CPU path):
      CSR matvec as yardstick; (d) Jacobi-CG on the assembled ELL
      (matrix_free=False) at 255^3, and its iteration count and solution
      against the general-jvp tier at 63^3; (e) the config9_assembled_ilu
-     golden in fp64 and SEQ_CG_ILU0 at 127^3 cells next to Jacobi-CG.
+     golden in fp64 and SEQ_CG_ILU0 at 127^3 cells next to Jacobi-CG;
+  7. the DG path (bench.py:835-975), Q1/Q2 DG SIPG on the unit cube or
+     square: (a) block_stencil_mm and block_stencil_em against their plain
+     versions on SIPG weights (128^3 Q1 fp32 both layouts, 37x29x23 Q2 fp64
+     both layouts, 2048^2 Q2 fp32 and the 32^2 config3/config7 shapes
+     element-major), timed against their bound, plain version and a
+     TF32-off convolution; (b) bench.py's _dg_half at 128^3 cells:
+     compile_block_stencil (proxy branch) and the mode-major apply, held
+     against go.jacobian_apply; (c) _dgmg_half at 64^3 and 128^3 cells:
+     DGTwoLevel on the mode-major stencil inside a host PCG loop, with the
+     launches per iteration counted; (d) the config3 and config7 goldens in
+     fp64 (element-major kernel, 2D).
 
-Launch counts are set to 0 before each of phases 3 to 6 and read after
+Launch counts are set to 0 before each of phases 3 to 7 and read after
 it; a kernel of that path that was never launched fails the run (the
-comparison launches of phases 6a and 6c are not counted). Prints phase results and
-times, the card's name and power limit, one JSON line {"kernels": [...]}
-with each kernel's launches over phases 3-6, error, times and bound, and as
-its last line {"ok": true, "device": {...}}.
+comparison launches of phases 6a, 6c and 7a are not counted). Prints phase
+results and times, the card's name and power limit, one JSON line
+{"kernels": [...]} with each kernel's launches over phases 3-7, error,
+times and bound, and as its last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -68,6 +79,26 @@ ASM_CELLS = 255       # assembled path (bench.py:734): N = 256^3 DOFs
 ASM_SMALL = 63        # direct-vs-probed and iteration-parity checks
 ILU_CELLS = 127       # SEQ_CG_ILU0 on the assembled-path problem
 C9_CELLS = 12         # config9 golden
+DG_CELLS = 128        # _dg_half (bench.py:835): N = 16,777,216 DG DOFs
+DGMG_CELLS = (64, 128)   # _dgmg_half (bench.py:899)
+# phase 7a: (cells, Q degree, dtype name, layouts, layout recorded in the
+# kernels JSON line or None)
+DG_KERNEL_CASES = [((DG_CELLS,) * 3, 1, "float32", ("mm", "em"), "mm"),
+                   ((37, 29, 23), 2, "float64", ("mm", "em"), None),
+                   ((2048, 2048), 2, "float32", ("em",), "em"),
+                   ((32, 32), 2, "float64", ("em",), None),
+                   ((32, 32), 1, "float64", ("em",), None)]
+# the config3 golden's BiCGStab step count is set by rounding (it stalls
+# near the 1e-10 target; tests/test_torch_dg.py CONFIG3_STEPS_BAND), so it
+# is held to a band, its L2 error to CONFIG3_L2_BAND of the golden, and the
+# L2 error solved to 1e-13 to the JAX package's on the CPU (fp64,
+# models/configs.py config3_convdiff_sipg(reduction=1e-13)).
+CONFIG3_STEPS_BAND = 20
+CONFIG3_L2_BAND = 2e-5
+CONFIG3_L2_TIGHT = 1.5662241489950314e-05
+# config7: the JAX package's CG steps today (6; the golden's 7 predates its
+# face-parity smoother, tests/test_torch_dgmg.py test_config7_golden)
+CONFIG7_STEPS = 6
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 
@@ -1053,6 +1084,307 @@ def phase_assembled(torch, pt, dev, record):
     asm_ilu(torch, pt, dev)
 
 
+def dg_operator(pt, cells, k, problem):
+    """GridOperator of ConvectionDiffusionDG(problem) (SIPG) on the unit
+    cube or square with QkDG(k). bench.py's DG problem (bench.py:851-853)
+    is unit_source_problem(): f == 1, homogeneous Dirichlet data, imposed
+    weakly (Nitsche)."""
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionDG
+    dim = len(cells)
+    mesh = pt.StructuredMesh([0] * dim, [1] * dim, cells)
+    V = pt.FunctionSpace(mesh, pt.QkDGFEM(k, dim))
+    return V, pt.GridOperator(V, ConvectionDiffusionDG(problem))
+
+
+def block_work(cells, nb, es):
+    """(bytes, operations) of one block-stencil apply: z read and y written
+    once plus the 13 nb x nb weight blocks; an FMA counted as 2 per weight,
+    for every tap whose neighbour lies in the grid and every boundary
+    side's dD block on its face elements."""
+    import numpy as np
+    cells = [int(c) for c in cells]
+    E = int(np.prod(cells))
+    blocks = E                                       # centre tap
+    for c in cells:
+        blocks += 2 * (E // c) * (c - 1)             # -/+ neighbours
+        blocks += 2 * (E // c)                       # dD on both sides
+    return 2 * E * nb * es + 13 * nb * nb * es, 2 * nb * nb * blocks
+
+
+def conv_ms(torch, z, W, cells, reps):
+    """Time of one TF32-off convolution with the block stencil's taps
+    (nb -> nb channels, 3^dim kernel, padding 1, no dD) on z."""
+    import torch.nn.functional as F
+    nb = W.shape[-1]
+    dim = len(cells)
+    grid = tuple(reversed([int(c) for c in cells]))
+    x = z.reshape(grid + (nb,)).movedim(-1, 0)[None].contiguous()
+    K = torch.zeros((nb, nb) + (3,) * dim, dtype=z.dtype, device=z.device)
+    from dune_pdelab_tpu_torch.kernels.blockstencil import TAP_ORDER
+    for t, off in enumerate(TAP_ORDER[:2 * dim + 1]):
+        K[(slice(None), slice(None)) + tuple(off[dim - 1 - s] + 1 for s in range(dim))] = W[t]
+    conv = F.conv3d if dim == 3 else F.conv2d
+    return cuda_ms(torch, lambda: conv(x, K, padding=1), reps)
+
+
+def dg_kernels(torch, pt, dev):
+    """Phase 7a: block_stencil_mm / block_stencil_em against their plain
+    versions on the card, on SIPG weights; kernel, plain and convolution
+    times against the bound. Returns the JSON records; its launches are
+    not counted."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.assembly.blockstencil import compile_block_stencil
+    from dune_pdelab_tpu_torch.assembly.blockstencil_mm import try_mm_block_stencil
+    from dune_pdelab_tpu_torch.kernels import blockstencil as bk
+
+    saved = bk.launches_mm, bk.launches_em
+    rng = np.random.default_rng(70)
+    record = {}
+    for cells, k, dtype_name, layouts, recorded in DG_KERNEL_CASES:
+        dtype = getattr(torch, dtype_name)
+        _, go = dg_operator(pt, cells, k, unit_source_problem())
+        st = compile_block_stencil(go, dtype=torch.float64, device=dev)
+        if st is None:
+            raise AssertionError(f"compile_block_stencil declined at {cells}")
+        W, dD = st.taps(dtype, dev)
+        nb = st.nb
+        z = torch.as_tensor(rng.standard_normal(st.ndofs), dtype=dtype, device=dev)
+        tol = 1e-6 if dtype == torch.float32 else 1e-13
+        tag = "x".join(map(str, cells)) + f" Q{k} nb={nb} {str(dtype).replace('torch.', '')}"
+        big = st.ndofs > 10**7
+        nbytes, flops = block_work(cells, nb, z.element_size())
+        for layout in layouts:
+            if layout == "mm":
+                mm = try_mm_block_stencil(st)
+                arg = mm.to_mm(z)
+                run = lambda: bk.block_stencil_mm(arg, W, dD, cells)
+                plain = lambda: bk.block_stencil_mm_reference(arg, W, dD, cells)
+            else:
+                arg = z
+                run = lambda: bk.block_stencil_em(arg, W, dD, cells)
+                plain = lambda: bk.block_stencil_em_reference(arg, W, dD, cells)
+            y, y_p = run(), plain()
+            torch.cuda.synchronize()
+            err = float((y - y_p).abs().max())
+            lim = tol * float(y_p.abs().max())
+            if not (bool(torch.isfinite(y).all()) and err <= lim):
+                raise AssertionError(f"block_stencil_{layout} {tag}: max abs err "
+                                     f"{err:.3e} > {lim:.3e}")
+            ms = cuda_ms(torch, run, 20 if big else 50)
+            plain_ms = cuda_ms(torch, plain, 3 if big else 10)
+            lib_ms = conv_ms(torch, z, W, cells, 10 if big else 30)
+            b = bound(nbytes, flops)
+            log(f"[phase 7a] block_stencil_{layout} {tag}: max abs err {err:.3e} "
+                f"(max|y| {float(y_p.abs().max()):.3e}), {ms:.4f} ms "
+                f"({st.ndofs / ms / 1e6:.3f} Gdof/s), plain {plain_ms:.4f} ms, conv "
+                f"{lib_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+                f"kernel at {100 * b['bound_ms'] / ms:.1f}% of it")
+            if layout == recorded:
+                record[f"blockstencil_{layout}"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                    "library_ms": lib_ms}
+            del y, y_p
+        del z, arg, go, st
+        torch.cuda.empty_cache()
+    bk.launches_mm, bk.launches_em = saved
+    return record
+
+
+def dg_half(torch, pt, dev):
+    """Phase 7b: bench.py's _dg_half at DG_CELLS^3 Q1 DG SIPG, fp32:
+    compile_block_stencil (proxy branch), the mode-major apply timed, and
+    the lowered operator against go.jacobian_apply at a random z."""
+    from dune_pdelab_tpu_torch.assembly import stencil as stencil_mod
+    from dune_pdelab_tpu_torch.assembly.blockstencil import compile_block_stencil
+    from dune_pdelab_tpu_torch.assembly.blockstencil_mm import try_mm_block_stencil
+
+    V, go = dg_operator(pt, (DG_CELLS,) * 3, 1, unit_source_problem())
+    N = V.ndofs
+    if not go.mesh.nelements > stencil_mod.PROXY_MIN_ELEMENTS:
+        raise AssertionError("compile_block_stencil would not take the proxy branch")
+    st, comp_s = timed(torch, lambda: compile_block_stencil(go))
+    mm = try_mm_block_stencil(st)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    z = torch.randn(N, generator=gen, dtype=torch.float32, device=dev)
+    zmm = mm.to_mm(z)
+    ms = cuda_ms(torch, lambda: mm.apply_mm(zmm), 20)
+    y = mm(z)
+    y_ref = go.jacobian_apply(torch.zeros_like(z), z)
+    err = float((y - y_ref).abs().max())
+    lim = 1e-4 * float(y_ref.abs().max())
+    log(f"[phase 7b] dg half {DG_CELLS}^3 cells Q1 DG (N = {N}): compile_block_stencil "
+        f"(proxy) {comp_s:.2f} s; mode-major apply {ms:.4f} ms = {N / ms / 1e6:.3f} "
+        f"Gdof/s; lowered operator vs go.jacobian_apply max abs {err:.3e} "
+        f"(limit {lim:.3e})")
+    if not (bool(torch.isfinite(y).all()) and err <= lim):
+        raise AssertionError("mode-major block stencil disagrees with go.jacobian_apply")
+
+
+def dgmg_half(torch, pt, cells, dev):
+    """Phase 7c at cells^3: bench.py's _dgmg_half (bench.py:899-975):
+    DGTwoLevel on the mode-major block stencil, a host PCG loop to 1e-8
+    (bench.py:941-960), fp32; launches of the timed run held against
+    iterations x applies per iteration. Returns the iteration count."""
+    from dune_pdelab_tpu_torch.assembly.blockstencil import compile_block_stencil
+    from dune_pdelab_tpu_torch.assembly.blockstencil_mm import try_mm_block_stencil
+    from dune_pdelab_tpu_torch.kernels import blockstencil as bk
+    from dune_pdelab_tpu_torch.kernels import stencil27 as sk
+    from dune_pdelab_tpu_torch.linalg import DGTwoLevel
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
+
+    p = unit_source_problem()
+    V, go = dg_operator(pt, (cells,) * 3, 1, p)
+    N = V.ndofs
+    t0 = time.perf_counter()
+    A = try_mm_block_stencil(compile_block_stencil(go))
+    tl = DGTwoLevel(go, ConvectionDiffusionFEM(p))
+    tl.setup(operator=A)
+    b = -go.residual(V.zero(torch.float32))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def run(bb, tol=1e-8, maxiter=60):
+        x = torch.zeros_like(bb)
+        r = bb
+        z = tl.apply(r)
+        pvec, rz = z, float(torch.dot(r, z))
+        nb0 = float(torch.linalg.norm(bb))
+        k, converged = 0, False
+        while k < maxiter:
+            Ap = A(pvec)
+            alpha = rz / float(torch.dot(pvec, Ap))
+            x = x + alpha * pvec
+            r = r - alpha * Ap
+            k += 1
+            if float(torch.linalg.norm(r)) <= tol * nb0:
+                converged = True
+                break
+            zv = tl.apply(r)
+            rz_new = float(torch.dot(r, zv))
+            pvec = zv + (rz_new / rz) * pvec
+            rz = rz_new
+        return x, k, converged
+
+    run(b)                                        # warm-up
+    torch.cuda.synchronize()
+    gl = tl.gmg_lattice
+    mm0, s27 = bk.launches_mm, sk.launches
+    t0 = time.perf_counter()
+    x, it, converged = run(b)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    cycles = it if converged else it + 1
+    # per V-cycle: 3 colour steps per sweep (the first one on z = 0 needs
+    # no apply) and the residual before the coarse correction
+    want_mm = it + cycles * 3 * (tl.pre + tl.post)
+    want_s27 = cycles * (gl.nlevels - 1) * (gl.pre + gl.post + 1)
+    got_mm, got_s27 = bk.launches_mm - mm0, sk.launches - s27
+    true_rel = float(torch.linalg.norm(A(x) - b) / torch.linalg.norm(b))
+    log(f"[phase 7c] dgmg {cells}^3 cells (N = {N}): setup {setup_s:.2f} s, {it} "
+        f"iterations in {dt:.4f} s = {1e3 * dt / max(it, 1):.3f} ms/iteration, "
+        f"converged {converged}, true rel residual {true_rel:.3e}; launches "
+        f"blockstencil_mm {got_mm} (expected {want_mm}), stencil27 {got_s27} "
+        f"(expected {want_s27}, {gl.nlevels} levels)")
+    if not (converged and bool(torch.isfinite(x).all()) and true_rel < 1e-2):
+        raise AssertionError(f"dgmg {cells}^3 failed")
+    if (got_mm, got_s27) != (want_mm, want_s27):
+        raise AssertionError(f"dgmg {cells}^3 launch counts {got_mm}, {got_s27} != "
+                             f"{want_mm}, {want_s27}")
+    del x, b, tl, A, go, V
+    torch.cuda.empty_cache()
+    return it
+
+
+def dg_goldens(torch, pt, dev):
+    """Phase 7d: config3 (BiCGStab + Jacobi on the element-major block
+    stencil) and config7 (CG + DGTwoLevel) in fp64 on the card, against
+    tests/golden_parity.json and the JAX package's CPU numbers."""
+    from dune_pdelab_tpu_torch.linalg import DGTwoLevel
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionDG, ConvectionDiffusionFEM
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend, SEQ_BCGS_Jacobi
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    pi = math.pi
+    golden = json.loads((ROOT / "tests" / "golden_parity.json").read_text())
+
+    class Sine2D(ConvectionDiffusionProblem):
+        """models/configs.py _Sine2D."""
+
+        def exact(self, p):
+            return torch.sin(pi * p[:, 0]) * torch.cos(2 * pi * p[:, 1]) + p[:, 0]
+
+        def f(self, x):
+            return 5 * pi**2 * torch.sin(pi * x[..., 0]) * torch.cos(2 * pi * x[..., 1])
+
+        def g(self, x):
+            return torch.sin(pi * x[..., 0]) * torch.cos(2 * pi * x[..., 1]) + x[..., 0]
+
+    class CD(Sine2D):
+        """config3's convection (models/configs.py:85-110)."""
+
+        def b(self, x):
+            return torch.broadcast_to(torch.tensor([1.0, 0.5], dtype=x.dtype,
+                                                   device=x.device), x.shape)
+
+        def f(self, x):
+            gx = pi * torch.cos(pi * x[..., 0]) * torch.cos(2 * pi * x[..., 1]) + 1.0
+            gy = -2 * pi * torch.sin(pi * x[..., 0]) * torch.sin(2 * pi * x[..., 1])
+            return super().f(x) + 1.0 * gx + 0.5 * gy
+
+    want = golden["config3_convdiff_sipg"]
+    p = CD()
+    for red in (1e-10, 1e-13):
+        V = pt.FunctionSpace(pt.StructuredMesh([0, 0], [1, 1], (32, 32)), pt.QkDGFEM(2, 2))
+        go = pt.GridOperator(V, ConvectionDiffusionDG(p))
+        ls = SEQ_BCGS_Jacobi()
+        slp = pt.StationaryLinearProblemSolver(go, ls, reduction=red, verbose=0)
+        x, wall = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
+        l2 = float(l2_difference(V, x, p.exact))
+        its = slp.result.linear_solver_iterations
+        rep = ls.report(go).splitlines()[0]
+        ref = want["l2_error"] if red == 1e-10 else CONFIG3_L2_TIGHT
+        rel = abs(l2 - ref) / ref
+        log(f"[phase 7d] config3 fp64 to {red:.0e}: {its} BiCGStab steps, L2 {l2:.16e} "
+            f"(rel {rel:.2e} to {'the golden' if red == 1e-10 else 'the JAX package at 1e-13'}"
+            f"), {wall:.2f} s; {rep}")
+        if "blockstencil CUDA kernel" not in rep or not slp.result.converged:
+            raise AssertionError("config3 did not run the element-major block stencil kernel")
+        if red == 1e-10 and not (abs(its - want["iterations"]) <= CONFIG3_STEPS_BAND
+                                 and rel <= CONFIG3_L2_BAND):
+            raise AssertionError("config3 golden mismatch")
+        if red == 1e-13 and not rel <= 1e-8:
+            raise AssertionError("config3 converged L2 differs from the JAX package's")
+
+    want = golden["config7_dg_twolevel"]
+    p = Sine2D()
+    V = pt.FunctionSpace(pt.StructuredMesh([0, 0], [1, 1], (32, 32)), pt.QkDGFEM(1, 2))
+    go = pt.GridOperator(V, ConvectionDiffusionDG(p))
+    pre = DGTwoLevel(go, ConvectionDiffusionFEM(p), bctype=p.dirichlet_bctype())
+    ls = LinearSolverBackend(solver="cg", precond=pre, use_stencil=False)
+    slp = pt.StationaryLinearProblemSolver(go, ls, reduction=1e-10, verbose=0)
+    x, wall = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
+    l2 = float(l2_difference(V, x, p.exact))
+    its = slp.result.linear_solver_iterations
+    rel = abs(l2 - want["l2_error"]) / want["l2_error"]
+    log(f"[phase 7d] config7 fp64: {its} CG steps (the JAX package: {CONFIG7_STEPS}), L2 "
+        f"{l2:.16e} (golden {want['l2_error']:.16e}, rel {rel:.2e}), {wall:.2f} s")
+    if not (slp.result.converged and its == CONFIG7_STEPS and rel <= 1e-8):
+        raise AssertionError("config7 golden mismatch")
+
+
+def phase_dg(torch, pt, dev, record):
+    """Phase 7: the DG path; the kernel comparison (7a) goes into
+    `record`, uncounted."""
+    record.update(dg_kernels(torch, pt, dev))
+    dg_half(torch, pt, dev)
+    torch.cuda.empty_cache()
+    its = {n: dgmg_half(torch, pt, n, dev) for n in DGMG_CELLS}
+    if not its[DGMG_CELLS[-1]] <= its[DGMG_CELLS[0]] + 2:
+        raise AssertionError(f"dgmg iterations not flat: {its}")
+    dg_goldens(torch, pt, dev)
+
+
 def main():
     if not (ROOT / "dune_pdelab_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -1066,6 +1398,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     import dune_pdelab_tpu_torch as pt
     from dune_pdelab_tpu_torch.kernels import _build
+    from dune_pdelab_tpu_torch.kernels import blockstencil as bk
     from dune_pdelab_tpu_torch.kernels import ell27 as ek
     from dune_pdelab_tpu_torch.kernels import fused_cg as fk
     from dune_pdelab_tpu_torch.kernels import stencil27 as sk
@@ -1095,7 +1428,8 @@ def main():
 
     counters = {"stencil27": (sk, "launches"), "fused_cg_k1": (fk, "launches_k1"),
                 "fused_cg_k2": (fk, "launches_k2"), "structured_fused": (sfk, "launches"),
-                "ell27": (ek, "launches")}
+                "ell27": (ek, "launches"), "blockstencil_mm": (bk, "launches_mm"),
+                "blockstencil_em": (bk, "launches_em")}
     paths = [
         ("phase 3 (fused CG)", lambda: phase_main(torch, pt, MAIN_CELLS, MAIN_ITERS, dev),
          ("stencil27", "fused_cg_k1", "fused_cg_k2")),
@@ -1105,6 +1439,8 @@ def main():
          ("stencil27", "structured_fused")),
         ("phase 6 (assembled)", lambda: phase_assembled(torch, pt, dev, record),
          ("structured_fused", "ell27")),
+        ("phase 7 (DG)", lambda: phase_dg(torch, pt, dev, record),
+         ("blockstencil_mm", "blockstencil_em", "stencil27")),
     ]
     totals = dict.fromkeys(counters, 0)
     for name, run, needed in paths:
@@ -1119,7 +1455,7 @@ def main():
             raise AssertionError(f"{name} never launched {missing}: {counts}")
         for k in totals:
             totals[k] += counts[k]
-    log(f"launch counts over phases 3-6: {totals}")
+    log(f"launch counts over phases 3-7: {totals}")
 
     meta = {
         "stencil27": ("dune_pdelab_tpu_torch/csrc/stencil27.cu",
@@ -1132,6 +1468,10 @@ def main():
                              "dune_pdelab_tpu/assembly/structured_fused.py:256"),
         "ell27": ("dune_pdelab_tpu_torch/csrc/ell27.cu",
                   "dune_pdelab_tpu/assembly/ell_pallas.py:98"),
+        "blockstencil_mm": ("dune_pdelab_tpu_torch/csrc/blockstencil.cu",
+                            "dune_pdelab_tpu/assembly/blockstencil_mm.py:329"),
+        "blockstencil_em": ("dune_pdelab_tpu_torch/csrc/blockstencil.cu",
+                            "dune_pdelab_tpu/assembly/blockstencil_pallas.py:112"),
     }
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=totals[k], **record[k])

@@ -12,13 +12,19 @@ compilation, CG, fused CG, the CG + Jacobi backend and the stationary
 solver), its multigrid solve routes (LatticeGMG, VarCoeffGMG on the
 fused structured Q1 operator, fp64 defect-correction refinement) and the
 assembled lattice-ELL path (ELL assembly and SpMV, lattice ILU(0)/ILU(n),
-the Krylov solvers and their backends). See ROADMAP.md for what remains.
+the Krylov solvers and their backends) and the DG path (QkDGFEM, boundary
+and skeleton face groups, SIPG/NIPG/IIPG, the block stencil in mode-major
+and element-major layouts, block preconditioners, DGTwoLevel). See
+ROADMAP.md for what remains.
+
+Entry points put their tensors on `default_device()`, the card, unless the
+caller names a device or calls `set_default_device` (the CPU tests do).
 """
 
 __version__ = "0.1.0"
 
 from dune_pdelab_tpu_torch.mesh import StructuredMesh
-from dune_pdelab_tpu_torch.fe import QkFEM, gauss_legendre, quadrature_rule
+from dune_pdelab_tpu_torch.fe import QkDGFEM, QkFEM, gauss_legendre, quadrature_rule
 from dune_pdelab_tpu_torch.space import FunctionSpace
 from dune_pdelab_tpu_torch.constraints import (
     DirichletConstraints, constraints, interpolate_dirichlet,
@@ -31,6 +37,8 @@ from dune_pdelab_tpu_torch.linalg.krylov import (
 from dune_pdelab_tpu_torch.solvers.linear import (
     LinearSolverBackend, SEQ_CG_Jacobi, SEQ_BCGS_Jacobi, SEQ_GMRES_Jacobi,
     MatrixFree_CG_Richardson, SEQ_CG_ILU0, SEQ_BCGS_ILU0, SEQ_CG_ILUn,
-    SEQ_BCGS_ILUn,
+    SEQ_BCGS_ILUn, SEQ_CG_BlockJacobi,
 )
+from dune_pdelab_tpu_torch.linalg.dgmultigrid import DGTwoLevel
+from dune_pdelab_tpu_torch.utils.common import default_device, set_default_device
 from dune_pdelab_tpu_torch.solvers import StationaryLinearProblemSolver

@@ -1,18 +1,21 @@
 """Leaf DOF transfer strategies: local<->global gather/scatter.
 
-PyTorch port of dune_pdelab_tpu/assembly/dofmaps.py (SlicedDofMap,
-IndexDofMap and make_leaf_dof_map; the DG ReshapeDofMap and the face
-transfers wait for ROADMAP slice 7).
+PyTorch port of dune_pdelab_tpu/assembly/dofmaps.py:
 
-  * SlicedDofMap - structured-mesh tensor-product C0 spaces: "element e,
+  * SlicedDofMap  - structured-mesh tensor-product C0 spaces: "element e,
     local node l -> k*e + l" is a strided slice of the DOF grid per local
     node, so gather and scatter-add are nloc strided slice copies/adds.
-  * IndexDofMap  - fallback: explicit index arrays + gather / index_add.
+  * ReshapeDofMap - DG spaces: element DOFs are contiguous, so the whole
+    transfer is one reshape.
+  * IndexDofMap   - fallback: explicit index arrays + gather / index_add.
 
-Both expose gather(x) -> (E, nloc) and scatter_add(r, r_loc) -> r. The
-scatter-adds write into fresh tensors with in-place slice adds, which
-torch.func.jvp differentiates (forward mode) like the reference's
-functional `.at[...].add`.
+All expose gather(x) -> (E, nloc) and scatter_add(r, r_loc) -> r. Face
+groups have their own transfers: SlabFaceTransfer (DG leaves on a
+structured mesh: the inside/outside elements of a face group are a slab of
+the element grid, so a slice) and IndexFaceTransfer (index arrays). The
+scatter-adds build fresh tensors (in-place slice adds on new zeros, or
+zero padding), which torch.func.jvp differentiates (forward mode) like the
+reference's functional `.at[...].add`.
 """
 from __future__ import annotations
 
@@ -42,6 +45,23 @@ class IndexDofMap:
     def scatter_add(self, r, r_loc):
         idx = self._on(r.device).reshape(-1)
         return r.index_add(0, idx, r_loc.reshape(-1).to(r.dtype))
+
+
+class ReshapeDofMap:
+    """DG fast path: element DOFs are [offset + e*nb + l]."""
+
+    def __init__(self, offset: int, nelements: int, nbasis: int):
+        self.offset = int(offset)
+        self.E = int(nelements)
+        self.nb = int(nbasis)
+
+    def gather(self, x):
+        return x[self.offset:self.offset + self.E * self.nb].reshape(self.E, self.nb)
+
+    def scatter_add(self, r, r_loc):
+        flat = r_loc.reshape(-1).to(r.dtype)
+        n = self.E * self.nb
+        return r + F.pad(flat, (self.offset, r.shape[0] - self.offset - n))
 
 
 class SlicedDofMap:
@@ -102,6 +122,9 @@ def make_leaf_dof_map(leaf, element_dofs: np.ndarray | None, offset=None):
     """
     fem = leaf.fem
     mesh = leaf.mesh
+    if offset is not None and fem.continuity == "DG" and element_dofs is None:
+        # standalone DG leaf: the layout is element-major by construction
+        return ReshapeDofMap(int(offset), mesh.nelements, fem.nbasis)
     if (offset is not None and fem.continuity == "C0"
             and hasattr(fem, "_mi")
             and getattr(fem, "variant", "equidistant") == "equidistant"
@@ -110,3 +133,60 @@ def make_leaf_dof_map(leaf, element_dofs: np.ndarray | None, offset=None):
                             mesh.periodic, fem._mi)
     return IndexDofMap(leaf.element_dofs if element_dofs is None
                        else element_dofs)
+
+
+class IndexFaceTransfer:
+    """General face-group transfer via element index arrays (F, nloc)."""
+
+    def __init__(self, leaf_dofs: np.ndarray):
+        self._map = IndexDofMap(leaf_dofs)
+
+    def gather(self, x):
+        return self._map.gather(x)
+
+    def scatter_add(self, r, r_loc):
+        return self._map.scatter_add(r, r_loc)
+
+
+class SlabFaceTransfer:
+    """Structured-mesh face-group transfer for DG (reshape) leaves.
+
+    For faces normal to `axis`, the inside/outside element sets are slabs
+    of the element grid, [lo, cells[axis] + hi_off) along that axis, so
+    gathering the face coefficients is a reshape + slice of the leaf's
+    contiguous DOF block, and the scatter-add zero-pads the slab back to
+    the grid: no index arrays. (Periodic closure, the reference's
+    `periodic_roll`, waits for ROADMAP slice 11.)
+    """
+
+    def __init__(self, offset: int, cells, nbasis: int, axis: int,
+                 lo: int, hi_off: int):
+        self.offset = int(offset)
+        self.cells = tuple(int(c) for c in cells)
+        self.nb = int(nbasis)
+        self.E = int(np.prod(self.cells))
+        self.dim = len(self.cells)
+        self.axis = int(axis)
+        self.gax = self.dim - 1 - self.axis      # C-order axis in the grid view
+        self.lo = int(lo)
+        self.hi = self.cells[self.axis] + int(hi_off)
+        self.grid_shape = tuple(reversed(self.cells)) + (self.nb,)
+
+    def _slc(self):
+        idx = [slice(None)] * (self.dim + 1)
+        idx[self.gax] = slice(self.lo, self.hi)
+        return tuple(idx)
+
+    def gather(self, x):
+        g = x[self.offset:self.offset + self.E * self.nb].reshape(self.grid_shape)
+        return g[self._slc()].reshape(-1, self.nb)
+
+    def scatter_add(self, r, r_loc):
+        shape = list(self.grid_shape)
+        shape[self.gax] = self.hi - self.lo
+        g = r_loc.reshape(shape).to(r.dtype)
+        # F.pad lists (before, after) pairs from the last axis backwards
+        pad = [0, 0] * (self.dim - self.gax) + [self.lo, self.cells[self.axis] - self.hi]
+        full = F.pad(g, pad).reshape(-1)
+        n = self.E * self.nb
+        return r + F.pad(full, (self.offset, r.shape[0] - self.offset - n))

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch.func import jvp
 
 from dune_pdelab_tpu_torch.kernels.ell27 import ell27
-from dune_pdelab_tpu_torch.utils.common import default_float
+from dune_pdelab_tpu_torch.utils.common import default_float, resolve_device
 
 
 def lattice_offsets(k, dim):
@@ -113,7 +113,7 @@ def _lattice_space(space):
 
 
 def _default_x_lin(go):
-    device = go.cg.mask.device if go.cg is not None else "cpu"
+    device = go.cg.mask.device if go.cg is not None else resolve_device(None)
     return torch.zeros(go.space.ndofs, dtype=default_float(), device=device)
 
 

@@ -1,7 +1,7 @@
 """Element geometry precomputation for the batched assembler.
 
 PyTorch port of dune_pdelab_tpu/assembly/geometry.py, uniform path only
-(multilinear geometry and FaceGeometry wait for ROADMAP slices 11 and 7).
+(multilinear geometry and mapped face geometry wait for ROADMAP slice 11).
 Every element is the same axis-aligned box, so the Jacobian is one shared
 diagonal and the per-element data is the element origin. Origins are never
 held on the host: at 512^3 an eager (E, dim) float64 origin array costs
@@ -51,3 +51,39 @@ class VolumeGeometry:
     def transform_grad(self, ref_grad: np.ndarray) -> np.ndarray:
         """Reference (nqp, nb, d) -> physical gradients (1, nqp, nb, d)."""
         return (ref_grad / self.mesh.h)[None]
+
+
+def embed_face_points(qp_face: np.ndarray, axis: int, side: int, dim: int) -> np.ndarray:
+    """Embed (nqp, dim-1) face points into the reference cube at face
+    (axis, side): coordinate `axis` pinned to `side`, tangential axes in
+    increasing order carry the face coordinates."""
+    nqp = qp_face.shape[0]
+    pts = np.empty((nqp, dim))
+    pts[:, axis] = float(side)
+    t = 0
+    for d in range(dim):
+        if d != axis:
+            pts[:, d] = qp_face[:, t]
+            t += 1
+    return pts
+
+
+class FaceGeometry:
+    """Geometry of a group of faces normal to `axis` on a uniform
+    structured mesh: one shared normal, one shared face measure."""
+
+    def __init__(self, mesh: StructuredMesh, axis: int,
+                 qp_face: np.ndarray, weights: np.ndarray):
+        if not mesh.uniform:
+            raise NotImplementedError(
+                "face integrals on mapped meshes are not ported yet "
+                "(ROADMAP slice 11)")
+        self.mesh = mesh
+        self.axis = axis
+        self.qp_face = qp_face
+        self.weights = weights
+        h = mesh.h
+        tang = [d for d in range(mesh.dim) if d != axis]
+        self.measure = float(np.prod(h[tang])) if tang else 1.0
+        self.factor = (weights * self.measure)[None, :]       # (1, nqp)
+        self.h_normal = np.array([h[axis]])                   # (1,)

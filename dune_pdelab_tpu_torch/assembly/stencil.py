@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from dune_pdelab_tpu_torch.kernels.stencil27 import stencil27, tap_tensor
 from dune_pdelab_tpu_torch.space.space import _leaf_boundary_dof_mask, to_numpy
-from dune_pdelab_tpu_torch.utils.common import default_float
+from dune_pdelab_tpu_torch.utils.common import default_float, resolve_device
 
 # Meshes with more elements than this are probed on a small proxy mesh of
 # the same spacing (module constant so a test can lower it).
@@ -114,8 +114,8 @@ def compile_stencil(go, x_lin=None, time=0.0, check=True, dtype=None,
     """Build a StencilOperator equivalent to go.jacobian_apply(x_lin, . ).
 
     Probes run in `dtype` on `device` (defaults: x_lin's, else the default
-    float and the constraint mask's device). Returns None when the
-    operator/space does not qualify.
+    float and the constraint mask's device, else the default device).
+    Returns None when the operator/space does not qualify.
     """
     space = go.space
     if not getattr(space, "is_leaf", False):
@@ -132,7 +132,7 @@ def compile_stencil(go, x_lin=None, time=0.0, check=True, dtype=None,
         device = device or x_lin.device
     dtype = dtype or default_float()
     if device is None:
-        device = go.cg.mask.device if go.cg is not None else "cpu"
+        device = go.cg.mask.device if go.cg is not None else resolve_device(None)
     if go.cg is not None:
         # boundary rows must all be constrained for the masked stencil to
         # be exact (they get overwritten by identity)

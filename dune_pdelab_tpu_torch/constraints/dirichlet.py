@@ -12,19 +12,20 @@ import numpy as np
 import torch
 
 from dune_pdelab_tpu_torch.space.space import FunctionSpace
-from dune_pdelab_tpu_torch.utils.common import device_key
+from dune_pdelab_tpu_torch.utils.common import device_key, resolve_device
 
 
 class DirichletConstraints:
     """Static constraint data for one flat DOF vector.
 
-    `mask_np` is the host copy; `mask` lives on `device`. Vectors on
-    another device get a cached copy through `mask_on`.
+    `mask_np` is the host copy; `mask` lives on `device` (default: the
+    card, utils/common.default_device). Vectors on another device get a
+    cached copy through `mask_on`.
     """
 
     def __init__(self, mask: np.ndarray, device=None):
         self.mask_np = np.asarray(mask, dtype=bool)
-        self.mask = torch.as_tensor(self.mask_np, device=device)
+        self.mask = torch.as_tensor(self.mask_np, device=resolve_device(device))
         self.nconstrained = int(self.mask_np.sum())
         self._masks = {device_key(self.mask.device): self.mask}
 

@@ -1,8 +1,8 @@
 """Finite element bases tabulated as dense numpy arrays.
 
-PyTorch port of dune_pdelab_tpu/fe/basis.py, limited to the continuous
-tensor Lagrange element QkFEM (the other families wait for later ROADMAP
-slices). A basis is its tabulation: `tabulate(points)` returns dense
+PyTorch port of dune_pdelab_tpu/fe/basis.py, limited to the tensor
+Lagrange elements: continuous QkFEM and discontinuous QkDGFEM (the other
+families wait for later ROADMAP slices). A basis is its tabulation: `tabulate(points)` returns dense
 (nqp, nb) / (nqp, nb, dim) float64 arrays that the assembler turns into
 tensors. All polynomial manipulation happens in float64 numpy at setup.
 """
@@ -46,7 +46,7 @@ class FiniteElement:
       dim:        reference dimension
       degree:     polynomial degree (quadrature-order heuristic input)
       nbasis:     number of basis functions
-      continuity: 'C0' (conforming nodal)
+      continuity: 'C0' (conforming nodal) or 'DG' (element-local)
       nodes:      (nbasis, dim) nodal points
     """
 
@@ -127,6 +127,20 @@ class QkFEM(_TensorLagrange):
         if k < 1:
             raise ValueError("QkFEM needs k >= 1 (use P0FEM)")
         super().__init__(k, dim, "C0")
+
+
+class QkDGFEM(_TensorLagrange):
+    """Discontinuous Lagrange Qk with equidistant nodes (reference:
+    dune/pdelab/finiteelementmap/qkdg.hh). The Gauss-Legendre and
+    Gauss-Lobatto node variants, and the Legendre, monomial and OPB bases,
+    wait for ROADMAP slice 13; PkDGFEM on simplices for slice 11."""
+
+    def __init__(self, k: int, dim: int, variant: str = "equidistant"):
+        if variant != "equidistant":
+            raise NotImplementedError(
+                f"QkDGFEM variant {variant!r} is not ported yet (ROADMAP "
+                "slice 13)")
+        super().__init__(k, dim, "DG")
 
 
 @functools.lru_cache(maxsize=None)

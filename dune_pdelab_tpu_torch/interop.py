@@ -4,6 +4,7 @@ Takes plain numpy data (e.g. `st.dims`, `st.k`, `st.weights`, `st.offsets`
 and `np.asarray(st.mask)` of a JAX StencilOperator, the level state of a
 JAX LatticeGMG, or `np.asarray(x)` of a JAX DOF vector) and builds the
 port's objects from it. Never imports jax, so it runs where jax is absent.
+Tensors land on `device`, default utils/common.default_device().
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from dune_pdelab_tpu_torch.assembly.stencil import StencilOperator
+from dune_pdelab_tpu_torch.utils.common import resolve_device
 
 
 def stencil_from_numpy(dims, k, weights, offsets, mask, device=None,
@@ -22,7 +24,7 @@ def stencil_from_numpy(dims, k, weights, offsets, mask, device=None,
     w = np.asarray(weights, dtype=np.float64)
     w = torch.as_tensor(w, dtype=dtype).to(torch.float64).numpy()
     m = None if mask is None else torch.as_tensor(
-        np.array(mask, dtype=bool), device=device)
+        np.array(mask, dtype=bool), device=resolve_device(device))
     classes = list(itertools.product(*[range(int(k))] * len(dims)))
     return StencilOperator(tuple(int(d) for d in dims), int(k), w,
                            np.asarray(offsets), m, classes)
@@ -62,6 +64,7 @@ def ell_from_numpy(dims, k, offsets, values, mask, device=None,
     or None), the values held in `dtype` on `device`."""
     from dune_pdelab_tpu_torch.assembly.ell import EllMatrix
 
+    device = resolve_device(device)
     m = None if mask is None else torch.as_tensor(
         np.array(mask, dtype=bool).reshape(-1), device=device)
     return EllMatrix(tuple(int(d) for d in dims), int(k), np.asarray(offsets),
@@ -70,4 +73,22 @@ def ell_from_numpy(dims, k, offsets, values, mask, device=None,
 
 def vector_from_numpy(x, device=None, dtype=torch.float64):
     """Port DOF vector from a numpy array."""
-    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+    return torch.as_tensor(np.array(x), dtype=dtype, device=resolve_device(device))
+
+
+def block_stencil_from_numpy(cells, nb, W_taps, offsets, dD_sides, dtype=None):
+    """Port BlockStencilOperator from a JAX BlockStencilOperator's arrays
+    (`bst.cells`, `bst.nb`, `bst.W_taps`, `bst.offsets`, `bst.dD_sides`).
+    The weights are held at the precision of `dtype` (the dtype the
+    operator was probed in; default float64); its tensors are built on the
+    device of the vector it is applied to."""
+    from dune_pdelab_tpu_torch.assembly.blockstencil import BlockStencilOperator
+
+    def held(a):
+        a = np.asarray(a, dtype=np.float64)
+        if dtype is None:
+            return a
+        return torch.as_tensor(a, dtype=dtype).to(torch.float64).numpy()
+
+    return BlockStencilOperator(tuple(int(c) for c in cells), int(nb), held(W_taps),
+                                np.asarray(offsets), held(dD_sides))

@@ -32,12 +32,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
+_BLOCK = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P]
 _FUSED = [_P, _P, _P, _I, _I, _I, _P, _I, _I, _D, _P, _P, _P, _P, _I, _P]
 # C entry points: name -> argtypes (all return the cudaError_t as int)
 _SIGNATURES = {
     "dpt_structured_fused_f32": _FUSED,
     "dpt_structured_fused_f64": _FUSED,
     "dpt_window_nblocks": [_I, _I, _I],
+    "dpt_blockstencil_f32": _BLOCK,
+    "dpt_blockstencil_f64": _BLOCK,
     "dpt_ell27_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "dpt_ell27_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
     "dpt_stencil27_f32": [_P, _P, _P, _I, _I, _I, _P, _P],

@@ -36,7 +36,7 @@ import torch
 from dune_pdelab_tpu_torch.assembly.stencil import StencilOperator, compile_stencil
 from dune_pdelab_tpu_torch.linalg import krylov
 from dune_pdelab_tpu_torch.linalg.multigrid import _transfer_1d
-from dune_pdelab_tpu_torch.utils.common import device_key
+from dune_pdelab_tpu_torch.utils.common import device_key, resolve_device
 
 
 def _transpose_transfer_1d(idx, w, ncd):
@@ -99,7 +99,7 @@ def _proxy_stencil(lop, fem, mesh_l, quad_order):
     pc = tuple(max(8, 4 * k + 4) for _ in range(mesh_l.dim))
     mesh_p = type(mesh_l)(mesh_l.lower, mesh_l.lower + np.array(pc) * mesh_l.h, pc)
     V_p = FunctionSpace(mesh_p, fem)
-    go_p = GridOperator(V_p, lop, constraints=make_constraints(True, V_p),
+    go_p = GridOperator(V_p, lop, constraints=make_constraints(True, V_p, device="cpu"),
                         quad_order=quad_order, skip_boundary=True)
     return compile_stencil(go_p, dtype=torch.float64, device="cpu")
 
@@ -154,7 +154,8 @@ class LatticeGMG:
     fine_stencil : optionally the already-compiled fine StencilOperator
         (e.g. the one driving the CG operator), to skip re-probing
     device : where the level masks live (default: fine_stencil's mask
-        device, else the CPU); vectors passed in must be on it
+        device, else the default device, utils/common.default_device);
+        vectors passed in must be on it
     """
 
     def __init__(self, space, lop, *, pre=2, post=2, smoother="chebyshev",
@@ -173,7 +174,7 @@ class LatticeGMG:
         k = fem.degree
         if device is None:
             device = (fine_stencil.mask.device if fine_stencil is not None
-                      and fine_stencil.mask is not None else "cpu")
+                      and fine_stencil.mask is not None else resolve_device(None))
         self.meshes = level_hierarchy(mesh, coarsest_cells)
         dims = [tuple(k * c + 1 for c in m.cells) for m in self.meshes]
 
@@ -198,7 +199,7 @@ class LatticeGMG:
                                        mask, st_p.interior_classes))
 
         Vc = FunctionSpace(self.meshes[-1], fem)
-        goc = GridOperator(Vc, lop, constraints=make_constraints(True, Vc),
+        goc = GridOperator(Vc, lop, constraints=make_constraints(True, Vc, device="cpu"),
                            quad_order=quad_order, skip_boundary=True)
         self._init_levels(dims, sts, separable_transfers(k, self.meshes, dims),
                           coarse_lu_factor(goc), pre=pre, post=post,

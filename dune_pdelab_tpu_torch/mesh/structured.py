@@ -3,7 +3,8 @@
 PyTorch port of dune_pdelab_tpu/mesh/structured.py, limited to the uniform
 non-periodic mesh (periodic and mapped meshes wait for ROADMAP slice 11).
 The mesh is a set of numpy index maps computed on demand; nothing of size
-E or N is built at construction.
+E or N is built at construction. The face lists (interior_faces,
+boundary_faces) feed the DG path's face groups.
 
 Element / vertex / DOF indices are lexicographic with dimension 0 fastest.
 """
@@ -52,6 +53,11 @@ class StructuredMesh:
             e = e // self.cells[d]
         return mi
 
+    def element_index(self, mi: np.ndarray) -> np.ndarray:
+        """Inverse of element_multi_index."""
+        strides = np.cumprod((1,) + self.cells[:-1]).astype(np.int64)
+        return np.asarray(mi, dtype=np.int64) @ strides
+
     def corner_offsets(self) -> np.ndarray:
         """(2^dim, dim) 0/1 offsets; corner c uses bit d of c for axis d
         (matches the Q1 tensor basis ordering, dim 0 fastest)."""
@@ -66,6 +72,53 @@ class StructuredMesh:
         off = self.corner_offsets()
         g = mi[:, None, :] + off[None, :, :]
         return self.lower + g * self.h
+
+    def element_centers(self) -> np.ndarray:
+        """(E, dim) element centres."""
+        return self.element_corner_coords().mean(axis=1)
+
+    # -- faces ---------------------------------------------------------------
+    def face_tangential_axes(self, axis: int):
+        """Axes spanning a face normal to `axis`, in increasing order."""
+        return tuple(d for d in range(self.dim) if d != axis)
+
+    def interior_faces(self):
+        """Unique interior faces (reference: the `ids > idn` unique visit).
+
+        Returns a dict of int64 arrays:
+          inside  (F,)  element on the lower side (owns the face)
+          outside (F,)  element on the upper side
+          axis    (F,)  face normal axis; the normal from inside is +e_axis
+        Faces normal to axis a lie between cells i and i+1 along a.
+        """
+        mi_all = self.element_multi_index()
+        inside, outside, axis = [], [], []
+        for a in range(self.dim):
+            ins = np.nonzero(mi_all[:, a] < self.cells[a] - 1)[0]
+            mi_out = mi_all[ins].copy()
+            mi_out[:, a] += 1
+            inside.append(ins)
+            outside.append(self.element_index(mi_out))
+            axis.append(np.full(len(ins), a, dtype=np.int64))
+        return {"inside": np.concatenate(inside),
+                "outside": np.concatenate(outside),
+                "axis": np.concatenate(axis)}
+
+    def boundary_faces(self):
+        """Boundary faces: dict of int64 arrays element (F,), axis (F,),
+        side (F,) (0 = lower, 1 = upper); the outward unit normal is
+        (2*side - 1) * e_axis."""
+        mi_all = self.element_multi_index()
+        elem, axis, side = [], [], []
+        for a in range(self.dim):
+            for s in (0, 1):
+                sel = np.nonzero(
+                    mi_all[:, a] == (0 if s == 0 else self.cells[a] - 1))[0]
+                elem.append(sel)
+                axis.append(np.full(len(sel), a, dtype=np.int64))
+                side.append(np.full(len(sel), s, dtype=np.int64))
+        return {"element": np.concatenate(elem), "axis": np.concatenate(axis),
+                "side": np.concatenate(side)}
 
     def coarsen(self, factor: int = 2) -> "StructuredMesh":
         """Uniformly coarsened mesh (for geometric multigrid hierarchies).

@@ -1,13 +1,15 @@
 """Local operator protocol: PDE weak forms as batched element kernels.
 
-PyTorch port of dune_pdelab_tpu/ops/base.py, volume part (face and
-skeleton contexts wait for ROADMAP slice 7). A kernel processes all
-elements of a group at once; `do*` flags become method presence; the
-Jacobian comes from torch.func.jvp of alpha in the assembler.
+PyTorch port of dune_pdelab_tpu/ops/base.py. A kernel processes all
+elements (or faces) of a group at once; `do*` flags become method presence;
+the Jacobian comes from torch.func.jvp of alpha in the assembler.
 
 Kernel signatures:
-  alpha_volume(ctx: VolumeContext, u (E, nloc)) -> r (E, nloc)
-  lambda_volume(ctx: VolumeContext)             -> r (E, nloc)
+  alpha_volume(ctx: VolumeContext, u (E, nloc))     -> r (E, nloc)
+  lambda_volume(ctx: VolumeContext)                 -> r (E, nloc)
+  alpha_boundary(ctx: FaceContext, u (F, nloc))     -> r (F, nloc)
+  lambda_boundary(ctx: FaceContext)                 -> r (F, nloc)
+  alpha_skeleton(ctx: SkeletonContext, u_in, u_out) -> (r_in, r_out)
 
 The contractions run through torch.einsum in the working dtype; on the
 card the assembler first switches TF32 off (utils/common.full_fp32_on_cuda)
@@ -55,6 +57,57 @@ class VolumeContext:
     @property
     def nqp(self) -> int:
         return len(self.weights)
+
+
+@dataclass(frozen=True)
+class FaceContext:
+    """Boundary-face kernel context (alpha_boundary/lambda_boundary).
+
+    `normal` is the outward unit normal (from the inside element). On the
+    uniform structured mesh each face group shares one normal (a +/- unit
+    vector), so it is a (dim,) constant.
+    """
+
+    weights: Any      # (nqp,)
+    x: Any            # (F, nqp, dim)
+    factor: Any       # (Fb, nqp) w_q * face measure
+    normal: Any       # (dim,)
+    tabs: tuple       # per-leaf LeafTab at face qps (inside embedding)
+    h_inside: Any     # (Fb,) element length normal to the face
+    time: Any = 0.0
+
+    @property
+    def tab(self) -> LeafTab:
+        return self.tabs[0]
+
+
+@dataclass(frozen=True)
+class SkeletonContext:
+    """Interior-face kernel context (alpha_skeleton).
+
+    Tabulations for both embeddings: `inside` at the face seen from the
+    lower element (its upper face), `outside` from the upper element. The
+    normal points from inside to outside (reference convention:
+    localoperator/convectiondiffusiondg.hh:271 two-sided accumulate).
+    """
+
+    weights: Any
+    x: Any            # (F, nqp, dim)
+    factor: Any       # (Fb, nqp)
+    normal: Any       # (dim,)
+    tabs_in: tuple    # per-leaf LeafTab, inside embedding
+    tabs_out: tuple   # per-leaf LeafTab, outside embedding
+    h_inside: Any     # (Fb,)
+    h_outside: Any    # (Fb,)
+    time: Any = 0.0
+
+    @property
+    def tab_in(self) -> LeafTab:
+        return self.tabs_in[0]
+
+    @property
+    def tab_out(self) -> LeafTab:
+        return self.tabs_out[0]
 
 
 class LocalOperator:

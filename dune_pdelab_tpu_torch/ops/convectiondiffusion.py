@@ -2,10 +2,10 @@
 
 PyTorch port of dune_pdelab_tpu/ops/convectiondiffusion.py (reference:
 dune/pdelab/localoperator/convectiondiffusionparameter.hh and
-convectiondiffusionfem.hh:39-207). The boundary kernels (alpha_boundary,
-lambda_boundary) keep their place in the protocol but need the face groups
-of ROADMAP slice 7; the GridOperator refuses them unless
-skip_boundary=True.
+convectiondiffusionfem.hh:39-207). The boundary kernels (alpha_boundary:
+outflow (b.n) u v; lambda_boundary: Neumann j v and outflow o v) run on the
+GridOperator's boundary face groups; a pure-Dirichlet problem may skip them
+with skip_boundary=True.
 
 Weak form: find u with
   ∫ (A∇u)·∇v - u b·∇v + c u v dx = ∫ f v dx,
@@ -18,7 +18,7 @@ import copy
 import numpy as np
 import torch
 
-from dune_pdelab_tpu_torch.ops.base import LocalOperator, VolumeContext
+from dune_pdelab_tpu_torch.ops.base import FaceContext, LocalOperator, VolumeContext
 
 
 class BCType:
@@ -131,13 +131,37 @@ class ConvectionDiffusionFEM(LocalOperator):
             ctx.x.shape[:-1])
         return self.accumulate_value(tab, ctx.factor, -f)
 
-    def alpha_boundary(self, ctx, u):
-        raise NotImplementedError(
-            "boundary face groups are not ported yet (ROADMAP slice 7)")
+    def alpha_boundary(self, ctx: FaceContext, u):
+        p, tab = self.problem, ctx.tab
+        bct = at_face_qp(p.bctype(ctx.x), ctx)
+        uq = self.value_at_qp(tab, u)
+        bn = normal_flux(p.b(ctx.x), ctx)
+        w = torch.where(bct == BCType.OUTFLOW, bn * uq, 0.0)
+        return self.accumulate_value(tab, ctx.factor, w)
 
-    def lambda_boundary(self, ctx):
-        raise NotImplementedError(
-            "boundary face groups are not ported yet (ROADMAP slice 7)")
+    def lambda_boundary(self, ctx: FaceContext):
+        p, tab = self.problem, ctx.tab
+        bct = at_face_qp(p.bctype(ctx.x), ctx)
+        jflux = at_face_qp(p.j(ctx.x), ctx, ctx.factor.dtype)
+        o = at_face_qp(p.o(ctx.x), ctx, ctx.factor.dtype)
+        w = torch.where(bct == BCType.NEUMANN, jflux,
+                        torch.where(bct == BCType.OUTFLOW, o, 0.0))
+        return self.accumulate_value(tab, ctx.factor, w)
+
+
+def at_face_qp(v, ctx, dtype=None):
+    """A callback's value (tensor, array or scalar) as a tensor of shape
+    x.shape[:-1] on the context's device."""
+    t = torch.as_tensor(v, device=ctx.x.device)
+    if dtype is not None:
+        t = t.to(dtype)
+    return torch.broadcast_to(t, ctx.x.shape[:-1])
+
+
+def normal_flux(b, ctx):
+    """b . n at the face quadrature points: (F, nqp)."""
+    b = torch.as_tensor(b, dtype=ctx.x.dtype, device=ctx.x.device)
+    return (torch.broadcast_to(b, ctx.x.shape) * ctx.normal).sum(-1)
 
 
 def _is_zero(v) -> bool:

@@ -4,8 +4,9 @@ PyTorch port of dune_pdelab_tpu/solvers/linear.py (reference:
 dune/pdelab/backend/istl/seqistlsolverbackend.hh:112-1060 and the
 matrix-free backends, matrixfree/backends.hh:64). Solvers: cg, bicgstab,
 minres, gmres(restart) and the Richardson loop; preconditioners: none,
-Richardson, Jacobi or a callable. The operator tiers, in the reference's
-order of choice:
+Richardson, Jacobi, element-block Jacobi, Chebyshev, colored element-block
+Gauss-Seidel or a callable. The operator tiers, in the reference's order
+of choice:
 
   * a callable `precond(go, x_lin, time) -> M` (a LatticeGMG, an ILU)
     always runs on the general-jvp tier, even with matrix_free=False
@@ -15,27 +16,42 @@ order of choice:
     where the space does not qualify, or use_ell=False, the sparse COO
     Jacobian (go.jacobian), with the declined tier in `report()`;
   * compiled stencil: compile_stencil's StencilOperator (the stencil27
-    kernel for a k = 1 3D operator on a CUDA tensor); Jacobi takes the
-    stencil's exact diagonal;
+    kernel for a k = 1 3D operator on a CUDA tensor); for a DG space,
+    compile_block_stencil's operator, lowered to the mode-major
+    MMBlockStencil in 3D (the blockstencil kernel, block_stencil_mm) and
+    kept element-major in 2D (block_stencil_em). With none, Richardson,
+    Jacobi or Chebyshev the Krylov loop on an MMBlockStencil runs in the
+    mode-major layout (one transpose at entry and exit). Jacobi and
+    Chebyshev take the (block) stencil's exact diagonal;
   * general-jvp: go.jacobian_apply (torch.func.jvp) per apply.
 
 Jacobi takes go.jacobian_diagonal on every tier but the stencil one, as in
-the reference. Unlike the reference, no exception of a faster tier is
-swallowed: a kernel that fails to build or launch raises. The tier taken
-shows in `report()` and in the kernels' launch counters.
+the reference; block Jacobi and block GS take go.element_diagonal_blocks,
+Chebyshev a 25-step power iteration on go.jacobian_apply. Unlike the
+reference, no exception of a faster tier is swallowed: a kernel that fails
+to build or launch raises. The tier taken shows in `report()` and in the
+kernels' launch counters.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any
 
+import torch
+
+from dune_pdelab_tpu_torch.assembly.blockstencil import compile_block_stencil
+from dune_pdelab_tpu_torch.assembly.blockstencil_mm import (
+    MMBlockStencil, try_mm_block_stencil,
+)
 from dune_pdelab_tpu_torch.assembly.ell import EllMatrix, assemble_ell
 from dune_pdelab_tpu_torch.assembly.stencil import compile_stencil
-from dune_pdelab_tpu_torch.linalg import krylov
+from dune_pdelab_tpu_torch.linalg import krylov, preconditioners
 from dune_pdelab_tpu_torch.utils.common import device_key
 
-_PRECONDS = (None, "none", "richardson", "jacobi")
-_LATER = {"block_jacobi": 7, "chebyshev": 7, "block_gs": 7}
+_PRECONDS = (None, "none", "richardson", "jacobi", "block_jacobi", "chebyshev",
+             "block_gs")
+# preconditioners a Krylov loop may run in the mode-major layout
+_MM_PRECONDS = (None, "none", "richardson", "jacobi", "chebyshev")
 
 
 def _kernel_how(uses_kernel, name, device):
@@ -51,7 +67,8 @@ class LinearSolverBackend:
     """Configurable Krylov backend.
 
     solver:  'cg' | 'bicgstab' | 'minres' | 'gmres' | 'loop'
-    precond: 'none' | 'richardson' | 'jacobi' | callable(go, x_lin, time) -> M
+    precond: 'none' | 'richardson' | 'jacobi' | 'block_jacobi' | 'chebyshev'
+             | 'block_gs' | callable(go, x_lin, time) -> M
     matrix_free: True -> stencil / go.jacobian_apply tiers;
              False -> assembled (lattice-ELL, else sparse COO) matvec
     use_stencil: try the compiled-stencil tier before the general-jvp one
@@ -65,6 +82,7 @@ class LinearSolverBackend:
     matrix_free: bool = True
     use_stencil: bool = True
     use_ell: bool = True
+    cheby_degree: int = 4
     stats_history: list = field(default_factory=list)
     _setup_cache: dict = field(default_factory=dict, repr=False)
     _last_path: dict = field(default_factory=dict, repr=False)
@@ -74,18 +92,16 @@ class LinearSolverBackend:
             raise ValueError(f"unknown solver {self.solver!r}; one of "
                              f"{sorted(krylov.SOLVERS)}")
         if not callable(self.precond) and self.precond not in _PRECONDS:
-            slice_ = _LATER.get(self.precond)
-            if slice_ is None:
-                raise ValueError(f"unknown preconditioner {self.precond!r}")
-            raise NotImplementedError(
-                f"preconditioner {self.precond!r} is not ported yet (block_jacobi, "
-                "chebyshev, block_gs: ROADMAP slice 7; SSOR and AMG backends: "
-                "slice 10)")
+            raise ValueError(f"unknown preconditioner {self.precond!r} (the SSOR "
+                             "and AMG backends wait for ROADMAP slice 10)")
 
     def _reasons(self, go):
         return self._setup_cache.setdefault((id(go), "tier_reasons"), {})
 
     def _stencil_for(self, go, x_lin, time):
+        """The compiled stencil: a StencilOperator, else (DG) the block
+        stencil, lowered to an MMBlockStencil in 3D; None when neither
+        applies."""
         key = (id(go), "stencil")
         if key not in self._setup_cache:
             st = compile_stencil(go, x_lin, time)
@@ -93,6 +109,13 @@ class LinearSolverBackend:
                 self._reasons(go)["stencil"] = (
                     "compile_stencil declined (space/mesh/operator not a "
                     "translation-invariant lattice)")
+                st = compile_block_stencil(go, x_lin, time)
+                if st is None:
+                    self._reasons(go)["block_stencil"] = (
+                        "compile_block_stencil declined (not a lattice DG space / "
+                        "operator)")
+                else:
+                    st = try_mm_block_stencil(st) or st
             self._setup_cache[key] = st
         return self._setup_cache[key]
 
@@ -119,6 +142,50 @@ class LinearSolverBackend:
                 d = go.jacobian_diagonal(x_lin.to(device=b.device, dtype=b.dtype), time)
             self._setup_cache[key] = d.to(device=b.device, dtype=b.dtype)
         return self._setup_cache[key]
+
+    def _precond_setup(self, go, op, x_lin, b, time):
+        """Preconditioner data, computed once per operator, dtype and device
+        for a linear operator and at each solve for a nonlinear one."""
+        p = self.precond
+        if p in (None, "none", "richardson"):
+            return {}
+        key = (id(go), "precond", p, b.dtype, device_key(b.device))
+        if key in self._setup_cache and getattr(go.lop, "is_linear", False):
+            return self._setup_cache[key]
+        xl = x_lin.to(device=b.device, dtype=b.dtype)
+        setup = {}
+        if p in ("jacobi", "chebyshev"):
+            setup["diag"] = self._jacobi_diag(go, op, x_lin, b, time)
+        if p == "chebyshev":
+            setup["lmax"] = preconditioners.power_iteration(
+                lambda z: go.jacobian_apply(xl, z, time), setup["diag"],
+                go.space.ndofs, dtype=b.dtype)
+        elif p in ("block_jacobi", "block_gs"):
+            blocks = go.element_diagonal_blocks(xl, time)
+            setup["dofs"] = torch.as_tensor(go.space.element_dofs, device=b.device)
+            setup["dinv"] = preconditioners._explicit_block_inverse(blocks)
+            if p == "block_gs":
+                setup["colors"] = preconditioners.checkerboard_colors(
+                    go.mesh, device=b.device)
+        self._setup_cache[key] = setup
+        return setup
+
+    def _make_M(self, setup, A):
+        p = self.precond
+        if p in (None, "none", "richardson"):
+            return krylov._identity
+        if p == "jacobi":
+            diag = setup["diag"]
+            return lambda r: r / diag
+        if p == "chebyshev":
+            return preconditioners.chebyshev(A, setup["diag"], setup["lmax"],
+                                             degree=self.cheby_degree)
+        if p == "block_jacobi":
+            counts = preconditioners._overlap_counts(setup["dofs"], setup["dinv"].dtype)
+            return preconditioners._block_jacobi_apply(setup["dofs"], setup["dinv"],
+                                                       counts)
+        return preconditioners._colored_sweeps(A, setup["dofs"], setup["dinv"],
+                                               setup["colors"])
 
     def report(self, go=None) -> str:
         """Which operator-apply tier the last solve landed on, and why the
@@ -158,6 +225,15 @@ class LinearSolverBackend:
         st = None
         if self.use_stencil and getattr(go.lop, "is_linear", False):
             st = self._stencil_for(go, x_lin, time)
+        if isinstance(st, MMBlockStencil):
+            how = _kernel_how(True, "blockstencil", b.device)
+            layout = ("mode-major resident" if self.precond in _MM_PRECONDS
+                      else "flat")
+            return st, st, f"compiled block stencil MMBlockStencil [{layout}; {how}]"
+        if st is not None and hasattr(st, "W_taps"):
+            how = _kernel_how(True, "blockstencil", b.device)
+            return (st, st, "compiled block stencil BlockStencilOperator "
+                    f"[element-major; {how}]")
         if st is not None:
             how = _kernel_how(st.uses_stencil27, "stencil27", b.device)
             return st, st, f"compiled stencil StencilOperator [{how}]"
@@ -167,18 +243,32 @@ class LinearSolverBackend:
     def solve(self, go, x_lin, b, reduction, time=0.0, x0=None):
         """Solve J(x_lin) z = b to relative `reduction`; returns (z, stats)."""
         A, op, path = self._operator(go, x_lin, b, time)
+        kw = {"restart": self.restart} if self.solver == "gmres" else {}
+        run = krylov.SOLVERS[self.solver]
         if callable(self.precond):
             M = self.precond(go, x_lin, time)
-        elif self.precond == "jacobi":
-            diag = self._jacobi_diag(go, op, x_lin, b, time)
-            M = lambda r: r / diag
         else:
-            M = krylov._identity
-        kw = {"restart": self.restart} if self.solver == "gmres" else {}
-        z, stats = krylov.SOLVERS[self.solver](A, b, x0=x0, M=M, tol=reduction,
-                                               maxiter=self.maxiter, **kw)
+            setup = self._precond_setup(go, op, x_lin, b, time)
+            if isinstance(A, MMBlockStencil) and self.precond in _MM_PRECONDS:
+                # iterate in the mode-major layout: to_mm is a permutation,
+                # so the diagonal transforms as the residual does
+                mm = A
+
+                def A_mm(v):
+                    return mm.apply_mm(v.reshape(mm.mm_shape)).reshape(-1)
+
+                def to_mm(v):
+                    return mm.to_mm(v).reshape(-1)
+
+                setup = {k: to_mm(v) if k == "diag" else v for k, v in setup.items()}
+                A, b = A_mm, to_mm(b)
+                x0 = None if x0 is None else to_mm(x0)
+            M = self._make_M(setup, A)
+        z, stats = run(A, b, x0=x0, M=M, tol=reduction, maxiter=self.maxiter, **kw)
         self.stats_history.append(stats)
         self._last_path[id(go)] = path
+        if A is not op and isinstance(op, MMBlockStencil):
+            z = op.from_mm(z.reshape(op.mm_shape))
         return z, stats
 
 
@@ -224,6 +314,12 @@ def SEQ_BCGS_ILUn(level=1, **kw):
                                **kw)
 
 
+def SEQ_CG_BlockJacobi(**kw):
+    """CG with element-block Jacobi (exact block-diagonal inverse on DG)."""
+    kw.setdefault("solver", "cg")
+    return LinearSolverBackend(precond="block_jacobi", **kw)
+
+
 def MatrixFree_CG_Richardson(**kw):
     """ISTLBackend_SEQ_MatrixFree_Richardson analog (matrixfree/backends.hh)."""
     return LinearSolverBackend(solver="cg", precond="richardson", **kw)
@@ -237,8 +333,7 @@ def _not_ported(name, what, slice_):
     return make
 
 
-SEQ_CG_BlockJacobi = _not_ported("SEQ_CG_BlockJacobi", "block Jacobi", 7)
-SEQ_CG_SSOR = _not_ported("SEQ_CG_SSOR", "linalg/preconditioners.py (SSOR)", 7)
-SEQ_BCGS_SSOR = _not_ported("SEQ_BCGS_SSOR", "linalg/preconditioners.py (SSOR)", 7)
+SEQ_CG_SSOR = _not_ported("SEQ_CG_SSOR", "linalg/preconditioners.py (SSOR)", 10)
+SEQ_BCGS_SSOR = _not_ported("SEQ_BCGS_SSOR", "linalg/preconditioners.py (SSOR)", 10)
 SEQ_CG_AMG = _not_ported("SEQ_CG_AMG", "linalg/amg.py", 10)
 SEQ_BCGS_AMG = _not_ported("SEQ_BCGS_AMG", "linalg/amg.py", 10)

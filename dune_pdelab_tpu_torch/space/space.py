@@ -1,14 +1,15 @@
 """Discrete function spaces: DOF maps as lattice arithmetic.
 
 PyTorch port of dune_pdelab_tpu/space/space.py, limited to the single-leaf
-continuous (C0) space on a structured cube mesh. Composite, power and
-permuted spaces wait for ROADMAP slice 9; DG, H(div) and H(curl) layouts
-for slices 7 and 13.
+spaces on a structured cube mesh: continuous (C0) Qk on the DOF lattice and
+discontinuous (DG) Qk numbered element-major, DOF e*nb + j for local basis
+function j of element e. Composite, power and permuted spaces wait for
+ROADMAP slice 9; H(div) and H(curl) layouts for slice 13.
 
 Setup stays numpy on the host, as in the reference. The (E, nlocal)
 `element_dofs` map is built lazily: the structured fast paths
-(SlicedDofMap, compiled stencils) never touch it, and at 512^3 DOFs it
-would cost about 8.5 GB of host memory.
+(SlicedDofMap, ReshapeDofMap, compiled stencils) never touch it, and at
+512^3 DOFs it would cost about 8.5 GB of host memory.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from dune_pdelab_tpu_torch.fe.basis import (
     FiniteElement, lagrange_nodes_1d, q1_geometry,
 )
 from dune_pdelab_tpu_torch.mesh.structured import StructuredMesh
-from dune_pdelab_tpu_torch.utils.common import default_float
+from dune_pdelab_tpu_torch.utils.common import default_float, resolve_device
 
 
 def to_numpy(v) -> np.ndarray:
@@ -43,22 +44,32 @@ class FunctionSpace:
     def __init__(self, mesh: StructuredMesh, fem: FiniteElement, name: str = ""):
         if fem.geometry != mesh.geometry_type:
             raise ValueError(f"{fem} does not fit mesh geometry {mesh.geometry_type}")
-        if fem.continuity != "C0":
+        if fem.continuity not in ("C0", "DG"):
             raise NotImplementedError(
-                f"{fem.continuity} spaces are not ported yet (DG: ROADMAP "
-                "slice 7; H(div)/H(curl): slice 13)")
+                f"{fem.continuity} spaces are not ported yet (H(div)/H(curl): "
+                "ROADMAP slice 13)")
         self.mesh = mesh
         self.fem = fem
         self.name = name
         self._element_dofs = None
-        self._dof_grid_dims = self._c0_dims()
-        self.ndofs = int(np.prod(self._dof_grid_dims))
+        if fem.continuity == "DG":
+            self._dof_grid_dims = None
+            self.ndofs = mesh.nelements * fem.nbasis
+        else:
+            self._dof_grid_dims = self._c0_dims()
+            self.ndofs = int(np.prod(self._dof_grid_dims))
 
     @property
     def element_dofs(self) -> np.ndarray:
         """(E, nlocal) local->global DOF map (built on first use)."""
         if self._element_dofs is None:
-            self._element_dofs = self._build_c0_map()[0]
+            if self.fem.continuity == "DG":
+                nb = self.fem.nbasis
+                self._element_dofs = (
+                    np.arange(self.mesh.nelements, dtype=np.int64)[:, None] * nb
+                    + np.arange(nb, dtype=np.int64)[None, :])
+            else:
+                self._element_dofs = self._build_c0_map()[0]
         return self._element_dofs
 
     def _c0_dims(self):
@@ -121,11 +132,12 @@ class FunctionSpace:
         x = np.zeros(self.ndofs, dtype=coeffs.dtype)
         x[self.element_dofs.reshape(-1)] = coeffs.reshape(-1)
         return torch.as_tensor(x, dtype=dtype or default_float(),
-                               device=device)
+                               device=resolve_device(device))
 
     def zero(self, dtype=None, device=None):
+        """Zero DOF vector on `device` (default: utils/common.default_device)."""
         return torch.zeros(self.ndofs, dtype=dtype or default_float(),
-                           device=device)
+                           device=resolve_device(device))
 
     def __repr__(self):
         return f"FunctionSpace({self.fem!r}, ndofs={self.ndofs}, name={self.name!r})"
@@ -138,6 +150,10 @@ def _leaf_boundary_dof_mask(space: FunctionSpace) -> np.ndarray:
     arithmetic.
     """
     dims = space._dof_grid_dims
+    if dims is None:
+        raise NotImplementedError(
+            "boundary DOF masks exist for C0 lattice spaces only; DG boundary "
+            "conditions are weak (face terms of the local operator)")
     dim = space.mesh.dim
     mask = np.zeros(tuple(reversed(dims)), dtype=bool)  # C-order, dim0 last
     for d in range(dim):

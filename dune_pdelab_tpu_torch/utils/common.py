@@ -1,4 +1,4 @@
-"""Small shared utilities: dtype policy, timers, integer helpers.
+"""Small shared utilities: dtype and device policy, timers, integer helpers.
 
 PyTorch port of dune_pdelab_tpu/utils/common.py.
 """
@@ -17,6 +17,30 @@ def default_float() -> torch.dtype:
     of the tests) pass `dtype=torch.float64` explicitly.
     """
     return torch.get_default_dtype()
+
+
+_DEFAULT_DEVICE = None   # None: the card, torch.device("cuda")
+
+
+def default_device() -> torch.device:
+    """Where the port's entry points put their tensors when the caller
+    names no device: the card (`torch.device("cuda")`) unless
+    `set_default_device` chose another. There is no CPU fallback: on a
+    machine without a card, torch raises at the first CUDA tensor."""
+    return (torch.device("cuda") if _DEFAULT_DEVICE is None
+            else _DEFAULT_DEVICE)
+
+
+def set_default_device(dev) -> None:
+    """Choose the device `default_device()` returns (e.g. "cpu" for the
+    CPU tests); None restores the card."""
+    global _DEFAULT_DEVICE
+    _DEFAULT_DEVICE = None if dev is None else torch.device(dev)
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device, `default_device()` for None."""
+    return default_device() if device is None else torch.device(device)
 
 
 def full_fp32_on_cuda() -> None:
@@ -39,7 +63,7 @@ def device_key(device) -> torch.device:
     d = torch.device(device)
     if d.type == "cuda" and d.index is None:
         d = torch.device("cuda", torch.cuda.current_device()
-                         if torch.cuda.is_available() else 0)
+                         if torch.cuda.is_initialized() else 0)
     return d
 
 

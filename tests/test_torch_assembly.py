@@ -21,9 +21,11 @@ from dune_pdelab_tpu_torch.assembly.slabbed import residual_slabbed as t_slabbed
 from dune_pdelab_tpu_torch.fe.quadrature import cube_rule
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM as TFEM
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem as TProblem
+from dune_pdelab_tpu_torch.utils.common import set_default_device
 
 pytestmark = pytest.mark.fast
 torch.set_num_threads(1)
+set_default_device("cpu")
 
 CASES = [(2, 1, (6, 5)), (2, 2, (4, 3)), (3, 1, (4, 3, 5)), (3, 2, (2, 3, 2))]
 REL = 1e-12
@@ -130,13 +132,46 @@ def test_origins_match_reference():
     np.testing.assert_array_equal(got, want)
 
 
-def test_boundary_kernels_need_skip_boundary():
-    V = tpt.FunctionSpace(tpt.StructuredMesh([0, 0], [1, 1], (4, 4)),
-                          tpt.QkFEM(1, 2))
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tpt.GridOperator(V, TFEM(TVar()), constraints=tpt.constraints(True, V))
-    go = tpt.GridOperator(V, TFEM(TVar()), skip_boundary=True)
-    assert go.has["alpha_volume"] and not go.has["alpha_boundary"]
+def _mixed_bc(base):
+    """base problem with outflow on x = 1, Neumann on y = 0 (elsewhere
+    Dirichlet), a Neumann flux j and an outflow term o."""
+
+    class Mixed(base):
+        def bctype(self, x):
+            right = x[..., 0] > 1 - 1e-9
+            bottom = x[..., 1] < 1e-9
+            return 1 + 1 * right - 1 * (bottom & ~right)
+
+        def j(self, x):
+            return 0.3 + x[..., 0]
+
+        def o(self, x):
+            return 0.1 * x[..., 1]
+
+    return Mixed()
+
+
+@pytest.mark.parametrize("dim,k,cells", [(2, 1, (4, 4)), (3, 2, (2, 3, 2))])
+def test_boundary_kernels_need_skip_boundary(dim, k, cells):
+    """Boundary kernels run on the boundary face groups unless
+    skip_boundary=True: residual and J.v of a Neumann/outflow/Dirichlet
+    problem against the JAX package (1e-12 relative)."""
+    lo, hi = [0.0] * dim, [1.0] * dim
+    jV = jpt.FunctionSpace(jpt.StructuredMesh(lo, hi, cells), jpt.QkFEM(k, dim))
+    tV = tpt.FunctionSpace(tpt.StructuredMesh(lo, hi, cells), tpt.QkFEM(k, dim))
+    jp, tp = _mixed_bc(JVar), _mixed_bc(TVar)
+    jgo = jpt.GridOperator(jV, JFEM(jp), constraints=jpt.constraints(jp.dirichlet_bctype(), jV))
+    tgo = tpt.GridOperator(tV, TFEM(tp), constraints=tpt.constraints(tp.dirichlet_bctype(), tV))
+    assert tgo.has["alpha_boundary"] and len(tgo.bnd_groups) == 2 * dim
+    rng = np.random.default_rng(5)
+    x, z = rng.standard_normal((2, tV.ndofs))
+    for got, want in ((tgo.residual(torch.from_numpy(x)), jgo.residual(jnp.asarray(x))),
+                      (tgo.jacobian_apply(torch.from_numpy(x), torch.from_numpy(z)),
+                       jgo.jacobian_apply(jnp.asarray(x), jnp.asarray(z)))):
+        want = np.asarray(want)
+        assert np.abs(got.numpy() - want).max() <= REL * np.abs(want).max()
+    go = tpt.GridOperator(tV, TFEM(tp), skip_boundary=True)
+    assert go.has["alpha_volume"] and not go.has["alpha_boundary"] and not go.bnd_groups
 
 
 def test_volume_geometry_is_lazy():

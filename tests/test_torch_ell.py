@@ -35,9 +35,11 @@ from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM as TFEM
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem as TProblem
 from dune_pdelab_tpu_torch.ops.base import LocalOperator
 from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
+from dune_pdelab_tpu_torch.utils.common import set_default_device
 
 pytestmark = pytest.mark.fast
 torch.set_num_threads(1)
+set_default_device("cpu")
 F64 = torch.float64
 
 
@@ -186,8 +188,9 @@ def test_direct_declines_like_jax():
     assert tell.assemble_ell_direct(tgo, tV.zero(F64)) is None
     jface = jpt.GridOperator(jV, JFEM(JVarCoeff()), constraints=jpt.constraints(True, jV))
     assert jell.assemble_ell_direct(jface) is None
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tpt.GridOperator(tV, TFEM(TVarCoeff()), constraints=tpt.constraints(True, tV))
+    tface = tpt.GridOperator(tV, TFEM(TVarCoeff()), constraints=tpt.constraints(True, tV))
+    assert tface.has["alpha_boundary"]
+    assert tell.assemble_ell_direct(tface, tV.zero(F64)) is None
 
     class TNonlinear(TFEM):
         is_linear = False

@@ -18,9 +18,11 @@ from dune_pdelab_tpu.assembly import dofmaps as jdm
 from dune_pdelab_tpu.fe import quadrature as jq
 from dune_pdelab_tpu_torch.assembly import dofmaps as tdm
 from dune_pdelab_tpu_torch.fe import quadrature as tq
+from dune_pdelab_tpu_torch.utils.common import set_default_device
 
 pytestmark = pytest.mark.fast
 torch.set_num_threads(1)
+set_default_device("cpu")
 
 CASES = [(2, 1, (5, 4)), (2, 2, (3, 4)), (3, 1, (3, 2, 4)), (3, 2, (2, 3, 2))]
 
@@ -135,6 +137,41 @@ def test_interpolate_and_helpers(dim, k, cells):
     np.testing.assert_array_equal(
         tpt.set_nonconstrained_dofs(tc, 0.0, v).numpy(),
         np.asarray(jpt.set_nonconstrained_dofs(jc, 0.0, jnp.asarray(xj))))
+
+
+def test_default_device_is_the_card():
+    """With no device named, the entry points put their tensors on
+    default_device(): the card unless set_default_device chose another,
+    with no CPU fallback. Here the routing is shown with the meta device,
+    and, without a card, torch's own error at the first CUDA tensor."""
+    from dune_pdelab_tpu_torch.assembly.stencil import compile_stencil
+    from dune_pdelab_tpu_torch.linalg.gmg_lattice import LatticeGMG
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM as TFEM
+    from dune_pdelab_tpu_torch.utils.common import default_device
+
+    V = tpt.FunctionSpace(tpt.StructuredMesh([0] * 3, [1] * 3, (8, 8, 8)), tpt.QkFEM(1, 3))
+    try:
+        set_default_device(None)
+        assert default_device() == torch.device("cuda")
+        if not torch.cuda.is_available():
+            for make in (V.zero, lambda: tpt.constraints(True, V),
+                         lambda: V.interpolate(lambda x: x[:, 0])):
+                with pytest.raises((AssertionError, RuntimeError)):
+                    make()
+        set_default_device("meta")
+        assert V.zero().device.type == "meta"
+        assert V.interpolate(lambda x: x[:, 0]).device.type == "meta"
+        cg = tpt.constraints(True, V)
+        assert cg.mask.device.type == "meta"
+        go = tpt.GridOperator(V, TFEM(tpt.ops.ConvectionDiffusionProblem()),
+                              constraints=cg, skip_boundary=True)
+        gmg = LatticeGMG(V, go.lop)
+        assert all(st.mask.device.type == "meta" for st in gmg.stencils)
+        with pytest.raises(NotImplementedError):
+            compile_stencil(go)          # probes run on the mask's (meta) device
+    finally:
+        set_default_device("cpu")
+    assert V.zero().device.type == "cpu"
 
 
 def test_device_key_normalises_cuda_spellings():

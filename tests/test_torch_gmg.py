@@ -39,9 +39,11 @@ from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem as TProblem
 from dune_pdelab_tpu_torch.solvers.refinement import (
     MixedPrecisionStationarySolver, refine_solve)
 from dune_pdelab_tpu_torch.space.functions import l2_difference
+from dune_pdelab_tpu_torch.utils.common import set_default_device
 
 pytestmark = pytest.mark.fast
 torch.set_num_threads(1)
+set_default_device("cpu")
 F64 = torch.float64
 PI = np.pi
 

@@ -13,9 +13,11 @@ import torch
 
 from dune_pdelab_tpu.linalg import krylov as jk
 from dune_pdelab_tpu_torch.linalg import krylov as tk
+from dune_pdelab_tpu_torch.utils.common import set_default_device
 
 pytestmark = pytest.mark.fast
 torch.set_num_threads(1)
+set_default_device("cpu")
 N = 200
 
 

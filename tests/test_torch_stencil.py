@@ -22,9 +22,11 @@ from dune_pdelab_tpu_torch.interop import stencil_from_numpy, vector_from_numpy
 from dune_pdelab_tpu_torch.kernels import stencil27 as sk
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM as TFEM
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem as TProblem
+from dune_pdelab_tpu_torch.utils.common import set_default_device
 
 pytestmark = pytest.mark.fast
 torch.set_num_threads(1)
+set_default_device("cpu")
 
 
 class JConst(JProblem):

@@ -29,9 +29,11 @@ from dune_pdelab_tpu_torch.kernels import structured_fused as sfk
 from dune_pdelab_tpu_torch.linalg.gmg_varcoeff import VarCoeffGMG
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM as TFEM
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem as TProblem
+from dune_pdelab_tpu_torch.utils.common import set_default_device
 
 pytestmark = pytest.mark.fast
 torch.set_num_threads(1)
+set_default_device("cpu")
 
 
 class JVarCoeff(JProblem):
@@ -201,12 +203,13 @@ def test_fused_declines_out_of_scope():
     go.has["lambda_volume"] = False
     assert make_fused_residual(go) is None
     assert make_fused_japply(go) is not None
-    # active boundary kernels cannot arise: the port's GridOperator refuses
-    # them (ROADMAP slice 7) before the fused operator is asked
+    # active boundary kernels (the GridOperator's boundary face groups)
+    # -> None: the kernel has no face terms
     mesh = tpt.StructuredMesh([0, 0, 0], [1, 1, 1], (6, 6, 6))
     V = tpt.FunctionSpace(mesh, tpt.QkFEM(1, 3))
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tpt.GridOperator(V, TFEM(TVarCoeff()), constraints=tpt.constraints(True, V))
+    go = tpt.GridOperator(V, TFEM(TVarCoeff()), constraints=tpt.constraints(True, V))
+    assert go.has["alpha_boundary"] and len(go.bnd_groups) == 6
+    assert make_fused_residual(go) is None and make_fused_japply(go) is None
 
 
 def test_varcoeff_gmg_matches_jax():
