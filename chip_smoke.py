@@ -10,10 +10,14 @@ Phases (each passes or raises; there is no CPU path):
   2. each kernel against its plain PyTorch version on the card, with kernel
      and plain times: stencil27 and the fused-CG pair at 128^3, at an
      unaligned (67, 45, 33) grid (fp32 and fp64) and at the main path's
-     512^3 grid (fp32); structured_fused (fp32) at 512^3 cells and at a
-     ragged 66x44x32 cells, residual and Jacobian-apply modes, for a
-     field-A problem and a tensor-A + b + c + f problem (and fp64 at the
-     ragged size);
+     512^3 grid (fp32); stencil27 in fp32 and fp64 at every LatticeGMG
+     level shape phase 5a launches it on (513^3 down to 9^3), 3^3 and
+     67x45x33, timed in fp32; structured_fused (fp32) at 512^3 cells and
+     at a ragged 66x44x32 cells, and (fp32, fp64) at one cell (2x2x2
+     nodes), residual and Jacobian-apply modes, for a field-A problem and a
+     tensor-A + b + c + f problem (and fp64 at the ragged size), and at the
+     ragged size on a q = 3 rule (fp32 field-A J.v, fp64 tensor residual);
+     both kernels launched twice on one input give bit-equal results;
   3. the main path at full size: 3D Poisson Q1, 511 cells per axis
      (N = 134,217,728 DOFs), fp32: mesh -> space -> constraints ->
      GridOperator -> slabbed RHS -> compile_stencil (proxy branch) ->
@@ -73,7 +77,10 @@ MAIN_ITERS = 50       # fused-CG iterations at tol = 0
 README_CELLS = 127    # README entry point: 2,097,152 DOFs
 MG_CELLS = 512        # multigrid routes: cells per axis (even, so it coarsens)
 VAR_CELLS = (256, 512)
-FUSED_CELLS = [(512, 512, 512), (66, 44, 32)]   # structured_fused checks
+FUSED_CELLS = [(512, 512, 512), (66, 44, 32), (1, 1, 1)]   # structured_fused checks
+# the lattices phase 5a's LatticeGMG runs stencil27 on (every level above
+# its coarsest, which is a dense LU); phase 2 holds the kernel there
+MG_LEVEL_DIMS = [(n,) * 3 for n in (513, 257, 129, 65, 33, 17, 9)]
 C13_CELLS = 128       # config13 golden
 ASM_CELLS = 255       # assembled path (bench.py:734): N = 256^3 DOFs
 ASM_SMALL = 63        # direct-vs-probed and iteration-parity checks
@@ -137,6 +144,53 @@ def cuda_ms(torch, fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def graph_ms(torch, fn, reps):
+    """Mean milliseconds of fn() over reps launches replayed from one CUDA
+    graph: the device's time without the host's per-call cost, which hides
+    it at small shapes."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def ptxas_report(build_log):
+    """(kernel, registers, spills) of each entry function of the ptxas -v
+    log."""
+    out, name, spill = [], None, ""
+    for ln in build_log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+            spill = ""
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name is not None:
+            out.append((name, ln.split(":", 1)[-1].strip(), spill))
+            name = None
+    return out
+
+
+def faces_grid(torch, dims, dev):
+    """(nz, ny, nx) bool grid, True on every boundary face of the lattice."""
+    nx, ny, nz = dims
+    faces = torch.zeros((nz, ny, nx), dtype=torch.bool, device=dev)
+    faces[0] = faces[-1] = True
+    faces[:, 0] = faces[:, -1] = True
+    faces[:, :, 0] = faces[:, :, -1] = True
+    return faces
+
+
 def q1_laplace_taps(h):
     """(3, 3, 3) taps of the 3D Q1 Laplacian on a cube of side h."""
     import numpy as np
@@ -164,10 +218,7 @@ def phase_kernels(torch, dims_list, main_dims, dev):
         w27 = q1_laplace_taps(1.0 / (nx - 1)) * (1 + 0.1 * rng.standard_normal((3, 3, 3)))
         tol = 1e-6 if dtype == torch.float32 else 1e-13
         dtol = 1e-5 if dtype == torch.float32 else 1e-12
-        faces = torch.zeros((nz, ny, nx), dtype=torch.bool, device=dev)
-        faces[0] = faces[-1] = True
-        faces[:, 0] = faces[:, -1] = True
-        faces[:, :, 0] = faces[:, :, -1] = True
+        faces = faces_grid(torch, dims, dev)
         mask = faces.reshape(-1)
 
         def rand():
@@ -245,6 +296,50 @@ def phase_kernels(torch, dims_list, main_dims, dev):
     return record
 
 
+def phase_stencil_levels(torch, dev):
+    """Phase 2 (stencil27): the kernel against its plain version in fp32
+    and fp64 at every LatticeGMG level shape of phase 5a, 3^3 and 67x45x33
+    (random z and taps, all-faces mask); a repeated launch gives the same
+    bits; the fp32 time at each shape."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.kernels import stencil27 as sk
+
+    rng = np.random.default_rng(513)
+    times = {}
+    for dims in MG_LEVEL_DIMS + [(3, 3, 3), (67, 45, 33)]:
+        nx, ny, nz = dims
+        n = nx * ny * nz
+        mask = faces_grid(torch, dims, dev).reshape(-1)
+        w27 = q1_laplace_taps(1.0 / (nx - 1)) * (1 + 0.1 * rng.standard_normal((3, 3, 3)))
+        for dtype, tol in ((torch.float32, 1e-6), (torch.float64, 1e-13)):
+            tag = f"{nx}x{ny}x{nz} {str(dtype).replace('torch.', '')}"
+            z = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+            y = sk.stencil27(z, mask, w27, dims)
+            y_p = sk.stencil27_reference(z, mask, w27, dims)
+            err = float((y - y_p).abs().max())
+            lim = tol * float(y_p.abs().max())
+            if not (bool(torch.isfinite(y).all()) and err <= lim):
+                raise AssertionError(f"stencil27 {tag}: max abs err {err:.3e} > {lim:.3e}")
+            if not torch.equal(y, sk.stencil27(z, mask, w27, dims)):
+                raise AssertionError(f"stencil27 {tag}: a repeated launch differs")
+            line = f"[phase 2] stencil27 {tag}: max abs err {err:.3e}, repeat bit-equal"
+            if dtype == torch.float32:
+                run = lambda: sk.stencil27(z, mask, w27, dims)
+                reps = 20 if n > 10**7 else (100 if n > 10**5 else 500)
+                # small shapes are host-bound when launched one by one; the
+                # graph replay shows the device's time
+                times[dims] = (cuda_ms(torch, run, reps),
+                               graph_ms(torch, run, 200) if n <= 10**7 else None)
+                line += f", {times[dims][0]:.4f} ms" + (
+                    f" ({times[dims][1]:.4f} ms from a CUDA graph)" if times[dims][1] else "")
+            log(line)
+            del z, y, y_p
+        torch.cuda.empty_cache()
+    log("[phase 2] stencil27 fp32 ms per level shape (eager / graph): "
+        + ", ".join(f"{d[0]}x{d[1]}x{d[2]} {t:.4f}" + (f" / {g:.4f}" if g else "")
+                    for d, (t, g) in times.items()))
+
+
 def unit_source_problem():
     """3D Poisson with f == 1 and homogeneous Dirichlet data (bench.py:183-185)."""
     import torch
@@ -296,7 +391,7 @@ def tensor_conv_problem():
     return TensorConv()
 
 
-def q1_operator(torch, pt, problem, cells, dev):
+def q1_operator(torch, pt, problem, cells, dev, quad_order=None):
     """GridOperator of ConvectionDiffusionFEM(problem) on the unit cube,
     Q1, Dirichlet on every face, constraints on `dev`."""
     from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
@@ -304,13 +399,18 @@ def q1_operator(torch, pt, problem, cells, dev):
     V = pt.FunctionSpace(mesh, pt.QkFEM(1, 3))
     cgm = pt.constraints(problem.dirichlet_bctype(), V, device=dev)
     lop = ConvectionDiffusionFEM(problem)
-    return V, cgm, lop, pt.GridOperator(V, lop, constraints=cgm, skip_boundary=True)
+    return V, cgm, lop, pt.GridOperator(V, lop, constraints=cgm, skip_boundary=True,
+                                        quad_order=quad_order)
 
 
 def phase_fused_kernel(torch, pt, dev):
     """Phase 2 (structured_fused): kernel against its plain version on the
-    card at the main path's 512^3 cells and a ragged 66x44x32 cells, both
-    modes, a field-A and a tensor-A + b + c + f problem."""
+    card at the main path's 512^3 cells, a ragged 66x44x32 cells and one
+    cell (2x2x2 nodes), both modes, a field-A and a tensor-A + b + c + f
+    problem, on the default rule (q = 2 Gauss points per axis, the kernel's
+    specialisation); at 66x44x32 cells also on quad_order 4 (q = 3, the
+    runtime-q instantiation): fp32 field-A J.v and fp64 tensor residual. A
+    repeated launch gives the same bits."""
     import numpy as np
     from dune_pdelab_tpu_torch.assembly.structured_fused import (
         make_fused_japply, make_fused_residual)
@@ -318,15 +418,20 @@ def phase_fused_kernel(torch, pt, dev):
 
     rng = np.random.default_rng(77)
     record = {}
-    cases = [(c, torch.float32) for c in FUSED_CELLS] + [(FUSED_CELLS[-1], torch.float64)]
-    for cells, dtype in cases:
-        for pname, make_problem in (("field-A", field_a_problem),
-                                    ("tensor-A+b+c+f", tensor_conv_problem)):
-            V, cgm, _, go = q1_operator(torch, pt, make_problem(), cells, dev)
+    problems = {"field-A": field_a_problem, "tensor-A+b+c+f": tensor_conv_problem}
+    makes = {"residual": make_fused_residual, "japply": make_fused_japply}
+    every = [(p, m) for p in problems for m in makes]
+    # (cells, dtype, quad_order, [(problem, mode)])
+    cases = ([(c, torch.float32, None, every) for c in FUSED_CELLS]
+             + [(c, torch.float64, None, every) for c in FUSED_CELLS[1:]]
+             + [(FUSED_CELLS[1], torch.float32, 4, [("field-A", "japply")]),
+                (FUSED_CELLS[1], torch.float64, 4, [("tensor-A+b+c+f", "residual")])])
+    for cells, dtype, quad_order, runs in cases:
+        for pname in dict.fromkeys(p for p, _ in runs):
+            V, cgm, _, go = q1_operator(torch, pt, problems[pname](), cells, dev, quad_order)
             x = torch.as_tensor(rng.standard_normal(V.ndofs), dtype=dtype, device=dev)
-            for mode, make in (("residual", make_fused_residual),
-                               ("japply", make_fused_japply)):
-                op = make(go)
+            for mode in [m for p, m in runs if p == pname]:
+                op = makes[mode](go)
                 t0 = time.perf_counter()
                 tab, coef = op.state(x.dtype, x.device)
                 torch.cuda.synchronize()
@@ -341,22 +446,25 @@ def phase_fused_kernel(torch, pt, dev):
                 tol = 1e-5 if dtype == torch.float32 else 1e-12
                 lim = tol * float(y_p.abs().max())
                 tag = (f"{cells[0]}x{cells[1]}x{cells[2]} cells "
-                       f"{str(dtype).replace('torch.', '')} {pname} {mode}")
+                       f"{str(dtype).replace('torch.', '')} {pname} {mode} "
+                       f"q={sfk.tensor_rule(tab).q}")
                 if not err <= lim:
                     raise AssertionError(f"structured_fused {tag}: max abs err "
                                          f"{err:.3e} > {lim:.3e}")
+                if not torch.equal(y, op(x)):
+                    raise AssertionError(f"structured_fused {tag}: a repeated launch differs")
                 big = V.ndofs > 10**7
                 ms = cuda_ms(torch, lambda: op(x), 10 if big else 50)
                 plain_ms = cuda_ms(torch, lambda: sfk.structured_fused_reference(
                     x, cgm.mask, tab, coef, op.dims, mode == "japply"), 2 if big else 10)
                 nel = int(np.prod(cells))
-                log(f"[phase 2] structured_fused {tag}: max abs err {err:.3e} "
+                log(f"[phase 2] structured_fused {tag}: max abs err {err:.3e}, repeat bit-equal "
                     f"(max|y| {float(y_p.abs().max()):.3e}), {ms:.4f} ms "
                     f"({nel / ms / 1e6:.3f} Gelem/s; plain {plain_ms:.4f} ms), "
                     f"coefficients {sum(t.numel() for t in coef[2:] if t is not None) * x.element_size() / 2**30:.2f} GiB "
                     f"evaluated in {eval_s:.2f} s")
                 if (tuple(cells) == FUSED_CELLS[0] and pname == "field-A"
-                        and mode == "japply"):
+                        and mode == "japply" and quad_order is None):
                     record["structured_fused"] = {
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         **bound(*k3_work(V.ndofs, x.element_size(), coef, nel)),
@@ -591,6 +699,9 @@ def mg_solve_and_refine(torch, pt, cells, dev):
     setup_s = time.perf_counter() - t0
     per_cycle = sk.launches - before
     expected = (gmg.nlevels - 1) * (gmg.pre + gmg.post + 1)
+    if cells == MG_CELLS and [tuple(d) for d in gmg.dims[:-1]] != MG_LEVEL_DIMS:
+        raise AssertionError(f"LatticeGMG levels {gmg.dims} are not phase 2's "
+                             f"MG_LEVEL_DIMS {MG_LEVEL_DIMS} and a coarsest LU level")
     if not (gmg.nlevels >= 3 and all(s.uses_stencil27 for s in gmg.stencils[:-1])
             and per_cycle == expected):
         raise AssertionError(f"LatticeGMG levels {gmg.nlevels}: stencil27 launches per "
@@ -1414,9 +1525,8 @@ def main():
     _build.library()
     log(f"[phase 1] kernels built in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds} s) -> {_build.library_path().name}")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name, regs, spill in ptxas_report(_build.build_log):
+        log(f"[phase 1] {name}: {regs}; {spill}")
 
     n1 = MAIN_CELLS + 1
     main_dims = (n1, n1, n1)
@@ -1424,6 +1534,7 @@ def main():
                  ((67, 45, 33), torch.float32), ((67, 45, 33), torch.float64),
                  (main_dims, torch.float32)]
     record = phase_kernels(torch, dims_list, main_dims, dev)
+    phase_stencil_levels(torch, dev)
     record.update(phase_fused_kernel(torch, pt, dev))
 
     counters = {"stencil27": (sk, "launches"), "fused_cg_k1": (fk, "launches_k1"),

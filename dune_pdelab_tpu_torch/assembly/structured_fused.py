@@ -17,7 +17,8 @@ kept on the operator. The TPU tiling arguments of the reference
 Scope (checked by make_*; None returned otherwise, never because of the
 device): single-leaf Q1 tensor C0 space, 3D uniform non-periodic cube mesh,
 ConvectionDiffusionFEM volume kernels (A constant, a scalar field or a 3x3
-tensor field; any b, c, f), no boundary or skeleton kernels.
+tensor field; any b, c, f), no boundary or skeleton kernels, a quadrature
+rule of at most QMAX Gauss points per axis (quad_order <= 7).
 
 Reference analog: the element loop of the default assembler
 (dune/pdelab/gridoperator/default/assembler.hh:84-279) jointly with
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from dune_pdelab_tpu_torch.kernels.structured_fused import (
-    TAB_WIDTH, FusedCoefficients, structured_fused,
+    QMAX, TAB_WIDTH, FusedCoefficients, structured_fused,
 )
 from dune_pdelab_tpu_torch.space.space import to_numpy
 from dune_pdelab_tpu_torch.utils.common import device_key
@@ -63,7 +64,8 @@ def _qualifies(go, include_lambda):
         return False
     if include_lambda and not go.has.get("lambda_volume"):
         return False
-    return True
+    # the kernel takes tensor rules of at most QMAX Gauss points per axis
+    return go._vol_tab[0].shape[0] <= QMAX**3
 
 
 def _tabulation(go, dtype, device):

@@ -6,16 +6,34 @@ Computes y = mask ? z : S(z * !mask), where S is the 27-tap stencil over the
 in 3D.
 
 Source note.
-  Replaces: dune_pdelab_tpu/assembly/stencil_pallas_tile.py
+  Replaces: dune_pdelab_tpu/assembly/stencil_pallas_tile.py:65
     build_tiled_stencil_apply (K2a) and dune_pdelab_tpu/assembly/
-    stencil_pallas.py build_flat_stencil_apply (K2b); one kernel covers both.
-  Kernel: csrc/stencil27.cu (CUDA C++, sm_90a), on the plane window of
-    csrc/plane_window.cuh.
-  Bound on the H100: device-memory bytes (one read of z and of the mask and
-    one write of y per point, against 27 FMAs). The kernel fuses the two
-    Dirichlet `where`s of the TPU wrapper and marches (x, y) tiles along z
-    through a three-plane shared-memory ring, so each plane is read from
-    device memory about once.
+    stencil_pallas.py:63 build_flat_stencil_apply (K2b); one kernel covers
+    both.
+  Kernel: csrc/stencil27.cu (CUDA C++, sm_90a), its own z march (the
+    fused-CG kernels keep csrc/plane_window.cuh).
+  Bound on the H100: device-memory bytes: one read of z and of the mask and
+    one write of y per point (9 B in fp32, 0.361 ms at 512^3 DOFs) against
+    27 FMAs (0.108 ms at 67 TFLOP/s). Measured at about 43% of it, limited
+    by the rate of instruction dispatch (PERF.md).
+  Design: a block marches a (32 XP) x 8 tile along a z chunk sized from
+    the grid (launch_shape.cuh: small multigrid levels still fill the
+    card); a thread owns XP consecutive x points of a row. XP = 4 from 128
+    columns up (on nx = 128 k + 1, the multigrid lattices, the last tile's
+    lane 31 takes a fifth point rather than leave a tile of one column);
+    narrower grids take 2 or 1, whichever leaves fewer idle columns. Planes
+    arrive through a shared ring of 4 stages in fp32 and 3 in fp64, filled
+    by one-value cp.async copies (any nx: no row alignment needed), so 3
+    (fp64: 2) planes load while one is computed; constrained entries are
+    zeroed by the thread that copied them. Register blocking along z: each
+    arriving plane is read once (one vector shared load per row of the
+    thread's 3 x (XP + 2) neighbourhood, the two edge values by warp
+    shuffle) into the layer sums W[-1]*p, W[0]*p, W[+1]*p, which complete
+    output plane p - 1 and update two running sums: at most 3 shared reads
+    per point instead of 27, one barrier per plane. Each output is
+    (W[-1]*p[z-1] + W[0]*p[z]) + W[+1]*p[z+1] in fixed order: results
+    repeat bit for bit. The earlier design (27 shared reads per point from a
+    three-plane ring, one plane in flight) and its times are in PERF.md.
 
 The wrapper takes the plain PyTorch version only for a tensor on the CPU;
 for a CUDA tensor it launches the kernel or raises. `launches` counts the

@@ -12,7 +12,8 @@ Source note.
     the pallas_call at :256), reached through make_fused_residual and
     make_fused_japply (assembly/structured_fused.py of this package).
   Kernel: csrc/structured_fused.cu (CUDA C++, sm_90a), instantiated for
-    float32 and float64 and specialised on A's shape.
+    float32 and float64, specialised on A's shape and on q = 2 Gauss points
+    per axis (other tensor rules up to q = QMAX: a runtime-q instantiation).
   Coefficients: the TPU kernel evaluated the problem's A/b/c/f closures
     inside its body. A CUDA kernel cannot run Python closures, so the
     operator evaluates them once (per operator, time, dtype and device) in
@@ -22,9 +23,28 @@ Source note.
     and each apply reads 4 * nqp * ncomp bytes of coefficients per element
     (32 B for a field A) instead of the ~2 floats of x and y. Evaluating
     the coefficients inside the kernel is later work.
-  Bound on the H100: arithmetic (about 560 FMAs per element for the 8-point
-    rule, x 297/256 for the tile halo) with a field A; coefficient bytes
-    grow with ncomp. The kernel is deterministic: no floating-point atomics.
+  Bound on the H100: device-memory bytes. A field-A J.v in fp32 moves 41 B
+    per element (x, mask, y, 8 coefficient values): 1.645 ms at 512^3 cells
+    against 1.03 ms for the 512 flop per element of a sum-factorised
+    evaluation at 67 TFLOP/s. Measured at about 47% of it: ~115 registers
+    per thread leave 16 warps per SM to hide latency (PERF.md).
+  Design: sum factorisation on the tensor rule. `tensor_rule` factors `tab`
+    into 1D tables (per axis: the Q1 basis and its derivative scaled by 1 /
+    h at the Gauss points; the weights w_q |J|), in float64 on the host, and
+    raises unless their tensor product gives `tab` back; the kernel takes
+    them by value (constant-bank FMA operands) and evaluates u and grad u
+    with 2 + 3 + 4 one-dimensional contractions, the test-function sweep
+    with their transposes. A Q1 derivative is -+1/h at every point, so its
+    contractions are differences taken once per line. A block of 256 threads
+    computes the 32 x 32 elements around its 31 x 31 node tile once each per
+    element plane (no ragged pass), shares x contractions between
+    neighbouring element rows, combines a node's <= 8 element contributions
+    in fixed order (warp shuffle, one shared row exchange, a register
+    carried along z), keeps the node planes' mask bytes in shared memory (no
+    global load on the store path) and loads a field A two elements ahead.
+    Deterministic: no floating-point atomics. The earlier design (per-point
+    sums over all 8 corners, the tabulation read from shared memory, a
+    ragged second element pass) and its times are in PERF.md.
 
 The wrapper takes the plain PyTorch version only for a tensor on the CPU;
 for a CUDA tensor it launches the kernel or raises. `launches` counts the
@@ -32,14 +52,17 @@ kernel launches.
 """
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from dune_pdelab_tpu_torch.kernels import _build
 
 launches = 0
 TAB_WIDTH = 33     # phi[8], grad[8][3], factor per quadrature point
+QMAX = 4           # Gauss points per axis the kernel takes
 # the plain version works on z-slabs of about this many elements, so that
 # its temporaries stay small at 512^3
 PLAIN_SLAB_ELEMENTS = 1 << 24
@@ -58,6 +81,96 @@ class FusedCoefficients(NamedTuple):
     b: Optional[torch.Tensor]
     c: Optional[torch.Tensor]
     f: Optional[torch.Tensor]
+
+
+class TensorRule(NamedTuple):
+    """The tabulation of a tensor-product rule on the uniform Q1 cube, as 1D
+    tables (float64). Axis d (0 = x), point i, corner c in {0, 1}:
+    phi[d, i, c] the Q1 basis, dphi[d, i, c] its derivative times 1 / h_d;
+    w[iz, iy, ix] = w_q |J|. The point (ix, iy, iz) is row ix + q (iy + q iz)
+    of `tab` and of the coefficient arrays."""
+    q: int
+    phi: np.ndarray
+    dphi: np.ndarray
+    w: np.ndarray
+
+
+def _rebuild(rule: TensorRule) -> np.ndarray:
+    """The (q^3, 33) tabulation the 1D tables give (corner a = dx + 2 dy + 4 dz)."""
+    q = rule.q
+    k = np.arange(q**3)
+    i = [k % q, (k // q) % q, k // q**2]               # point index per axis
+    a = np.arange(8)
+    c = [a & 1, (a >> 1) & 1, a >> 2]                  # corner bit per axis
+    f = [rule.phi[d][i[d][:, None], c[d][None, :]] for d in range(3)]
+    df = [rule.dphi[d][i[d][:, None], c[d][None, :]] for d in range(3)]
+    grad = np.stack([df[0] * f[1] * f[2], f[0] * df[1] * f[2], f[0] * f[1] * df[2]], -1)
+    return np.concatenate([f[0] * f[1] * f[2], grad.reshape(q**3, 24),
+                           rule.w.reshape(q**3, 1)], axis=1)
+
+
+def tensor_rule(tab) -> TensorRule:
+    """Factor a (nqp, 33) Q1 tabulation into the kernel's 1D tables.
+
+    The Gauss point of axis d is the sum of the basis values of the corners
+    on that axis' upper face; 1 / h_d the same sum of the d-derivatives; the
+    weights are split into a rank-one product. Raises ValueError unless
+    nqp = q^3 with q <= QMAX, the rows run x fastest, and the tables' tensor
+    product gives `tab` back: to 1e-13 relative (per block of columns: basis,
+    gradients, weights) for a float64 tab, 16 ulp of its dtype otherwise."""
+    tt = torch.as_tensor(tab)
+    t = tt.detach().to("cpu", torch.float64).numpy()
+    nqp = t.shape[0]
+    q = round(nqp ** (1 / 3))
+    if t.shape != (nqp, TAB_WIDTH) or q**3 != nqp or not 1 <= q <= QMAX:
+        raise ValueError(f"tab {t.shape} is not a tensor rule of q <= {QMAX} points per axis")
+    phi, grad = t[:, :8], t[:, 8:32].reshape(nqp, 8, 3)
+    upper = [((np.arange(8) >> d) & 1) == 1 for d in range(3)]
+    first = [np.arange(q) * q**d for d in range(3)]    # rows of the points (i, 0, 0), ...
+    xi = [phi[first[d]][:, upper[d]].sum(1) for d in range(3)]
+    inv_h = [grad[0, upper[d], d].sum() for d in range(3)]
+    P = np.stack([np.stack([1.0 - p, p], -1) for p in xi])
+    dP = np.stack([np.tile([-h, h], (q, 1)) for h in inv_h])
+    W = t[:, 32].reshape(q, q, q)                      # [iz, iy, ix]
+    wx, wy, wz = W.sum((0, 1)), W.sum((0, 2)), W.sum((1, 2))
+    W = wz[:, None, None] * wy[None, :, None] * wx[None, None, :] / W.sum() ** 2
+    rule = TensorRule(q, P, dP, W)
+    tol = 1e-13 if tt.dtype == torch.float64 else 16 * float(torch.finfo(tt.dtype).eps)
+    back = _rebuild(rule)
+    for cols in (slice(0, 8), slice(8, 32), slice(32, 33)):
+        err = np.abs(back[:, cols] - t[:, cols]).max()
+        if not err <= tol * np.abs(t[:, cols]).max():
+            raise ValueError(f"tab is not the tensor product of 1D tables (columns "
+                             f"{cols.start}:{cols.stop} differ by {err:.3e})")
+    return rule
+
+
+def _packed(rule: TensorRule) -> np.ndarray:
+    """The kernel's float64 table block: phi[3][QMAX][2], inv_h[3] (a Q1
+    derivative is -+inv_h at every point: dphi[d, i] = [-inv_h, inv_h]),
+    w[QMAX^3] (w at ix + q (iy + q iz)), zero-padded."""
+    q = rule.q
+    phi = np.zeros((3, QMAX, 2))
+    w = np.zeros(QMAX**3)
+    phi[:, :q], w[:q**3] = rule.phi, rule.w.reshape(-1)
+    return np.ascontiguousarray(np.concatenate([phi.ravel(), rule.dphi[:, 0, 1], w]))
+
+
+# tables per tab tensor, held while it lives: id -> (weakref, version, tables)
+_rules: dict = {}
+
+
+def _rule_of(tab):
+    """(TensorRule, packed tables) of `tab`, derived once per tab tensor (a
+    device tab is read back to the host on its first use only)."""
+    hit = _rules.get(id(tab))
+    if hit is not None and hit[0]() is tab and hit[1] == tab._version:
+        return hit[2]
+    rule = tensor_rule(tab)
+    for k in [k for k, v in _rules.items() if v[0]() is None]:
+        del _rules[k]
+    _rules[id(tab)] = (weakref.ref(tab), tab._version, (rule, _packed(rule)))
+    return _rules[id(tab)][2]
 
 
 def _corners(g, z0, z1):
@@ -150,10 +263,12 @@ def _check(x, mask, tab, coef, dims):
 
 def structured_fused(x, mask, tab, coef: FusedCoefficients, dims, japply: bool):
     """Fused Q1 operator of the flat (N,) vector x on the (nx, ny, nz) node
-    grid. mask: (N,) bool or None; tab: (nqp, 33) of x's dtype."""
+    grid. mask: (N,) bool or None; tab: (nqp, 33) of x's dtype, a tensor
+    rule (`tensor_rule` raises otherwise)."""
     global launches
     dims = tuple(int(d) for d in dims)
     _check(x, mask, tab, coef, dims)
+    rule, packed = _rule_of(tab)
     if x.device.type == "cpu":
         return structured_fused_reference(x, mask, tab, coef, dims, japply)
     if x.device.type != "cuda":
@@ -167,7 +282,7 @@ def structured_fused(x, mask, tab, coef: FusedCoefficients, dims, japply: bool):
     y = torch.empty_like(x)
     rc = getattr(lib, fn)(
         _build.ptr(x), _build.ptr(mask), _build.ptr(y), nx, ny, nz,
-        _build.ptr(tab), int(tab.shape[0]), int(coef.a_kind), float(coef.a_const),
+        packed.ctypes.data, rule.q, int(coef.a_kind), float(coef.a_const),
         _build.ptr(coef.A), _build.ptr(coef.b), _build.ptr(coef.c),
         _build.ptr(coef.f), int(bool(japply)), _build.stream_ptr(x.device))
     _build.check(rc, "structured_fused")

@@ -30,6 +30,7 @@ import torch
 from dune_pdelab_tpu_torch.linalg.gmg_lattice import (
     LatticeGMG, coarse_lu_factor, level_hierarchy, separable_transfers,
 )
+from dune_pdelab_tpu_torch.utils.common import resolve_device
 
 
 class _FusedLevelOp:
@@ -49,9 +50,11 @@ class _FusedLevelOp:
                              dtype=dtype or self._diag.dtype)
 
 
-def _probe_gershgorin(apply_fn, dims, dtype=torch.float32, device="cpu"):
+def _probe_gershgorin(apply_fn, dims, dtype=torch.float32, device=None):
     """Exact diagonal + per-row Gershgorin ratio of a reach-1 lattice
-    operator via 27 residue combs. Returns (diag, lmax_bound)."""
+    operator via 27 residue combs, on `device` (default_device() for None).
+    Returns (diag, lmax_bound)."""
+    device = resolve_device(device)
     dim = len(dims)
     rev = tuple(reversed(dims))
     axes_mod = [

@@ -3,15 +3,19 @@
 compile_stencil weights (k = 1 and k = 2, direct and proxy branch),
 StencilOperator apply and `.diagonal`, and stencil27's plain version against
 the JAX package's Pallas stencil kernels run in interpret mode (as
-tests/test_stencil.py runs them on the CPU).
+tests/test_stencil.py runs them on the CPU); a plain-torch emulation of the
+stencil27 kernel's summation order (layer sums of each arriving plane,
+two running sums) against the plain version and the Pallas kernels.
 """
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
+import torch.nn.functional as F
 
 import dune_pdelab_tpu as jpt
 import dune_pdelab_tpu_torch as tpt
+from dune_pdelab_tpu.assembly.stencil import StencilOperator as JStencilOperator
 from dune_pdelab_tpu.assembly.stencil import compile_stencil as j_compile
 from dune_pdelab_tpu.assembly.stencil_pallas import try_pallas_stencil
 from dune_pdelab_tpu.assembly.stencil_pallas_tile import try_pallas_tiled_stencil
@@ -168,6 +172,67 @@ def test_stencil27_reference_matches_pallas_interpret(lowering):
     assert got.dtype == torch.float32
     assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
     assert torch.equal(sk.stencil27(torch.from_numpy(z), st.mask, st.w27, st.dims), got)
+
+
+def _plane_order(z, mask, w27, dims):
+    """The stencil27 kernel's order of sums: each arriving plane p gives the
+    layer sums t[L] = W[L - 1] * p (taps in (dy, dx) order); output plane
+    p - 1 is (W[-1]*p[-2] + W[0]*p[-1]) + t[2], then the two running sums
+    move on."""
+    nx, ny, nz = dims
+    zf = z if mask is None else torch.where(mask, 0.0, z)
+    g = F.pad(zf.reshape(nz, ny, nx), (1, 1, 1, 1, 1, 1))      # planes -1 .. nz
+    out = torch.empty((nz, ny, nx), dtype=z.dtype)
+    s0 = s1 = torch.zeros((ny, nx), dtype=z.dtype)
+    for p in range(-1, nz + 1):
+        pl = g[p + 1]
+        t = []
+        for L in range(3):
+            acc = None
+            for dy in range(3):
+                for dx in range(3):
+                    term = float(w27[L, dy, dx]) * pl[dy:dy + ny, dx:dx + nx]
+                    acc = term if acc is None else acc + term
+            t.append(acc)
+        if p >= 1:
+            out[p - 1] = s1 + t[2]
+        s1, s0 = s0 + t[1], t[0]
+    y = out.reshape(-1)
+    return y if mask is None else torch.where(mask, z, y)
+
+
+@pytest.mark.parametrize("dims", [(3, 3, 3), (5, 5, 5), (9, 7, 5)])
+def test_stencil27_plane_order_matches(dims):
+    """The kernel's plane-contribution order against the plain version
+    (fp64, random taps and mask) and the JAX Pallas kernels (K2a tiled,
+    K2b flat; interpret mode, f32)."""
+    rng = np.random.default_rng(sum(dims))
+    n = int(np.prod(dims))
+    z = torch.as_tensor(rng.standard_normal(n))
+    w27 = rng.standard_normal((3, 3, 3))
+    for mask in (None, torch.as_tensor(rng.random(n) < 0.3)):
+        want = sk.stencil27_reference(z, mask, w27, dims)
+        got = _plane_order(z, mask, w27, dims)
+        assert float((got - want).abs().max()) <= 1e-14 * float(want.abs().max())
+    # the Pallas lowerings need a mask holding every boundary point (the flat
+    # one wraps rows at the lattice edges); random taps, a random interior
+    offsets = np.array([(dx, dy, dz) for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+                        for dx in (-1, 0, 1)])
+    weights = rng.standard_normal((1, 27))
+    ix = np.indices(dims[::-1]).reshape(3, -1)
+    edge = np.zeros(n, bool)
+    for a, d in zip(ix, dims[::-1]):
+        edge |= (a == 0) | (a == d - 1)
+    m = edge | (rng.random(n) < 0.2)
+    jst = JStencilOperator(dims, 1, weights, offsets, jnp.asarray(m), None)
+    st = stencil_from_numpy(dims, 1, weights, offsets, m, dtype=torch.float32)
+    zf = rng.standard_normal(n).astype(np.float32)
+    got = _plane_order(torch.from_numpy(zf), st.mask, st.w27, st.dims).numpy()
+    for pal in (try_pallas_tiled_stencil(jst, interpret=True, row_block=24),
+                try_pallas_stencil(jst, interpret=True)):
+        assert pal is not None
+        want = np.asarray(pal(jnp.asarray(zf)))
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_stencil27_wrapper_checks_inputs():

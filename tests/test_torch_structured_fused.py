@@ -8,7 +8,13 @@ kernel's plain version) and VarCoeffGMG with the JAX package.
     in another order);
   * out-of-scope operators give None;
   * VarCoeffGMG at 16^3: the same Chebyshev bound per level to fp32
-    roundoff and the same iteration count within one.
+    roundoff and the same iteration count within one;
+  * the kernel's 1D tables (`tensor_rule`) rebuild the tabulation to 1e-13
+    on a mesh with three different spacings, and a non-product tabulation
+    raises;
+  * a plain-torch emulation of the kernel's sum-factorised evaluation (x,
+    y, z contractions and their transposes on those tables) matches the
+    plain version and the JAX batched residual / Jacobian-apply in fp64.
 Problems copied from tests/test_structured_fused.py.
 """
 import numpy as np
@@ -255,3 +261,161 @@ def test_structured_fused_wrapper_checks_inputs():
         sfk.structured_fused(x, None, tab, coef._replace(A=coef.A[:, :, 1:]), dims, True)
     with pytest.raises(ValueError, match="mask"):
         sfk.structured_fused(x, torch.zeros(3, dtype=torch.bool), tab, coef, dims, True)
+
+
+def _aniso_state(quad_order, cells=(5, 4, 6)):
+    """(go, tab) of the tensor-convection problem on [0,1]x[0,2]x[0,0.5]
+    (hx != hy != hz), fp64."""
+    mesh = tpt.StructuredMesh([0, 0, 0], [1, 2, 0.5], cells)
+    V = tpt.FunctionSpace(mesh, tpt.QkFEM(1, 3))
+    go = tpt.GridOperator(V, TFEM(TTensorConv()), constraints=tpt.constraints(True, V),
+                          skip_boundary=True, quad_order=quad_order)
+    tab, _ = make_fused_residual(go).state(torch.float64, torch.device("cpu"))
+    return go, tab
+
+
+@pytest.mark.parametrize("quad_order", [None, 4])
+def test_tensor_rule_rebuilds_tab(quad_order):
+    go, tab = _aniso_state(quad_order)
+    rule = sfk.tensor_rule(tab)
+    assert rule.q == (2 if quad_order is None else 3) and rule.q**3 == tab.shape[0]
+    t = tab.numpy()
+    back = sfk._rebuild(rule)
+    for cols in (slice(0, 8), slice(8, 32), slice(32, 33)):
+        assert np.abs(back[:, cols] - t[:, cols]).max() <= 1e-13 * np.abs(t[:, cols]).max()
+    # derivative tables: -+1/h per axis (h = 0.2, 0.5, 1/12)
+    for d, h in enumerate(go.mesh.h):
+        np.testing.assert_allclose(rule.dphi[d], np.tile([-1 / h, 1 / h], (rule.q, 1)),
+                                   rtol=1e-13)
+    # the packed kernel block: phi, 1/h per axis, weights, zero-padded to QMAX
+    packed = sfk._packed(rule)
+    assert packed.shape == (3 * sfk.QMAX * 2 + 3 + sfk.QMAX**3,)
+    np.testing.assert_allclose(packed[3 * sfk.QMAX * 2:][:3], 1 / np.asarray(go.mesh.h),
+                               rtol=1e-13)
+    np.testing.assert_array_equal(packed[-sfk.QMAX**3:][:rule.q**3], rule.w.reshape(-1))
+
+
+def test_tensor_rule_raises_on_non_product_tab():
+    _, tab = _aniso_state(None)
+    bad = tab.clone()
+    bad[3, 5] *= 1.0 + 1e-9                      # one basis value off the product
+    with pytest.raises(ValueError, match="tensor product"):
+        sfk.tensor_rule(bad)
+    bad = tab.clone()
+    bad[2, 32] *= 1.01                           # weights not rank one
+    with pytest.raises(ValueError, match="tensor product"):
+        sfk.tensor_rule(bad)
+    with pytest.raises(ValueError, match="tensor rule"):
+        sfk.tensor_rule(tab[:7])                 # 7 points: no q^3
+    # the wrapper raises too (on the CPU as on the card)
+    go = _go(tpt, TFieldA, TFEM, (4, 3, 5))
+    op = make_fused_japply(go)
+    x = torch.as_tensor(_x(go.space.ndofs))
+    t, coef = op.state(x.dtype, x.device)
+    bad = t.clone()
+    bad[0, 0] += 1e-6
+    with pytest.raises(ValueError, match="tensor product"):
+        sfk.structured_fused(x, None, bad, coef, op.dims, True)
+
+
+def _sum_factorised(x, mask, rule, coef, dims, japply):
+    """Plain-torch emulation of the kernel's evaluation: per element, u and
+    grad u by 1D contractions (x, then y, then z) on the tensor rule's
+    tables, the fluxes at each point, and the test-function sweep by the
+    transposed contractions (z, then y, then x); scatter to the corners."""
+    nx, ny, nz = dims
+    q = rule.q
+    P, dP = torch.as_tensor(rule.phi), torch.as_tensor(rule.dphi)   # (3, q, 2)
+    u = x if (mask is None or not japply) else torch.where(mask, 0.0, x)
+    g = u.reshape(nz, ny, nx)
+    C = torch.stack([torch.stack([torch.stack([g[dz:dz + nz - 1, dy:dy + ny - 1,
+                                                 dx:dx + nx - 1] for dx in (0, 1)])
+                                  for dy in (0, 1)]) for dz in (0, 1)])   # [dz, dy, dx]
+    ein = torch.einsum
+    Lx, Dx = ein("ic,zyc...->zyi...", P[0], C), ein("ic,zyc...->zyi...", dP[0], C)
+    U = ein("jb,zbi...->zji...", P[1], Lx)
+    G0 = ein("jb,zbi...->zji...", P[1], Dx)
+    G1 = ein("jb,zbi...->zji...", dP[1], Lx)
+    pts = [ein("kz,zji...->kji...", T, V) for T, V in ((P[2], U), (P[2], G0),
+                                                       (P[2], G1), (dP[2], U))]
+    uq, g0, g1, g2 = (t.reshape(q**3, *t.shape[3:]) for t in pts)   # row ix + q (iy + q iz)
+    if coef.a_kind == 0:
+        f = [coef.a_const * gd for gd in (g0, g1, g2)]
+    elif coef.a_kind == 1:
+        f = [coef.A[:, 0] * gd for gd in (g0, g1, g2)]
+    else:
+        f = [coef.A[:, 3 * i] * g0 + coef.A[:, 3 * i + 1] * g1 + coef.A[:, 3 * i + 2] * g2
+             for i in range(3)]
+    if coef.b is not None:
+        f = [f[d] - uq * coef.b[:, d] for d in range(3)]
+    s = torch.zeros_like(uq)
+    if coef.c is not None:
+        s = coef.c[:, 0] * uq
+    if coef.f is not None:
+        s = s - coef.f[:, 0]
+    w = torch.as_tensor(rule.w.reshape(-1))[:, None, None, None]
+    F0, F1, F2, S = (t.mul(w).reshape(q, q, q, *t.shape[1:]) for t in (*f, s))
+    Pz = ein("kz,kji...->zji...", dP[2], F2) + ein("kz,kji...->zji...", P[2], S)
+    Q1, Q0 = ein("kz,kji...->zji...", P[2], F1), ein("kz,kji...->zji...", P[2], F0)
+    Rv = ein("jb,zji...->zbi...", P[1], Pz) + ein("jb,zji...->zbi...", dP[1], Q1)
+    Sv = ein("jb,zji...->zbi...", P[1], Q0)
+    out = ein("ic,zbi...->zbc...", P[0], Rv) + ein("ic,zbi...->zbc...", dP[0], Sv)
+    r = torch.zeros_like(g)
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                r[dz:dz + nz - 1, dy:dy + ny - 1, dx:dx + nx - 1] += out[dz, dy, dx]
+    y = r.reshape(-1)
+    return y if mask is None else torch.where(mask, x if japply else 0.0, y)
+
+
+@pytest.mark.parametrize("name", ["field_A", "tensor_convection"])
+@pytest.mark.parametrize("japply", [False, True])
+def test_sum_factorised_emulation_matches(name, japply):
+    JP, TP = PROBLEMS[name]
+    jgo, tgo = _go(jpt, JP, JFEM, (9, 8, 7)), _go(tpt, TP, TFEM, (9, 8, 7))
+    op = (make_fused_japply if japply else make_fused_residual)(tgo)
+    x = torch.as_tensor(_x(tgo.space.ndofs, seed=21))
+    tab, coef = op.state(x.dtype, x.device)
+    mask = tgo.cg.mask
+    got = _sum_factorised(x, mask, sfk.tensor_rule(tab), coef, op.dims, japply)
+    plain = sfk.structured_fused_reference(x, mask, tab, coef, op.dims, japply)
+    assert _rel_max(got, plain) <= 1e-12
+    if japply:
+        want = jgo.jacobian_apply(jnp.zeros(len(x)), jnp.asarray(x.numpy()))
+    else:
+        want = jgo.residual(jnp.asarray(x.numpy()))
+    assert _rel_max(got, want) <= 1e-12
+
+
+def test_probe_gershgorin_resolves_default_device():
+    """device=None is default_device() (the CPU in these tests), and gives
+    what an explicit device gives."""
+    from dune_pdelab_tpu_torch.linalg.gmg_varcoeff import _probe_gershgorin
+    tgo = _go(tpt, TFieldA, TFEM, (4, 4, 4))
+    op = make_fused_japply(tgo)
+    d0, l0 = _probe_gershgorin(op, op.dims)
+    d1, l1 = _probe_gershgorin(op, op.dims, device="cpu")
+    assert d0.device.type == "cpu" and torch.equal(d0, d1) and l0 == l1
+    assert d0.dtype == torch.float32 and l0 >= 1.0
+
+
+def test_rules_above_qmax_take_the_general_path():
+    """A rule of more than QMAX Gauss points per axis (quad_order 8: 5) does
+    not qualify for the kernel; VarCoeffGMG then runs its levels through the
+    batched jvp apply and still solves. quad_order 7 (4 points) qualifies."""
+    def go_of(quad_order, cells=(8, 8, 8)):
+        mesh = tpt.StructuredMesh([0, 0, 0], [1, 1, 1], cells)
+        V = tpt.FunctionSpace(mesh, tpt.QkFEM(1, 3))
+        return tpt.GridOperator(V, TFEM(TFieldA()), constraints=tpt.constraints(True, V),
+                                skip_boundary=True, quad_order=quad_order)
+
+    assert make_fused_japply(go_of(7)) is not None
+    go = go_of(8)
+    assert go._vol_tab[0].shape[0] == 5**3
+    assert make_fused_japply(go) is None and make_fused_residual(go) is None
+    gmg = VarCoeffGMG(go)
+    assert len(gmg.lmax) == 2 and all(np.isfinite(gmg.lmax))
+    b = -go.residual(go.space.zero(torch.float32))
+    x, info = gmg.solve_host(b, tol=1e-6, maxiter=40)
+    assert info["converged"] and info["true_defect"] / info["defect0"] < 1e-5
