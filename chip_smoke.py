@@ -45,15 +45,17 @@ Phases (each passes or raises; there is no CPU path):
      golden in fp64 and SEQ_CG_ILU0 at 127^3 cells next to Jacobi-CG;
   7. the DG path (bench.py:835-975), Q1/Q2 DG SIPG on the unit cube or
      square: (a) block_stencil_mm and block_stencil_em against their plain
-     versions on SIPG weights (128^3 Q1 fp32 both layouts, 37x29x23 Q2 fp64
-     both layouts, 2048^2 Q2 fp32 and the 32^2 config3/config7 shapes
-     element-major), timed against their bound, plain version and a
+     versions on SIPG weights (128^3 Q1 fp32 both layouts, 64^3 Q1 fp32
+     mode-major, 20x16x12 Q1 and 37x29x23 Q2 fp64 both layouts, 2048^2 Q2
+     fp32, the 32^2 config3/config7 shapes and 40x24 Q3 fp64
+     element-major), a repeated launch bit-equal, timed (below 10^7 DOFs
+     also from a CUDA graph) against their bound, plain version and a
      TF32-off convolution; (b) bench.py's _dg_half at 128^3 cells:
      compile_block_stencil (proxy branch) and the mode-major apply, held
      against go.jacobian_apply; (c) _dgmg_half at 64^3 and 128^3 cells:
      DGTwoLevel on the mode-major stencil inside a host PCG loop, with the
      launches per iteration counted; (d) the config3 and config7 goldens in
-     fp64 (element-major kernel, 2D).
+     fp64 (element-major kernel, 2D), with their element-major launches.
 
 Launch counts are set to 0 before each of phases 3 to 7 and read after
 it; a kernel of that path that was never launched fails the run (the
@@ -89,12 +91,19 @@ C9_CELLS = 12         # config9 golden
 DG_CELLS = 128        # _dg_half (bench.py:835): N = 16,777,216 DG DOFs
 DGMG_CELLS = (64, 128)   # _dgmg_half (bench.py:899)
 # phase 7a: (cells, Q degree, dtype name, layouts, layout recorded in the
-# kernels JSON line or None)
+# kernels JSON line or None): every shape phase 7 launches the kernels at
+# (7b/7c at 64^3 and 128^3, config3/config7 at 32^2), the 2048^2 Q2 main
+# shape of the element-major layout, Q1 in 3D in fp64 (the parameter path
+# in both layouts), Q2 in 3D (nb = 27, shared path) and Q3 in 2D (nb = 16:
+# the run-time-nb shared path)
 DG_KERNEL_CASES = [((DG_CELLS,) * 3, 1, "float32", ("mm", "em"), "mm"),
+                   ((DGMG_CELLS[0],) * 3, 1, "float32", ("mm",), None),
+                   ((20, 16, 12), 1, "float64", ("mm", "em"), None),
                    ((37, 29, 23), 2, "float64", ("mm", "em"), None),
                    ((2048, 2048), 2, "float32", ("em",), "em"),
                    ((32, 32), 2, "float64", ("em",), None),
-                   ((32, 32), 1, "float64", ("em",), None)]
+                   ((32, 32), 1, "float64", ("em",), None),
+                   ((40, 24), 3, "float64", ("em",), None)]
 # the config3 golden's BiCGStab step count is set by rounding (it stalls
 # near the 1e-10 target; tests/test_torch_dg.py CONFIG3_STEPS_BAND), so it
 # is held to a band, its L2 error to CONFIG3_L2_BAND of the golden, and the
@@ -1274,19 +1283,23 @@ def dg_kernels(torch, pt, dev):
                 arg = z
                 run = lambda: bk.block_stencil_em(arg, W, dD, cells)
                 plain = lambda: bk.block_stencil_em_reference(arg, W, dD, cells)
-            y, y_p = run(), plain()
+            y, y_p, y2 = run(), plain(), run()
             torch.cuda.synchronize()
             err = float((y - y_p).abs().max())
             lim = tol * float(y_p.abs().max())
             if not (bool(torch.isfinite(y).all()) and err <= lim):
                 raise AssertionError(f"block_stencil_{layout} {tag}: max abs err "
                                      f"{err:.3e} > {lim:.3e}")
+            if not torch.equal(y, y2):
+                raise AssertionError(f"block_stencil_{layout} {tag}: repeated launch differs")
             ms = cuda_ms(torch, run, 20 if big else 50)
+            gms = "" if big else f", graph replay {graph_ms(torch, run, 200):.4f} ms"
             plain_ms = cuda_ms(torch, plain, 3 if big else 10)
             lib_ms = conv_ms(torch, z, W, cells, 10 if big else 30)
             b = bound(nbytes, flops)
-            log(f"[phase 7a] block_stencil_{layout} {tag}: max abs err {err:.3e} "
-                f"(max|y| {float(y_p.abs().max()):.3e}), {ms:.4f} ms "
+            log(f"[phase 7a] block_stencil_{layout} {tag} ({bk.block_path(dtype, nb)} "
+                f"path): max abs err {err:.3e} (max|y| {float(y_p.abs().max()):.3e}), "
+                f"repeat bit-equal, {ms:.4f} ms{gms} "
                 f"({st.ndofs / ms / 1e6:.3f} Gdof/s), plain {plain_ms:.4f} ms, conv "
                 f"{lib_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
                 f"kernel at {100 * b['bound_ms'] / ms:.1f}% of it")
@@ -1294,7 +1307,7 @@ def dg_kernels(torch, pt, dev):
                 record[f"blockstencil_{layout}"] = {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
                     "library_ms": lib_ms}
-            del y, y_p
+            del y, y_p, y2
         del z, arg, go, st
         torch.cuda.empty_cache()
     bk.launches_mm, bk.launches_em = saved
@@ -1410,6 +1423,7 @@ def dg_goldens(torch, pt, dev):
     """Phase 7d: config3 (BiCGStab + Jacobi on the element-major block
     stencil) and config7 (CG + DGTwoLevel) in fp64 on the card, against
     tests/golden_parity.json and the JAX package's CPU numbers."""
+    from dune_pdelab_tpu_torch.kernels import blockstencil as bk
     from dune_pdelab_tpu_torch.linalg import DGTwoLevel
     from dune_pdelab_tpu_torch.ops import ConvectionDiffusionDG, ConvectionDiffusionFEM
     from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
@@ -1450,10 +1464,11 @@ def dg_goldens(torch, pt, dev):
         go = pt.GridOperator(V, ConvectionDiffusionDG(p))
         ls = SEQ_BCGS_Jacobi()
         slp = pt.StationaryLinearProblemSolver(go, ls, reduction=red, verbose=0)
+        em0 = bk.launches_em
         x, wall = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
         l2 = float(l2_difference(V, x, p.exact))
         its = slp.result.linear_solver_iterations
-        rep = ls.report(go).splitlines()[0]
+        rep = ls.report(go).splitlines()[0] + f"; block_stencil_em launches {bk.launches_em - em0}"
         ref = want["l2_error"] if red == 1e-10 else CONFIG3_L2_TIGHT
         rel = abs(l2 - ref) / ref
         log(f"[phase 7d] config3 fp64 to {red:.0e}: {its} BiCGStab steps, L2 {l2:.16e} "
@@ -1474,12 +1489,14 @@ def dg_goldens(torch, pt, dev):
     pre = DGTwoLevel(go, ConvectionDiffusionFEM(p), bctype=p.dirichlet_bctype())
     ls = LinearSolverBackend(solver="cg", precond=pre, use_stencil=False)
     slp = pt.StationaryLinearProblemSolver(go, ls, reduction=1e-10, verbose=0)
+    em0 = bk.launches_em
     x, wall = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
     l2 = float(l2_difference(V, x, p.exact))
     its = slp.result.linear_solver_iterations
     rel = abs(l2 - want["l2_error"]) / want["l2_error"]
     log(f"[phase 7d] config7 fp64: {its} CG steps (the JAX package: {CONFIG7_STEPS}), L2 "
-        f"{l2:.16e} (golden {want['l2_error']:.16e}, rel {rel:.2e}), {wall:.2f} s")
+        f"{l2:.16e} (golden {want['l2_error']:.16e}, rel {rel:.2e}), {wall:.2f} s; "
+        f"block_stencil_em launches {bk.launches_em - em0}")
     if not (slp.result.converged and its == CONFIG7_STEPS and rel <= 1e-8):
         raise AssertionError("config7 golden mismatch")
 

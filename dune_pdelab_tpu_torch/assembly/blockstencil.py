@@ -60,7 +60,8 @@ class BlockStencilOperator:
 
     def taps(self, dtype, device):
         """The kernel's (W (7, nb, nb), dD (3, 2, nb, nb)) in `dtype` on
-        `device`, built once per pair."""
+        `device`, built once per pair, with their host weights for the
+        kernel's parameter path (kernels/blockstencil.py tap_tensors)."""
         key = (dtype, device_key(device))
         if key not in self._taps:
             if torch.device(device).type == "cuda":
@@ -176,7 +177,12 @@ def compile_block_stencil(go, x_lin=None, time=0.0, check=True, dtype=None,
         e = torch.zeros((nb, space.ndofs), dtype=dtype, device=device)
         e[torch.arange(nb), eidx(e_mi) * nb + torch.arange(nb)] = 1.0
         cols = vmap(lambda v: go.jacobian_apply(x_lin, v, time))(e).cpu().numpy()
+        if np.iscomplexobj(cols):
+            imaginary.append(bool(np.any(cols.imag != 0)))
+            cols = cols.real
         return {r: cols[:, r * nb:(r + 1) * nb].T.copy() for r in rows}
+
+    imaginary = []     # a complex operator's blocks: the stencil is declined
 
     # interior probe: centre element far from every boundary
     c_mi = np.array([2] * dim)
@@ -206,6 +212,8 @@ def compile_block_stencil(go, x_lin=None, time=0.0, check=True, dtype=None,
                            expect, atol=1e-9):
             return None
 
+    if any(imaginary):
+        return None
     st = BlockStencilOperator(cells, nb, W_taps, offsets, dD)
     if check and not _global_parity(go, st, x_lin, time):
         # probe-local checks pass for operators that are translation

@@ -18,20 +18,37 @@ Source note.
   Replaces: dune_pdelab_tpu/assembly/blockstencil_mm.py build_mm_block_apply
     (K5a), build_mm_flat_apply (K5b, the production `mxu2` mode) and
     build_mm_vreg_apply (K5c), and dune_pdelab_tpu/assembly/
-    blockstencil_pallas.py build_block_stencil_apply (K6); one kernel
-    template covers all four through layout strides.
-  Kernel: csrc/blockstencil.cu (CUDA C++, sm_90a), fp32 and fp64, nb in
-    {4, 8, 9, 27} compiled with nb fixed, any other nb at run time.
+    blockstencil_pallas.py build_block_stencil_apply (K6).
+  Kernel: csrc/blockstencil.cu (CUDA C++, sm_90a), fp32 and fp64.
   Bound on the H100: device-memory bytes (z read and y written once:
-    8 B/DOF in fp32) against 7*nb multiply-adds per DOF. One thread per
-    element computes its nb outputs from its own and its face neighbours'
-    values, in a fixed order with no atomics.
+    8 B/DOF in fp32) against 7*nb multiply-adds per DOF; what limits the
+    kernel is instruction issue and its memory pipeline, so no weight is
+    loaded from global memory inside the tap loop where it can be avoided.
+    `block_path(dtype, nb)` states the path:
+      * "param" for nb in PARAM_NB = (4, 8, 9) (Q1/Q2 in 2D, Q1 in 3D), any
+        dtype: the 13 weight blocks travel as a kernel parameter (at most
+        13*81*8 = 8,424 B, within the 32,764 B sm_90 takes since CUDA 12.1)
+        and reach the FMAs through uniform registers. The packed host copy
+        (`pack_taps`) is built once per weight pair and kept beside the
+        device tensors; an apply copies nothing off the card. Mode-major:
+        one thread per element marching along z, the next plane loaded
+        while this one is computed; element-major: rows staged through
+        shared memory by 16-byte cp.async, marching along y;
+      * "shared" for any other nb (27 = Q2 in 3D): the weights staged once
+        per block into shared memory, CH outputs per pass (28 for nb = 27,
+        else 8);
+      * a ValueError where the shared path's weights exceed the 227 KB of
+        shared memory a block may use.
+    There is no __constant__ path: the card's toolkit (CUDA 12.9) takes the
+    parameter path's largest block set.
 
 The wrapper takes the plain PyTorch version only for a tensor on the CPU;
 for a CUDA tensor it launches the kernel or raises. `launches_mm` and
 `launches_em` count the kernel launches of the two entry points.
 """
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -41,14 +58,18 @@ from dune_pdelab_tpu_torch.kernels import _build
 launches_mm = 0
 launches_em = 0
 
+PARAM_NB = (4, 8, 9)            # nb compiled with the weights as a kernel parameter
+_PATH_CODE = {"param": 0, "shared": 1}
+SMEM_BYTES = 232448             # shared memory one block may use on the H100
+
 # tap order of W: offset (dx, dy, dz) of tap t
 TAP_ORDER = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),
              (0, 0, -1), (0, 0, 1))
 
 
-def tap_tensors(W_taps, offsets, dD_sides, dtype, device):
-    """(W (7, nb, nb), dD (3, 2, nb, nb)) in the kernel's order from a
-    BlockStencilOperator's numpy arrays (taps absent in 2D are zero)."""
+def tap_arrays(W_taps, offsets, dD_sides):
+    """(W (7, nb, nb), dD (3, 2, nb, nb)) float64 in the kernel's order from
+    a BlockStencilOperator's numpy arrays (taps absent in 2D are zero)."""
     W_taps = np.asarray(W_taps, np.float64)
     nb = W_taps.shape[-1]
     W = np.zeros((7, nb, nb))
@@ -60,8 +81,71 @@ def tap_tensors(W_taps, offsets, dD_sides, dtype, device):
     dD_sides = np.asarray(dD_sides, np.float64)
     dD = np.zeros((3, 2, nb, nb))
     dD[:dD_sides.shape[0]] = dD_sides
-    return (torch.as_tensor(W, dtype=dtype, device=device),
-            torch.as_tensor(dD, dtype=dtype, device=device))
+    return W, dD
+
+
+def pack_taps(W, dD, dtype):
+    """The parameter path's host copy of the weights: W (7, nb, nb) then dD
+    (3, 2, nb, nb) as 13*nb*nb contiguous values of `dtype` (blocks in the
+    order taps 0, -x, +x, -y, +y, -z, +z, sides x-, x+, y-, y+, z-, z+;
+    each row-major [a][b])."""
+    npdt = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    W, dD = np.asarray(W), np.asarray(dD)
+    nb = W.shape[-1]
+    return np.ascontiguousarray(
+        np.concatenate([W.reshape(7, nb, nb), dD.reshape(6, nb, nb)]).reshape(-1),
+        dtype=npdt)
+
+
+def block_path(dtype, nb):
+    """The kernel path for (dtype, nb): "param" for nb in PARAM_NB, else
+    "shared"; raises where the shared path's staged weights do not fit."""
+    if nb in PARAM_NB:
+        return "param"
+    ch = 28 if nb == 27 else 8
+    nbytes = 13 * nb * (-(-nb // ch) * ch) * torch.empty((), dtype=dtype).element_size()
+    if nbytes > SMEM_BYTES:
+        raise ValueError(f"block stencil nb = {nb} in {dtype}: {nbytes} B of staged "
+                         f"weights exceed the {SMEM_BYTES} B of shared memory")
+    return "shared"
+
+
+# id(W) -> (weakref to dD, versions of W and dD, packed host weights); an
+# entry leaves with W
+_PACKED = {}
+
+
+def register_packed(W, dD, packed):
+    """Keep `packed` (pack_taps of W and dD) as the host weights of the
+    device tensors W, dD for the parameter path."""
+    key = id(W)
+    if key not in _PACKED:
+        weakref.finalize(W, _PACKED.pop, key, None)
+    _PACKED[key] = (weakref.ref(dD), W._version, dD._version, packed)
+
+
+def _packed_for(W, dD):
+    """Host weights of (W, dD): those registered with them, else packed once
+    from a copy of the device tensors and registered."""
+    hit = _PACKED.get(id(W))
+    if (hit is not None and hit[0]() is dD and hit[1] == W._version
+            and hit[2] == dD._version):
+        return hit[3]
+    packed = pack_taps(W.cpu().numpy(), dD.cpu().numpy(), W.dtype)
+    register_packed(W, dD, packed)
+    return packed
+
+
+def tap_tensors(W_taps, offsets, dD_sides, dtype, device):
+    """(W (7, nb, nb), dD (3, 2, nb, nb)) in the kernel's order, in `dtype`
+    on `device`, from a BlockStencilOperator's numpy arrays, registered with
+    their host weights (pack_taps of the same arrays), so no apply copies
+    them back."""
+    W, dD = tap_arrays(W_taps, offsets, dD_sides)
+    Wt = torch.as_tensor(W, dtype=dtype, device=device)
+    dDt = torch.as_tensor(dD, dtype=dtype, device=device)
+    register_packed(Wt, dDt, pack_taps(W, dD, dtype))
+    return Wt, dDt
 
 
 def _plain(zg, W, dD, maxis, saxes):
@@ -108,13 +192,19 @@ def _launch(z, W, dD, cells, strides, name):
         raise TypeError(f"{name} takes float32 or float64, got {z.dtype}")
     if z.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {z.device}")
+    nb = W.shape[-1]
+    path = block_path(z.dtype, nb)
+    packed = _packed_for(W, dD) if path == "param" else None
+    if z.data_ptr() % 16:
+        z = z.clone()               # the kernels copy rows in 16-byte chunks
     nx, ny = int(cells[0]), int(cells[1])
     nz = int(cells[2]) if len(cells) == 3 else 1
     lib = _build.library()
     y = torch.empty_like(z)
     rc = getattr(lib, fn)(_build.ptr(z), _build.ptr(W), _build.ptr(dD), _build.ptr(y),
-                          nx, ny, nz, W.shape[-1], len(cells), *strides,
-                          _build.stream_ptr(z.device))
+                          nx, ny, nz, nb, len(cells), *strides,
+                          None if packed is None else packed.ctypes.data,
+                          _PATH_CODE[path], _build.stream_ptr(z.device))
     _build.check(rc, name)
     return y
 

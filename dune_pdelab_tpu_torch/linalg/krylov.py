@@ -13,6 +13,11 @@ once per iteration for the stop test (one host sync per iteration).
 Convergence follows ISTL semantics: 2-norm of the defect, relative
 reduction `tol` against the initial defect with absolute floor `atol`.
 The stopping rules, guards and iteration counting are the reference's.
+Complex systems work as in the reference: the dot product conjugates its
+first argument (`torch.vdot`, as `jnp.vdot`), norms are sqrt(real(dot)),
+and the floors the reference takes with `jnp.maximum` compare complex
+values as JAX does (real part first, then imaginary). The dot product is
+injectable (`dot=`), so a distributed layer can pass a global one.
 """
 from __future__ import annotations
 
@@ -29,48 +34,68 @@ class SolverStats(NamedTuple):
     defect0: Any        # 0-d tensor
     defect: Any         # 0-d tensor
 
+    @property
+    def reduction(self):
+        return self.defect / torch.clamp_min(torch.as_tensor(self.defect0), 1e-300)
 
-def _norm(a):
-    return torch.sqrt(torch.dot(a, a))
+    def conv_rate(self):
+        return self.reduction ** (1.0 / max(int(self.iterations), 1))
+
+
+def _default_dot(a, b):
+    return torch.vdot(a, b)
+
+
+def _norm(dot, a):
+    return torch.sqrt(torch.real(dot(a, a)))
+
+
+def _maximum(a, floor):
+    """jnp.maximum(a, floor) of a 0-d tensor and a real floor: a complex a
+    compares as in JAX, real part first, then imaginary part."""
+    if not a.is_complex():
+        return torch.clamp_min(a, floor)
+    keep = (a.real > floor) | ((a.real == floor) & (a.imag > 0))
+    return torch.where(keep, a, torch.full_like(a, floor))
 
 
 def _identity(r):
     return r
 
 
-def _start(A, b, x0, tol, atol):
+def _start(A, b, x0, tol, atol, dot):
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - A(x)
-    defect0 = _norm(r)
+    defect0 = _norm(dot, r)
     return x, r, defect0, torch.clamp_min(tol * defect0, atol)
 
 
 def cg(A: Callable, b, x0=None, M: Callable = _identity, tol=1e-10, atol=0.0,
-       maxiter=5000):
+       maxiter=5000, dot=_default_dot):
     """Preconditioned conjugate gradients (ISTL CGSolver semantics)."""
-    x, r, defect0, target = _start(A, b, x0, tol, atol)
+    x, r, defect0, target = _start(A, b, x0, tol, atol, dot)
     z = M(r)
-    rho = torch.dot(r, z)
+    rho = dot(r, z)
     p, it, defect = z, 0, defect0
     while it < maxiter and bool(defect > target):
         q = A(p)
-        alpha = rho / torch.dot(p, q)
+        alpha = rho / dot(p, q)
         x = x + alpha * p
         r = r - alpha * q
         z = M(r)
-        rho_new = torch.dot(r, z)
+        rho_new = dot(r, z)
         p = z + (rho_new / rho) * p
         rho = rho_new
         it += 1
-        defect = _norm(r)
+        defect = _norm(dot, r)
     return x, SolverStats(it, defect <= target, defect0, defect)
 
 
 def bicgstab(A: Callable, b, x0=None, M: Callable = _identity, tol=1e-10,
-             atol=0.0, maxiter=5000):
+             atol=0.0, maxiter=5000, dot=_default_dot):
     """Preconditioned BiCGStab (ISTL BiCGSTABSolver semantics; one
     "iteration" = one full BiCGStab step = 2 operator applications)."""
-    x, r, defect0, target = _start(A, b, x0, tol, atol)
+    x, r, defect0, target = _start(A, b, x0, tol, atol, dot)
     rhat = r
     eps = torch.finfo(b.dtype).tiny * 1e4
 
@@ -82,32 +107,32 @@ def bicgstab(A: Callable, b, x0=None, M: Callable = _identity, tol=1e-10,
     rho = alpha = omega = one
     it, defect = 0, defect0
     while it < maxiter and bool(defect > target):
-        rho_new = torch.dot(rhat, r)
+        rho_new = dot(rhat, r)
         beta = (rho_new / guard(rho)) * (alpha / guard(omega))
         p = r + beta * (p - omega * v)
         phat = M(p)
         v = A(phat)
-        alpha = rho_new / torch.dot(rhat, v)
+        alpha = rho_new / dot(rhat, v)
         s = r - alpha * v
         shat = M(s)
         t = A(shat)
-        omega = torch.dot(t, s) / torch.clamp_min(torch.dot(t, t), eps)
+        omega = dot(t, s) / _maximum(dot(t, t), eps)
         x = x + alpha * phat + omega * shat
         r = s - omega * t
         rho = rho_new
         it += 1
-        defect = _norm(r)
+        defect = _norm(dot, r)
     return x, SolverStats(it, defect <= target, defect0, defect)
 
 
 def minres(A: Callable, b, x0=None, M: Callable = _identity, tol=1e-10,
-           atol=0.0, maxiter=5000):
+           atol=0.0, maxiter=5000, dot=_default_dot):
     """Preconditioned MINRES for symmetric (indefinite) systems
     (ISTL MINRESSolver analog; M must be SPD). Convergence is monitored on
     the M-norm residual estimate |eta| (standard pMINRES recurrence)."""
-    x, r1, defect0, target = _start(A, b, x0, tol, atol)
+    x, r1, defect0, target = _start(A, b, x0, tol, atol, dot)
     z1 = M(r1)
-    gamma1 = torch.sqrt(torch.clamp_min(torch.dot(r1, z1), 1e-300))
+    gamma1 = torch.sqrt(_maximum(dot(r1, z1), 1e-300))
     one = torch.ones((), dtype=b.dtype, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     r0, w0, w1 = torch.zeros_like(b), torch.zeros_like(b), torch.zeros_like(b)
@@ -117,10 +142,10 @@ def minres(A: Callable, b, x0=None, M: Callable = _identity, tol=1e-10,
     while it < maxiter and bool(defect > target):
         z = z1 / gamma1
         Az = A(z)
-        delta = torch.dot(Az, z)
+        delta = dot(Az, z)
         r2 = Az - (delta / gamma1) * r1 - (gamma1 / gamma0) * r0
         z2 = M(r2)
-        gamma2 = torch.sqrt(torch.clamp_min(torch.dot(r2, z2), 1e-300))
+        gamma2 = torch.sqrt(_maximum(dot(r2, z2), 1e-300))
         a0 = c1 * delta - c0 * s1 * gamma1
         a1 = torch.sqrt(a0**2 + gamma2**2)
         a2 = s1 * delta + c0 * c1 * gamma1
@@ -139,20 +164,21 @@ def minres(A: Callable, b, x0=None, M: Callable = _identity, tol=1e-10,
 
 
 def restarted_gmres(A: Callable, b, x0=None, M: Callable = _identity,
-                    tol=1e-10, atol=0.0, maxiter=5000, restart=30):
+                    tol=1e-10, atol=0.0, maxiter=5000, restart=30,
+                    dot=_default_dot):
     """Left-preconditioned restarted GMRES(m) with modified Gram-Schmidt
     (ISTL RestartedGMResSolver analog; note ISTL uses right preconditioning —
     convergence is measured here on the preconditioned residual)."""
     x = torch.zeros_like(b) if x0 is None else x0
     m = restart
-    defect0 = _norm(M(b - A(x)))
+    defect0 = _norm(dot, M(b - A(x)))
     target = torch.clamp_min(tol * defect0, atol)
     tiny = 1e-300 if b.dtype == torch.float64 else 1e-30
     small = dict(dtype=b.dtype, device=b.device)
 
     def arnoldi_cycle(x):
         r = M(b - A(x))
-        beta = _norm(r)
+        beta = _norm(dot, r)
         V = [r / torch.clamp_min(beta, tiny)]
         H = torch.zeros((m + 1, m), **small)
         g = torch.zeros(m + 1, **small)
@@ -164,17 +190,18 @@ def restarted_gmres(A: Callable, b, x0=None, M: Callable = _identity,
             w = M(A(V[j]))
             h = torch.zeros(m + 1, **small)
             for i in range(j + 1):                    # modified Gram-Schmidt
-                h[i] = torch.dot(V[i], w)
+                h[i] = dot(V[i], w)
                 w = w - h[i] * V[i]
-            h[j + 1] = _norm(w)
-            V.append(w / torch.clamp_min(h[j + 1], tiny))
+            hnext = _norm(dot, w)
+            h[j + 1] = hnext
+            V.append(w / torch.clamp_min(hnext, tiny))
             for i in range(j):                        # earlier Givens rotations
                 hi = cs[i] * h[i] + sn[i] * h[i + 1]
                 h[i + 1] = -sn[i] * h[i] + cs[i] * h[i + 1]
                 h[i] = hi
             denom = torch.sqrt(h[j] ** 2 + h[j + 1] ** 2)
-            c = h[j] / torch.clamp_min(denom, tiny)
-            s = h[j + 1] / torch.clamp_min(denom, tiny)
+            c = h[j] / _maximum(denom, tiny)
+            s = h[j + 1] / _maximum(denom, tiny)
             h[j], h[j + 1] = denom, 0.0
             g[j + 1] = -s * g[j]
             g[j] = c * g[j]
@@ -191,20 +218,21 @@ def restarted_gmres(A: Callable, b, x0=None, M: Callable = _identity,
     while it < maxiter and bool(defect > target):
         x, defect, jstop = arnoldi_cycle(x)
         it += jstop
-    defect = _norm(M(b - A(x)))
+    defect = _norm(dot, M(b - A(x)))
     return x, SolverStats(it, defect <= target, defect0, defect)
 
 
 def richardson_loop(A: Callable, b, x0=None, M: Callable = _identity,
-                    tol=1e-10, atol=0.0, maxiter=5000, omega=1.0):
+                    tol=1e-10, atol=0.0, maxiter=5000, omega=1.0,
+                    dot=_default_dot):
     """Preconditioned Richardson iteration (ISTL LoopSolver analog)."""
-    x, r, defect0, target = _start(A, b, x0, tol, atol)
+    x, r, defect0, target = _start(A, b, x0, tol, atol, dot)
     it, defect = 0, defect0
     while it < maxiter and bool(defect > target):
         x = x + omega * M(r)
         r = b - A(x)
         it += 1
-        defect = _norm(r)
+        defect = _norm(dot, r)
     return x, SolverStats(it, defect <= target, defect0, defect)
 
 

@@ -40,10 +40,11 @@ def evaluate_at_quadrature(space, x, quad_order=None):
 
 
 def l2_difference(space, x, exact, quad_order=None):
-    """|| u_h - exact ||_L2 (reference: test/l2difference.hh:15-34)."""
+    """|| u_h - exact ||_L2 (reference: test/l2difference.hh:15-34); real
+    for a complex x."""
     xq, u, _, factor = evaluate_at_quadrature(space, x, quad_order)
     ue = torch.as_tensor(exact(xq.reshape(-1, xq.shape[-1])), dtype=x.dtype,
                          device=x.device)
     d = u - torch.broadcast_to(ue.reshape(-1) if ue.ndim else ue,
                                (u.numel(),)).reshape(u.shape)
-    return torch.sqrt(torch.sum(factor * d * d))
+    return torch.sqrt(torch.real(torch.sum(factor * d * torch.conj(d))))

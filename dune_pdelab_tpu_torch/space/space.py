@@ -121,7 +121,8 @@ class FunctionSpace:
         """Interpolate a callable f(x) -> scalar into a DOF vector.
 
         f receives a float64 CPU tensor of points (npts, dim) and returns
-        a tensor, array or scalar. Analog of `Dune::PDELab::interpolate`
+        a tensor, array or scalar; a complex f gives a complex vector (dtype
+        promoted with the values', as in the reference). Analog of `Dune::PDELab::interpolate`
         (reference: dune/pdelab/gridfunctionspace/interpolate.hh:177).
         """
         pts = self._geometry_at(np.atleast_2d(self.fem.interpolation_points))
@@ -129,10 +130,12 @@ class FunctionSpace:
         v = to_numpy(f(torch.from_numpy(flat)))
         fvals = np.broadcast_to(v, (flat.shape[0],)).reshape(pts.shape[:-1])
         coeffs = np.einsum("bi,ei->eb", self.fem.interpolation_matrix, fvals)
+        dtype = dtype or default_float()
+        if np.iscomplexobj(coeffs):                    # complex-valued f
+            dtype = torch.promote_types(dtype, torch.from_numpy(coeffs[:0, :0]).dtype)
         x = np.zeros(self.ndofs, dtype=coeffs.dtype)
         x[self.element_dofs.reshape(-1)] = coeffs.reshape(-1)
-        return torch.as_tensor(x, dtype=dtype or default_float(),
-                               device=resolve_device(device))
+        return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
 
     def zero(self, dtype=None, device=None):
         """Zero DOF vector on `device` (default: utils/common.default_device)."""

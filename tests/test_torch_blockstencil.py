@@ -221,3 +221,130 @@ def test_backend_runs_block_stencil_mode_major_resident(precond):
     z_ref, s_ref = cg(st, b, M=lambda r: r / diag, tol=1e-10)
     assert bool(s.converged) and s.iterations == s_ref.iterations
     assert _rel(z.numpy(), z_ref.numpy()) <= 1e-9
+
+
+def _random_taps(nb, dim, seed):
+    """Random W_taps (in a shuffled tap order), their offsets and dD_sides."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(2 * dim + 1)
+    return (rng.standard_normal((2 * dim + 1, nb, nb)), tbs.face_offsets(dim)[perm],
+            rng.standard_normal((dim, 2, nb, nb)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("nb", [4, 8, 9, 27, 16])
+def test_packed_weights_round_trip(nb, dtype):
+    """pack_taps lays out tap_tensors' (W, dD) as 13 row-major blocks: the
+    taps in TAP_ORDER, then the sides x-, x+, y-, y+, z-, z+ (2D: zeros for
+    the z ones)."""
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    for dim in (2, 3):
+        W_taps, offsets, dD_sides = _random_taps(nb, dim, nb + dim)
+        packed = bk.pack_taps(*bk.tap_arrays(W_taps, offsets, dD_sides), dtype)
+        assert packed.dtype == npdt and packed.shape == (13 * nb * nb,)
+        assert packed.flags["C_CONTIGUOUS"]
+        blocks = packed.reshape(13, nb, nb)
+        W, dD = bk.tap_tensors(W_taps, offsets, dD_sides, dtype, "cpu")
+        assert np.array_equal(blocks[:7], W.numpy())
+        assert np.array_equal(blocks[7:], dD.numpy().reshape(6, nb, nb))
+        for t, off in enumerate(bk.TAP_ORDER):
+            hit = [i for i, o in enumerate(offsets)
+                   if tuple(o) + (0,) * (3 - dim) == off]
+            want = W_taps[hit[0]].astype(npdt) if hit else np.zeros((nb, nb), npdt)
+            assert np.array_equal(blocks[t], want)
+        for side in range(6):
+            want = (dD_sides[side // 2, side % 2].astype(npdt) if side < 2 * dim
+                    else np.zeros((nb, nb), npdt))
+            assert np.array_equal(blocks[7 + side], want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("nb,path", [(4, "param"), (8, "param"), (9, "param"),
+                                     (27, "shared"), (16, "shared"), (5, "shared")])
+def test_path_rule(nb, path, dtype):
+    """block_path: the parameter path for nb in PARAM_NB (Q1/Q2 in 2D, Q1 in
+    3D), the shared-memory path for any other nb."""
+    assert bk.PARAM_NB == (4, 8, 9)
+    assert bk.block_path(dtype, nb) == path
+
+
+def test_path_rule_refuses_weights_beyond_shared_memory():
+    assert bk.block_path(torch.float32, 64) == "shared"      # 212,992 B staged
+    with pytest.raises(ValueError, match="shared memory"):
+        bk.block_path(torch.float32, 70)                     # 262,080 B
+    with pytest.raises(ValueError, match="shared memory"):
+        bk.block_path(F64, 60)
+
+
+def test_packed_weights_built_once_per_operator_and_dtype(monkeypatch):
+    nb, dim = 9, 2
+    W_taps, offsets, dD_sides = _random_taps(nb, dim, 5)
+    st = tbs.BlockStencilOperator((6, 5), nb, W_taps, offsets, dD_sides)
+    calls = []
+    real = bk.pack_taps
+    monkeypatch.setattr(bk, "pack_taps", lambda W, dD, dt: calls.append(dt) or real(W, dD, dt))
+    z = torch.from_numpy(np.random.default_rng(6).standard_normal(st.ndofs))
+    for _ in range(3):
+        st(z)
+        st(z.float())
+    assert calls == [F64, torch.float32]
+    # the host weights registered with the device tensors are found without
+    # a copy; an in-place change of W makes them stale, and they are packed
+    # again from the tensors
+    W, dD = st.taps(F64, "cpu")
+    packed = bk._packed_for(W, dD)
+    assert calls == [F64, torch.float32]
+    assert np.array_equal(packed, real(*bk.tap_arrays(W_taps, offsets, dD_sides), F64))
+    W2, dD2 = W.clone(), dD.clone()
+    bk.register_packed(W2, dD2, packed)
+    assert bk._packed_for(W2, dD2) is packed
+    W2[0, 0, 0] += 1.0
+    again = bk._packed_for(W2, dD2)
+    assert again is not packed
+    assert np.array_equal(again, real(W2.numpy(), dD2.numpy(), F64))
+
+
+def _kernel_order(zg, packed, nb, dim):
+    """CPU emulation of csrc/blockstencil.cu's order of sums on a grid view
+    zg (cell axes reversed, modes last): per output a, the taps 0, -x, +x,
+    -y, +y(, -z, +z), then the dD sides x-, x+, y-, y+(, z-, z+) on the face
+    elements, the mode b innermost; neighbours off the grid read as 0."""
+    w = torch.from_numpy(packed.reshape(13, nb, nb))
+    pad = torch.nn.functional.pad(zg, (0, 0) + (1, 1) * dim)
+
+    def shifted(d, s):
+        ax = dim - 1 - d
+        sl = [slice(1, -1)] * dim
+        sl[ax] = slice(1 + s, 1 + s + zg.shape[ax])
+        return pad[tuple(sl)]
+    acc = torch.zeros_like(zg)
+    for t, v in enumerate([zg] + [shifted(d, s) for d in range(dim) for s in (-1, 1)]):
+        for b in range(nb):
+            acc = acc + w[t, :, b] * v[..., b:b + 1]
+    for side in range(2 * dim):
+        face = [slice(None)] * (dim + 1)
+        face[dim - 1 - side // 2] = slice(-1, None) if side % 2 else slice(0, 1)
+        face = tuple(face)
+        for b in range(nb):
+            acc[face] = acc[face] + w[7 + side, :, b] * zg[face][..., b:b + 1]
+    return acc
+
+
+@pytest.mark.parametrize("cells,nb", [((7, 5), 9), ((6, 4), 4), ((5, 4), 16),
+                                      ((4, 5, 3), 8), ((3, 4, 2), 27)])
+def test_kernel_order_of_sums_matches_plain(cells, nb):
+    """The kernel's order of sums (emulated in fp64 on the packed weights)
+    equals the plain element-major and mode-major versions to 1e-13 max|y|."""
+    dim = len(cells)
+    W_taps, offsets, dD_sides = _random_taps(nb, dim, nb)
+    W, dD = bk.tap_tensors(W_taps, offsets, dD_sides, F64, "cpu")
+    packed = bk.pack_taps(*bk.tap_arrays(W_taps, offsets, dD_sides), F64)
+    grid = tuple(reversed(cells)) + (nb,)
+    z = torch.from_numpy(np.random.default_rng(nb + 1).standard_normal(int(np.prod(grid))))
+    got = _kernel_order(z.reshape(grid), packed, nb, dim).reshape(-1)
+    want = bk.block_stencil_em_reference(z, W, dD, cells)
+    assert (got - want).abs().max() <= 1e-13 * want.abs().max()
+    if dim == 3:
+        op = MMBlockStencil(tbs.BlockStencilOperator(cells, nb, W_taps, offsets, dD_sides))
+        mm = op.from_mm(bk.block_stencil_mm_reference(op.to_mm(z), W, dD, cells))
+        assert (got - mm).abs().max() <= 1e-13 * mm.abs().max()

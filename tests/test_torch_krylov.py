@@ -81,3 +81,21 @@ def test_maxiter_and_atol():
         assert s.iterations >= 3 and not bool(s.converged)
         _, s = fn(lambda z: A @ z, b, tol=0.0, atol=1e30)
         assert s.iterations == 0 and bool(s.converged)
+
+
+@pytest.mark.parametrize("name", ["cg", "bicgstab", "minres", "gmres"])
+def test_solver_stats_reduction_and_conv_rate(name):
+    """SolverStats.reduction and conv_rate() (reference linalg/krylov.py
+    SolverStats), as tests/test_krylov.py test_solver_stats_fields holds
+    them, and equal to the JAX package's on the same solve."""
+    rng = np.random.default_rng(1)
+    A = _matrix("spd", rng)
+    b = np.ones(N)
+    x_j, s_j = jk.SOLVERS[name](lambda z: jnp.asarray(A) @ z, jnp.asarray(b), tol=1e-10)
+    At = torch.as_tensor(A)
+    _, s_t = tk.SOLVERS[name](lambda z: At @ z, torch.as_tensor(b), tol=1e-10)
+    assert float(s_t.reduction) <= 1e-10
+    assert 0 < float(s_t.conv_rate()) < 1
+    assert s_t.iterations == int(s_j.iterations)
+    assert float(s_t.reduction) == pytest.approx(float(s_j.reduction), rel=2e-2)
+    assert float(s_t.conv_rate()) == pytest.approx(float(s_j.conv_rate()), rel=1e-3)

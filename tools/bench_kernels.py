@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time stencil27 and structured_fused of a checkout of the port on the card.
+"""Time stencil27, structured_fused and the DG block stencil of a checkout of
+the port on the card.
 
-    python3 tools/bench_kernels.py [--root DIR]
+    python3 tools/bench_kernels.py [--root DIR] [--kernels LIST]
 
 Times the port found in checkout DIR (default: the checkout holding this
 file), so that two commits can be timed in one run on one card: unpack the
@@ -14,7 +15,15 @@ would hide it. Shapes, fp32:
   stencil27: every LatticeGMG level of a 512^3-cell solve (513^3 down to
     5^3 DOFs), the fused-CG main path's 512^3, 3^3 and 67x45x33;
   structured_fused, field A: J.v at every VarCoeffGMG level of a
-    512^3-cell solve (512^3 down to 8^3 cells) and the residual at 512^3.
+    512^3-cell solve (512^3 down to 8^3 cells) and the residual at 512^3;
+  block_stencil_mm (K5) and block_stencil_em (K6) on SIPG weights at every
+    shape chip_smoke.py launches them at: mode-major 64^3 and 128^3 Q1
+    fp32 (phases 7b/7c), element-major 2048^2 Q2 fp32, 32^2 Q2 and Q1
+    fp64 (config3/config7), 6^3 Q1 fp32 (compile_block_stencil's check on
+    its proxy mesh) and 128^3 Q1 fp32, each held against its plain version
+    first (fp32 1e-6, fp64 1e-13 max|y|).
+LIST is a comma-separated subset of stencil27, structured_fused and
+blockstencil (default: all three).
 Prints the card's name and power limit, the ptxas registers and spills of
 the build, and one JSON line per measurement.
 """
@@ -31,6 +40,12 @@ HERE = Path(__file__).resolve().parents[1]
 STENCIL_DIMS = [(513,) * 3, (257,) * 3, (129,) * 3, (65,) * 3, (33,) * 3, (17,) * 3,
                 (9,) * 3, (5,) * 3, (512,) * 3, (3, 3, 3), (67, 45, 33)]
 FUSED_CELLS = [512, 256, 128, 64, 32, 16, 8]
+# (layout, cells, Q degree, dtype name)
+BLOCK_CASES = [("mm", (64,) * 3, 1, "float32"), ("mm", (128,) * 3, 1, "float32"),
+               ("em", (2048, 2048), 2, "float32"), ("em", (32, 32), 2, "float64"),
+               ("em", (32, 32), 1, "float64"), ("em", (6,) * 3, 1, "float32"),
+               ("em", (128,) * 3, 1, "float32")]
+KERNELS = ("stencil27", "structured_fused", "blockstencil")
 
 
 def reps_for(n):
@@ -84,10 +99,50 @@ def bench_fused(torch, np, cs, pt, sfk, dev):
         torch.cuda.empty_cache()
 
 
+def bench_block(torch, np, cs, pt, bk, dev):
+    from dune_pdelab_tpu_torch.assembly.blockstencil import compile_block_stencil
+    rng = np.random.default_rng(11)
+    for layout, cells, k, dtype_name in BLOCK_CASES:
+        dtype = getattr(torch, dtype_name)
+        _, go = cs.dg_operator(pt, cells, k, cs.unit_source_problem())
+        st = compile_block_stencil(go, dtype=torch.float64, device=dev)
+        W, dD = st.taps(dtype, dev)
+        z = torch.as_tensor(rng.standard_normal(st.ndofs), dtype=dtype, device=dev)
+        if layout == "mm":
+            nx, ny, nz = cells
+            z = z.reshape(nz, ny, nx, st.nb).permute(0, 3, 1, 2).contiguous()
+        fn = getattr(bk, f"block_stencil_{layout}")
+        ref = getattr(bk, f"block_stencil_{layout}_reference")
+
+        def run():
+            return fn(z, W, dD, cells)
+        y, y_p = run(), ref(z, W, dD, cells)
+        torch.cuda.synchronize()
+        err = float((y - y_p).abs().max())
+        lim = (1e-6 if dtype == torch.float32 else 1e-13) * float(y_p.abs().max())
+        if not (bool(torch.isfinite(y).all()) and err <= lim):
+            raise SystemExit(f"block_stencil_{layout} {cells}: err {err:.3e} > {lim:.3e}")
+        nbytes, flops = cs.block_work(cells, st.nb, z.element_size())
+        rec = {"kernel": f"block_stencil_{layout}", "cells": list(cells), "k": k,
+               "nb": st.nb, "dtype": dtype_name, "max_abs_err": err,
+               "ms": cs.cuda_ms(torch, run, reps_for(st.ndofs)),
+               **cs.bound(nbytes, flops)}
+        if st.ndofs <= 10**7:
+            rec["graph_ms"] = cs.graph_ms(torch, run, 200)
+        emit(**rec)
+        del z, y, y_p, W, dD, st, go
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE))
-    root = Path(ap.parse_args().root).resolve()
+    ap.add_argument("--kernels", default=",".join(KERNELS))
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    wanted = args.kernels.split(",")
+    if not set(wanted) <= set(KERNELS):
+        raise SystemExit(f"bench_kernels: --kernels takes a subset of {KERNELS}")
     sys.path.insert(0, str(HERE))
     import chip_smoke as cs                  # this checkout's helpers
     sys.path.insert(0, str(root))            # the timed checkout's package
@@ -97,6 +152,7 @@ def main():
         raise SystemExit("bench_kernels: no CUDA device")
     import dune_pdelab_tpu_torch as pt
     from dune_pdelab_tpu_torch.kernels import _build
+    from dune_pdelab_tpu_torch.kernels import blockstencil as bk
     from dune_pdelab_tpu_torch.kernels import stencil27 as sk
     from dune_pdelab_tpu_torch.kernels import structured_fused as sfk
     if Path(pt.__file__).resolve().parents[1] != root:
@@ -107,8 +163,12 @@ def main():
     for name, regs, spill in cs.ptxas_report(_build.build_log):
         emit(ptxas=name, registers=regs, spill=spill)
     dev = torch.device("cuda")
-    bench_stencil(torch, np, cs, sk, dev)
-    bench_fused(torch, np, cs, pt, sfk, dev)
+    if "stencil27" in wanted:
+        bench_stencil(torch, np, cs, sk, dev)
+    if "structured_fused" in wanted:
+        bench_fused(torch, np, cs, pt, sfk, dev)
+    if "blockstencil" in wanted:
+        bench_block(torch, np, cs, pt, bk, dev)
     emit(root=str(root), done=True)
 
 
