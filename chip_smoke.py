@@ -46,11 +46,13 @@ Phases (each passes or raises; there is no CPU path):
   7. the DG path (bench.py:835-975), Q1/Q2 DG SIPG on the unit cube or
      square: (a) block_stencil_mm and block_stencil_em against their plain
      versions on SIPG weights (128^3 Q1 fp32 both layouts, 64^3 Q1 fp32
-     mode-major, 20x16x12 Q1 and 37x29x23 Q2 fp64 both layouts, 2048^2 Q2
-     fp32, the 32^2 config3/config7 shapes and 40x24 Q3 fp64
+     mode-major, 20x16x12 Q1, 37x29x23 Q2 and 10x8x6 Q3 fp64 both layouts,
+     2048^2 Q2 fp32, the 32^2 config3/config7 shapes and 40x24 Q3 fp64
      element-major), a repeated launch bit-equal, timed (below 10^7 DOFs
      also from a CUDA graph) against their bound, plain version and a
-     TF32-off convolution; (b) bench.py's _dg_half at 128^3 cells:
+     TF32-off convolution; and both layouts on random weights at nb = 343 (Q6 in 3D) in fp64, whose
+     weights the shared path stages in two parts, and a z view off 16-byte
+     alignment refused; (b) bench.py's _dg_half at 128^3 cells:
      compile_block_stencil (proxy branch) and the mode-major apply, held
      against go.jacobian_apply; (c) _dgmg_half at 64^3 and 128^3 cells:
      DGTwoLevel on the mode-major stencil inside a host PCG loop, with the
@@ -94,8 +96,8 @@ DGMG_CELLS = (64, 128)   # _dgmg_half (bench.py:899)
 # kernels JSON line or None): every shape phase 7 launches the kernels at
 # (7b/7c at 64^3 and 128^3, config3/config7 at 32^2), the 2048^2 Q2 main
 # shape of the element-major layout, Q1 in 3D in fp64 (the parameter path
-# in both layouts), Q2 in 3D (nb = 27, shared path) and Q3 in 2D (nb = 16:
-# the run-time-nb shared path)
+# in both layouts), Q2 in 3D (nb = 27, shared path), Q3 in 2D (nb = 16) and
+# Q3 in 3D (nb = 64: the run-time-nb shared path)
 DG_KERNEL_CASES = [((DG_CELLS,) * 3, 1, "float32", ("mm", "em"), "mm"),
                    ((DGMG_CELLS[0],) * 3, 1, "float32", ("mm",), None),
                    ((20, 16, 12), 1, "float64", ("mm", "em"), None),
@@ -103,7 +105,13 @@ DG_KERNEL_CASES = [((DG_CELLS,) * 3, 1, "float32", ("mm", "em"), "mm"),
                    ((2048, 2048), 2, "float32", ("em",), "em"),
                    ((32, 32), 2, "float64", ("em",), None),
                    ((32, 32), 1, "float64", ("em",), None),
-                   ((40, 24), 3, "float64", ("em",), None)]
+                   ((40, 24), 3, "float64", ("em",), None),
+                   ((10, 8, 6), 3, "float64", ("mm", "em"), None)]
+# the block stencil against its plain version: max abs error over max|y|
+BLOCK_TOL = {"float32": 1e-6, "float64": 1e-13}
+# phase 7a on random weights: an nb whose weights the shared path stages in
+# more than one part (Q6 in 3D: 13*343 rows of 8 fp64 values > 227 KB)
+BIG_NB_CASE = ((6, 5, 4), 343, "float64")
 # the config3 golden's BiCGStab step count is set by rounding (it stalls
 # near the 1e-10 target; tests/test_torch_dg.py CONFIG3_STEPS_BAND), so it
 # is held to a band, its L2 error to CONFIG3_L2_BAND of the golden, and the
@@ -1231,6 +1239,16 @@ def block_work(cells, nb, es):
     return 2 * E * nb * es + 13 * nb * nb * es, 2 * nb * nb * blocks
 
 
+def block_err(what, y, y_p):
+    """Max abs error of the block stencil's y against its plain version
+    y_p; raises unless y is finite and within BLOCK_TOL of max|y_p|."""
+    err = float((y - y_p).abs().max())
+    lim = BLOCK_TOL[str(y.dtype).replace("torch.", "")] * float(y_p.abs().max())
+    if not (bool(y.isfinite().all()) and err <= lim):
+        raise AssertionError(f"{what}: max abs err {err:.3e} > {lim:.3e}")
+    return err
+
+
 def conv_ms(torch, z, W, cells, reps):
     """Time of one TF32-off convolution with the block stencil's taps
     (nb -> nb channels, 3^dim kernel, padding 1, no dD) on z."""
@@ -1269,7 +1287,7 @@ def dg_kernels(torch, pt, dev):
         W, dD = st.taps(dtype, dev)
         nb = st.nb
         z = torch.as_tensor(rng.standard_normal(st.ndofs), dtype=dtype, device=dev)
-        tol = 1e-6 if dtype == torch.float32 else 1e-13
+        path = bk.block_path(dtype, nb)
         tag = "x".join(map(str, cells)) + f" Q{k} nb={nb} {str(dtype).replace('torch.', '')}"
         big = st.ndofs > 10**7
         nbytes, flops = block_work(cells, nb, z.element_size())
@@ -1277,19 +1295,14 @@ def dg_kernels(torch, pt, dev):
             if layout == "mm":
                 mm = try_mm_block_stencil(st)
                 arg = mm.to_mm(z)
-                run = lambda: bk.block_stencil_mm(arg, W, dD, cells)
-                plain = lambda: bk.block_stencil_mm_reference(arg, W, dD, cells)
             else:
                 arg = z
-                run = lambda: bk.block_stencil_em(arg, W, dD, cells)
-                plain = lambda: bk.block_stencil_em_reference(arg, W, dD, cells)
+            fn = getattr(bk, f"block_stencil_{layout}")
+            run = lambda: fn(arg, W, dD, cells)
+            plain = lambda: getattr(bk, f"block_stencil_{layout}_reference")(arg, W, dD, cells)
             y, y_p, y2 = run(), plain(), run()
             torch.cuda.synchronize()
-            err = float((y - y_p).abs().max())
-            lim = tol * float(y_p.abs().max())
-            if not (bool(torch.isfinite(y).all()) and err <= lim):
-                raise AssertionError(f"block_stencil_{layout} {tag}: max abs err "
-                                     f"{err:.3e} > {lim:.3e}")
+            err = block_err(f"block_stencil_{layout} {tag}", y, y_p)
             if not torch.equal(y, y2):
                 raise AssertionError(f"block_stencil_{layout} {tag}: repeated launch differs")
             ms = cuda_ms(torch, run, 20 if big else 50)
@@ -1297,7 +1310,7 @@ def dg_kernels(torch, pt, dev):
             plain_ms = cuda_ms(torch, plain, 3 if big else 10)
             lib_ms = conv_ms(torch, z, W, cells, 10 if big else 30)
             b = bound(nbytes, flops)
-            log(f"[phase 7a] block_stencil_{layout} {tag} ({bk.block_path(dtype, nb)} "
+            log(f"[phase 7a] block_stencil_{layout} {tag} ({path} "
                 f"path): max abs err {err:.3e} (max|y| {float(y_p.abs().max()):.3e}), "
                 f"repeat bit-equal, {ms:.4f} ms{gms} "
                 f"({st.ndofs / ms / 1e6:.3f} Gdof/s), plain {plain_ms:.4f} ms, conv "
@@ -1310,8 +1323,50 @@ def dg_kernels(torch, pt, dev):
             del y, y_p, y2
         del z, arg, go, st
         torch.cuda.empty_cache()
+    dg_kernel_limits(torch, bk, dev)
     bk.launches_mm, bk.launches_em = saved
     return record
+
+
+def dg_kernel_limits(torch, bk, dev):
+    """Phase 7a at BIG_NB_CASE: both layouts on random W, dD and z against
+    their plain versions, a repeated launch bit-equal; and a z view off
+    16-byte alignment refused."""
+    import numpy as np
+    cells, nb, dtype_name = BIG_NB_CASE
+    dtype = getattr(torch, dtype_name)
+    ch, rows = bk.shared_plan(dtype, nb)
+    stages = -(-13 * nb // rows)
+    if bk.block_path(dtype, nb) != "shared" or stages < 2:
+        raise AssertionError(f"nb = {nb} would not stage its weights in parts")
+    rng = np.random.default_rng(71)
+    W = torch.as_tensor(rng.standard_normal((7, nb, nb)), dtype=dtype, device=dev)
+    dD = torch.as_tensor(rng.standard_normal((3, 2, nb, nb)), dtype=dtype, device=dev)
+    nx, ny, nz = cells
+    grid = (nz, ny, nx, nb)
+    z = torch.as_tensor(rng.standard_normal(grid), dtype=dtype, device=dev)
+    for layout, arg in (("em", z.reshape(-1)), ("mm", z.permute(0, 3, 1, 2).contiguous())):
+        fn = getattr(bk, f"block_stencil_{layout}")
+        y, y_p, y2 = (fn(arg, W, dD, cells),
+                      getattr(bk, f"block_stencil_{layout}_reference")(arg, W, dD, cells),
+                      fn(arg, W, dD, cells))
+        torch.cuda.synchronize()
+        what = f"block_stencil_{layout} {'x'.join(map(str, cells))} nb={nb} {dtype_name}"
+        err = block_err(what, y, y_p)
+        if not torch.equal(y, y2):
+            raise AssertionError(f"{what}: repeated launch differs")
+        log(f"[phase 7a] {what} (random weights, shared path, {rows} of {13 * nb} "
+            f"weight rows per stage, {stages} stages): max abs err {err:.3e} (max|y| "
+            f"{float(y_p.abs().max()):.3e}), repeat bit-equal")
+    off = torch.cat([z.reshape(-1)[:1], z.reshape(-1)])[1:]     # a view 1 element off
+    try:
+        bk.block_stencil_em(off, W, dD, cells)
+    except ValueError as exc:
+        if "16-byte" not in str(exc):
+            raise
+    else:
+        raise AssertionError("block_stencil_em took a z off 16-byte alignment")
+    log("[phase 7a] block_stencil_em refuses a z view off 16-byte alignment")
 
 
 def dg_half(torch, pt, dev):
@@ -1344,11 +1399,12 @@ def dg_half(torch, pt, dev):
         raise AssertionError("mode-major block stencil disagrees with go.jacobian_apply")
 
 
-def dgmg_half(torch, pt, cells, dev):
+def dgmg_half(torch, pt, cells, dev, runs=1):
     """Phase 7c at cells^3: bench.py's _dgmg_half (bench.py:899-975):
     DGTwoLevel on the mode-major block stencil, a host PCG loop to 1e-8
-    (bench.py:941-960), fp32; launches of the timed run held against
-    iterations x applies per iteration. Returns the iteration count."""
+    (bench.py:941-960), fp32; launches of the first timed run held against
+    iterations x applies per iteration. Returns the iteration count and the
+    ms per iteration of each of `runs` timed runs after one warm-up."""
     from dune_pdelab_tpu_torch.assembly.blockstencil import compile_block_stencil
     from dune_pdelab_tpu_torch.assembly.blockstencil_mm import try_mm_block_stencil
     from dune_pdelab_tpu_torch.kernels import blockstencil as bk
@@ -1397,12 +1453,18 @@ def dgmg_half(torch, pt, cells, dev):
     x, it, converged = run(b)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    got_mm, got_s27 = bk.launches_mm - mm0, sk.launches - s27
+    ms_it = [1e3 * dt / max(it, 1)]
+    for _ in range(runs - 1):
+        t0 = time.perf_counter()
+        run(b)
+        torch.cuda.synchronize()
+        ms_it.append(1e3 * (time.perf_counter() - t0) / max(it, 1))
     cycles = it if converged else it + 1
     # per V-cycle: 3 colour steps per sweep (the first one on z = 0 needs
     # no apply) and the residual before the coarse correction
     want_mm = it + cycles * 3 * (tl.pre + tl.post)
     want_s27 = cycles * (gl.nlevels - 1) * (gl.pre + gl.post + 1)
-    got_mm, got_s27 = bk.launches_mm - mm0, sk.launches - s27
     true_rel = float(torch.linalg.norm(A(x) - b) / torch.linalg.norm(b))
     log(f"[phase 7c] dgmg {cells}^3 cells (N = {N}): setup {setup_s:.2f} s, {it} "
         f"iterations in {dt:.4f} s = {1e3 * dt / max(it, 1):.3f} ms/iteration, "
@@ -1416,7 +1478,7 @@ def dgmg_half(torch, pt, cells, dev):
                              f"{want_mm}, {want_s27}")
     del x, b, tl, A, go, V
     torch.cuda.empty_cache()
-    return it
+    return it, ms_it
 
 
 def dg_goldens(torch, pt, dev):
@@ -1507,7 +1569,7 @@ def phase_dg(torch, pt, dev, record):
     record.update(dg_kernels(torch, pt, dev))
     dg_half(torch, pt, dev)
     torch.cuda.empty_cache()
-    its = {n: dgmg_half(torch, pt, n, dev) for n in DGMG_CELLS}
+    its = {n: dgmg_half(torch, pt, n, dev)[0] for n in DGMG_CELLS}
     if not its[DGMG_CELLS[-1]] <= its[DGMG_CELLS[0]] + 2:
         raise AssertionError(f"dgmg iterations not flat: {its}")
     dg_goldens(torch, pt, dev)

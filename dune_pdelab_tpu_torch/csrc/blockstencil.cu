@@ -49,11 +49,14 @@
 //      is free of bank conflicts, nb*sizeof(T) % 16 == 0 reads 16 B at a
 //      time), and the outputs go back through shared memory as 16-byte
 //      coalesced stores.
-//  * shared path (any other nb; nb = 27 is Q2 in 3D): the weights are
-//    staged once per block from the device tensors into shared memory,
-//    transposed to [tap][b][a] so that a thread reads the weights of CH
-//    outputs 16 B at a time as broadcasts; one thread per element, outputs
-//    in chunks of CH accumulators (CH = 28 for nb = 27, else 8), any strides.
+//  * shared path (any other nb; nb = 27 is Q2 in 3D): one thread per
+//    element (consecutive threads on consecutive elements of a z-plane, a
+//    few loads of z in flight), any strides, the outputs in chunks of CH accumulators (CH = 28
+//    for nb = 27, else 8). For each chunk the block stages the weights of
+//    its CH outputs from the device tensors into shared memory as rows
+//    [tap][b] of CH values, so that a thread reads them 16 B at a time as
+//    broadcasts; `rows` rows at a time (all 13*nb where they fit, which the
+//    wrapper decides), so any nb runs in a bounded amount of shared memory.
 //
 // Sums run in a fixed order on every path (taps in the order above, then the
 // dD sides x-, x+, y-, y+, z-, z+ on the face elements only; the mode b
@@ -80,6 +83,7 @@ constexpr int MM_WX = 32;          // mode-major block: 32 x values by 4 rows
 constexpr int MM_WY = 4;
 constexpr int EM_TX = 128;         // element-major block: up to 128 elements of a row
 constexpr int SH_THREADS = 128;    // shared path
+constexpr int SH_LOADS = 4;        // shared path: loads of z in flight per thread
 constexpr int SMEM_MAX = 232448;   // shared memory one block may use on the H100
 
 struct Lattice {
@@ -429,25 +433,45 @@ __device__ __forceinline__ bool on_side(const Lattice& g, int side, int x, int y
   return (side & 1) ? c + 1 == n : c == 0;
 }
 
+// acc[c] += wr[c] * v for the CH outputs of a pass, 16 B of weights at a time.
+template <typename T, int CH>
+__device__ __forceinline__ void fma_row(T (&acc)[CH], const T* wrow, T v) {
+  using V = typename Vec<T>::type;
+  constexpr int VW = Vec<T>::n;
+  const V* wr = reinterpret_cast<const V*>(wrow);
+#pragma unroll
+  for (int c = 0; c < CH / VW; ++c) {
+    const V q = wr[c];
+    if constexpr (VW == 4) {
+      acc[4 * c] = fma_rn(q.x, v, acc[4 * c]);
+      acc[4 * c + 1] = fma_rn(q.y, v, acc[4 * c + 1]);
+      acc[4 * c + 2] = fma_rn(q.z, v, acc[4 * c + 2]);
+      acc[4 * c + 3] = fma_rn(q.w, v, acc[4 * c + 3]);
+    } else {
+      acc[2 * c] = fma_rn(q.x, v, acc[2 * c]);
+      acc[2 * c + 1] = fma_rn(q.y, v, acc[2 * c + 1]);
+    }
+  }
+}
+
 template <typename T, int CH>
 __global__ void __launch_bounds__(SH_THREADS)
 bs_shared(const T* __restrict__ z, const T* __restrict__ W, const T* __restrict__ dD,
-          T* __restrict__ y, const Lattice g, const int nb, const int nbp) {
+          T* __restrict__ y, const Lattice g, const int nb, const int rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int VW = Vec<T>::n;
-  static_assert(CH % VW == 0, "chunk of whole 16-byte vectors");
-  using V = typename Vec<T>::type;
-  T* ws = reinterpret_cast<T*>(smem_raw);   // ws[(t*nb + b)*nbp + a] = block t (a, b)
-  const int nb2 = nb * nb;
-  for (int i = threadIdx.x; i < 13 * nb * nbp; i += blockDim.x) {
-    const int a = i % nbp, tb = i / nbp, b = tb % nb, t = tb / nb;
-    ws[i] = a >= nb ? T(0) : (t < 7 ? W[t * nb2 + a * nb + b] : dD[(t - 7) * nb2 + a * nb + b]);
-  }
-  __syncthreads();
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= g.nx) return;
-  const int yy = blockIdx.y, zz = blockIdx.z;
-  const T* zb = z + x * g.sx + yy * g.sy + (int64_t)zz * g.sz;
+  static_assert(CH % Vec<T>::n == 0, "chunk of whole 16-byte vectors");
+  // Weight row r = t*nb + b of the chunk a0 .. a0+CH-1 (block t: W_0..W_6,
+  // then dD x-, x+, y-, y+, z-, z+) holds block t (a0 + c, b) for c < CH;
+  // `rows` rows at a time sit in ws[(r - r0)*CH + c].
+  T* ws = reinterpret_cast<T*>(smem_raw);
+  const int64_t nb2 = (int64_t)nb * nb;
+  const int nrow = 13 * nb;
+  // consecutive threads on consecutive elements of a z-plane
+  const int64_t exy = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = exy < (int64_t)g.nx * g.ny;   // every thread stages and syncs
+  const int x = static_cast<int>(exy % g.nx), yy = static_cast<int>(exy / g.nx);
+  const int zz = blockIdx.y;
+  const int64_t e = (int64_t)x * g.sx + yy * g.sy + (int64_t)zz * g.sz;
   const int ntap = g.dim == 3 ? 7 : 5;
 #pragma unroll 1
   for (int a0 = 0; a0 < nb; a0 += CH) {
@@ -455,42 +479,52 @@ bs_shared(const T* __restrict__ z, const T* __restrict__ W, const T* __restrict_
 #pragma unroll
     for (int c = 0; c < CH; ++c) acc[c] = T(0);
 #pragma unroll 1
-    for (int t = 0; t < 13; ++t) {
-      int64_t off = 0;
-      bool ok = true;
-      if (t < 7) {
-        if (t >= ntap) continue;                        // no z taps in 2D
-        ok = neighbour(g, t, x, yy, zz, &off);
-      } else if (!on_side(g, t - 7, x, yy, zz)) {
-        continue;                                       // sides on face elements only
+    for (int r0 = 0; r0 < nrow; r0 += rows) {
+      const int r1 = min(r0 + rows, nrow);
+      __syncthreads();                         // the previous rows are read
+      for (int i = threadIdx.x; i < (r1 - r0) * CH; i += blockDim.x) {
+        const int c = i % CH, r = r0 + i / CH, t = r / nb, b = r % nb, a = a0 + c;
+        const int64_t ab = (int64_t)a * nb + b;
+        ws[i] = a >= nb ? T(0) : (t < 7 ? W[t * nb2 + ab] : dD[(t - 7) * nb2 + ab]);
       }
-      const T* p = zb + off;
+      __syncthreads();
+      if (!live) continue;
 #pragma unroll 1
-      for (int b = 0; b < nb; ++b) {
-        const T v = ok ? __ldg(p + b * g.sb) : T(0);
-        const V* wr = reinterpret_cast<const V*>(ws + (t * nb + b) * nbp + a0);
-#pragma unroll
-        for (int c = 0; c < CH / VW; ++c) {
-          const V q = wr[c];
-          if constexpr (VW == 4) {
-            acc[4 * c] = fma_rn(q.x, v, acc[4 * c]);
-            acc[4 * c + 1] = fma_rn(q.y, v, acc[4 * c + 1]);
-            acc[4 * c + 2] = fma_rn(q.z, v, acc[4 * c + 2]);
-            acc[4 * c + 3] = fma_rn(q.w, v, acc[4 * c + 3]);
-          } else {
-            acc[2 * c] = fma_rn(q.x, v, acc[2 * c]);
-            acc[2 * c + 1] = fma_rn(q.y, v, acc[2 * c + 1]);
-          }
+      for (int t = r0 / nb; t * nb < r1; ++t) {
+        int64_t off = 0;
+        bool ok = true;
+        if (t < 7) {
+          if (t >= ntap) continue;                      // no z taps in 2D
+          ok = neighbour(g, t, x, yy, zz, &off);
+        } else if (!on_side(g, t - 7, x, yy, zz)) {
+          continue;                                     // sides on face elements only
         }
+        const T* p = z + e + off;
+        const int b1 = min(nb, r1 - t * nb);
+        int b = max(0, r0 - t * nb);
+        // SH_LOADS values of z in flight, then their FMAs in the order of b
+#pragma unroll 1
+        for (; b + SH_LOADS <= b1; b += SH_LOADS) {
+          T v[SH_LOADS];
+#pragma unroll
+          for (int u = 0; u < SH_LOADS; ++u) v[u] = ok ? __ldg(p + (b + u) * g.sb) : T(0);
+#pragma unroll
+          for (int u = 0; u < SH_LOADS; ++u)
+            fma_row<T, CH>(acc, ws + (t * nb + b + u - r0) * CH, v[u]);
+        }
+#pragma unroll 1
+        for (; b < b1; ++b)
+          fma_row<T, CH>(acc, ws + (t * nb + b - r0) * CH, ok ? __ldg(p + b * g.sb) : T(0));
       }
     }
+    if (live) {
 #pragma unroll
-    for (int c = 0; c < CH; ++c)
-      if (a0 + c < nb) y[(zb - z) + (a0 + c) * g.sb] = acc[c];
+      for (int c = 0; c < CH; ++c)
+        if (a0 + c < nb) y[e + (a0 + c) * g.sb] = acc[c];
+    }
   }
 }
 
-// ------------------------------------------------------------------ launch
 // ------------------------------------------------------------------ launch
 
 // Raise the dynamic shared memory limit of `kernel` to `bytes` (the static
@@ -559,20 +593,21 @@ int launch_param(const T* z, T* y, const Lattice& g, const void* packed, cudaStr
 
 template <typename T, int CH>
 int launch_shared(const T* z, const T* W, const T* dD, T* y, const Lattice& g, int nb,
-                  cudaStream_t s) {
-  const int nbp = cdiv(nb, CH) * CH;
-  const size_t smem = sizeof(T) * 13 * (size_t)nb * nbp;
+                  int rows, cudaStream_t s) {
+  if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(T) * CH * (size_t)rows;
   const int rc = allow_smem(bs_shared<T, CH>, smem);
   if (rc != 0) return rc;
-  const dim3 grid(cdiv(g.nx, SH_THREADS), g.ny, g.nz);
-  bs_shared<T, CH><<<grid, SH_THREADS, smem, s>>>(z, W, dD, y, g, nb, nbp);
+  const dim3 grid(static_cast<unsigned>(((int64_t)g.nx * g.ny + SH_THREADS - 1) / SH_THREADS),
+                  g.nz);
+  bs_shared<T, CH><<<grid, SH_THREADS, smem, s>>>(z, W, dD, y, g, nb, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const T* z, const T* W, const T* dD, T* y, int nx, int ny, int nz, int nb,
            int dim, long long sx, long long sy, long long sz, long long sb,
-           const void* packed, int path, void* stream) {
+           const void* packed, int path, int ch, int rows, void* stream) {
   if (nx < 1 || ny < 1 || nz < 1 || nb < 1 || ny > 65535 || nz > 65535 ||
       (dim != 2 && dim != 3) || (dim == 2 && nz != 1)) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -589,8 +624,8 @@ int launch(const T* z, const T* W, const T* dD, T* y, int nx, int ny, int nz, in
     }
   }
   if (path == PATH_SHARED) {
-    return nb == 27 ? launch_shared<T, 28>(z, W, dD, y, g, nb, s)
-                    : launch_shared<T, 8>(z, W, dD, y, g, nb, s);
+    if (ch == 28) return launch_shared<T, 28>(z, W, dD, y, g, nb, rows, s);
+    if (ch == 8) return launch_shared<T, 8>(z, W, dD, y, g, nb, rows, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -604,22 +639,24 @@ static_assert(sizeof(Taps<double, 9>) <= 32764 - 256, "parameter space of sm_90"
 // order (0, -x, +x, -y, +y, -z, +z) and dD: (3, 2, nb, nb) per-side
 // corrections, on the device (read by the shared path); packed: the same 13
 // blocks W then dD as 13*nb*nb values in host memory (read by the parameter
-// path, NULL otherwise); path: 0 parameter, 1 shared. In 2D (dim = 2,
-// nz = 1) the z taps and z sides are not applied.
+// path, NULL otherwise); path: 0 parameter, 1 shared; ch, rows: the shared
+// path's outputs per chunk (8, or 28 for nb = 27) and weight rows staged at a
+// time (at least 1, ch*rows values within the shared memory of a block).
+// In 2D (dim = 2, nz = 1) the z taps and z sides are not applied.
 extern "C" int dpt_blockstencil_f32(const float* z, const float* W, const float* dD,
                                     float* y, int nx, int ny, int nz, int nb, int dim,
                                     long long sx, long long sy, long long sz,
                                     long long sb, const void* packed, int path,
-                                    void* stream) {
+                                    int ch, int rows, void* stream) {
   return dpt::launch<float>(z, W, dD, y, nx, ny, nz, nb, dim, sx, sy, sz, sb, packed,
-                            path, stream);
+                            path, ch, rows, stream);
 }
 
 extern "C" int dpt_blockstencil_f64(const double* z, const double* W, const double* dD,
                                     double* y, int nx, int ny, int nz, int nb, int dim,
                                     long long sx, long long sy, long long sz,
                                     long long sb, const void* packed, int path,
-                                    void* stream) {
+                                    int ch, int rows, void* stream) {
   return dpt::launch<double>(z, W, dD, y, nx, ny, nz, nb, dim, sx, sy, sz, sb, packed,
-                             path, stream);
+                             path, ch, rows, stream);
 }

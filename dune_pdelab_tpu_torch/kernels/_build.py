@@ -33,7 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_longlong
-_BLOCK = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P, _I, _P]
+_BLOCK = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P, _I, _I, _I, _P]
 _FUSED = [_P, _P, _P, _I, _I, _I, _P, _I, _I, _D, _P, _P, _P, _P, _I, _P]
 # C entry points: name -> argtypes (all return the cudaError_t as int)
 _SIGNATURES = {

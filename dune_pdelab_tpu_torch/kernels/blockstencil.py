@@ -28,27 +28,29 @@ Source note.
       * "param" for nb in PARAM_NB = (4, 8, 9) (Q1/Q2 in 2D, Q1 in 3D), any
         dtype: the 13 weight blocks travel as a kernel parameter (at most
         13*81*8 = 8,424 B, within the 32,764 B sm_90 takes since CUDA 12.1)
-        and reach the FMAs through uniform registers. The packed host copy
-        (`pack_taps`) is built once per weight pair and kept beside the
-        device tensors; an apply copies nothing off the card. Mode-major:
-        one thread per element marching along z, the next plane loaded
-        while this one is computed; element-major: rows staged through
-        shared memory by 16-byte cp.async, marching along y;
-      * "shared" for any other nb (27 = Q2 in 3D): the weights staged once
-        per block into shared memory, CH outputs per pass (28 for nb = 27,
-        else 8);
-      * a ValueError where the shared path's weights exceed the 227 KB of
-        shared memory a block may use.
+        and reach the FMAs through uniform registers. `tap_tensors` packs
+        the host copy (`pack_taps`) once per weight pair, from the numpy
+        arrays, and keeps it on W; an apply copies nothing off the card and
+        refuses a W that `tap_tensors` did not make or that changed since.
+        Mode-major: one thread per element marching along z, the next plane
+        loaded while this one is computed; element-major: rows staged
+        through shared memory by 16-byte cp.async, marching along y;
+      * "shared" for any other nb (27 = Q2 in 3D, 64 = Q3 in 3D, ...): CH
+        outputs per pass (28 for nb = 27, else 8), the weights of each pass
+        staged into shared memory as 13*nb rows of CH values, as many rows
+        at a time as `shared_plan` says (all of them up to nb = 279 in fp64,
+        558 in fp32), so every nb runs.
     There is no __constant__ path: the card's toolkit (CUDA 12.9) takes the
     parameter path's largest block set.
 
 The wrapper takes the plain PyTorch version only for a tensor on the CPU;
-for a CUDA tensor it launches the kernel or raises. `launches_mm` and
-`launches_em` count the kernel launches of the two entry points.
+for a CUDA tensor it launches the kernel or raises. A CUDA z must start on
+a 16-byte boundary, as the element-major kernel copies rows in 16-byte
+chunks: a fresh tensor does, a view at another offset is refused (not
+copied). `launches_mm` and `launches_em` count the kernel launches of the
+two entry points.
 """
 from __future__ import annotations
-
-import weakref
 
 import numpy as np
 import torch
@@ -99,52 +101,36 @@ def pack_taps(W, dD, dtype):
 
 def block_path(dtype, nb):
     """The kernel path for (dtype, nb): "param" for nb in PARAM_NB, else
-    "shared"; raises where the shared path's staged weights do not fit."""
-    if nb in PARAM_NB:
-        return "param"
+    "shared"."""
+    return "param" if nb in PARAM_NB else "shared"
+
+
+def shared_plan(dtype, nb):
+    """The shared path's (ch, rows): outputs per pass (28 for nb = 27, else
+    8) and weight rows of ch values staged at a time: all 13*nb where they
+    fit in the SMEM_BYTES of a block, else as many as fit."""
     ch = 28 if nb == 27 else 8
-    nbytes = 13 * nb * (-(-nb // ch) * ch) * torch.empty((), dtype=dtype).element_size()
-    if nbytes > SMEM_BYTES:
-        raise ValueError(f"block stencil nb = {nb} in {dtype}: {nbytes} B of staged "
-                         f"weights exceed the {SMEM_BYTES} B of shared memory")
-    return "shared"
-
-
-# id(W) -> (weakref to dD, versions of W and dD, packed host weights); an
-# entry leaves with W
-_PACKED = {}
-
-
-def register_packed(W, dD, packed):
-    """Keep `packed` (pack_taps of W and dD) as the host weights of the
-    device tensors W, dD for the parameter path."""
-    key = id(W)
-    if key not in _PACKED:
-        weakref.finalize(W, _PACKED.pop, key, None)
-    _PACKED[key] = (weakref.ref(dD), W._version, dD._version, packed)
+    return ch, min(13 * nb, SMEM_BYTES // (ch * torch.empty((), dtype=dtype).element_size()))
 
 
 def _packed_for(W, dD):
-    """Host weights of (W, dD): those registered with them, else packed once
-    from a copy of the device tensors and registered."""
-    hit = _PACKED.get(id(W))
-    if (hit is not None and hit[0]() is dD and hit[1] == W._version
-            and hit[2] == dD._version):
-        return hit[3]
-    packed = pack_taps(W.cpu().numpy(), dD.cpu().numpy(), W.dtype)
-    register_packed(W, dD, packed)
-    return packed
+    """The host weights that `tap_tensors` packed with W and dD."""
+    hit = getattr(W, "_dpt_packed", None)
+    if hit is None or hit[0] is not dD or hit[1:3] != (W._version, dD._version):
+        raise ValueError("the block stencil's parameter path takes the (W, dD) of "
+                         "tap_tensors, unchanged since: their host copy is packed there")
+    return hit[3]
 
 
 def tap_tensors(W_taps, offsets, dD_sides, dtype, device):
     """(W (7, nb, nb), dD (3, 2, nb, nb)) in the kernel's order, in `dtype`
-    on `device`, from a BlockStencilOperator's numpy arrays, registered with
-    their host weights (pack_taps of the same arrays), so no apply copies
-    them back."""
+    on `device`, from a BlockStencilOperator's numpy arrays. W keeps their
+    host weights (pack_taps of the same arrays) with the versions of W and
+    dD, so no apply copies them back."""
     W, dD = tap_arrays(W_taps, offsets, dD_sides)
     Wt = torch.as_tensor(W, dtype=dtype, device=device)
     dDt = torch.as_tensor(dD, dtype=dtype, device=device)
-    register_packed(Wt, dDt, pack_taps(W, dD, dtype))
+    Wt._dpt_packed = (dDt, Wt._version, dDt._version, pack_taps(W, dD, dtype))
     return Wt, dDt
 
 
@@ -192,11 +178,13 @@ def _launch(z, W, dD, cells, strides, name):
         raise TypeError(f"{name} takes float32 or float64, got {z.dtype}")
     if z.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {z.device}")
+    if z.data_ptr() % 16:
+        raise ValueError(f"{name}: z must start on a 16-byte boundary (rows are "
+                         "copied in 16-byte chunks); pass a copy of this view")
     nb = W.shape[-1]
     path = block_path(z.dtype, nb)
     packed = _packed_for(W, dD) if path == "param" else None
-    if z.data_ptr() % 16:
-        z = z.clone()               # the kernels copy rows in 16-byte chunks
+    ch, rows = shared_plan(z.dtype, nb) if path == "shared" else (0, 0)
     nx, ny = int(cells[0]), int(cells[1])
     nz = int(cells[2]) if len(cells) == 3 else 1
     lib = _build.library()
@@ -204,7 +192,7 @@ def _launch(z, W, dD, cells, strides, name):
     rc = getattr(lib, fn)(_build.ptr(z), _build.ptr(W), _build.ptr(dD), _build.ptr(y),
                           nx, ny, nz, nb, len(cells), *strides,
                           None if packed is None else packed.ctypes.data,
-                          _PATH_CODE[path], _build.stream_ptr(z.device))
+                          _PATH_CODE[path], ch, rows, _build.stream_ptr(z.device))
     _build.check(rc, name)
     return y
 

@@ -268,12 +268,20 @@ def test_path_rule(nb, path, dtype):
     assert bk.block_path(dtype, nb) == path
 
 
-def test_path_rule_refuses_weights_beyond_shared_memory():
-    assert bk.block_path(torch.float32, 64) == "shared"      # 212,992 B staged
-    with pytest.raises(ValueError, match="shared memory"):
-        bk.block_path(torch.float32, 70)                     # 262,080 B
-    with pytest.raises(ValueError, match="shared memory"):
-        bk.block_path(F64, 60)
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("nb", [5, 16, 27, 64, 125, 343, 1000])
+def test_shared_plan_stages_any_nb(nb, dtype):
+    """shared_plan: 28 outputs per pass for nb = 27, else 8, each weight row
+    whole 16-byte vectors; all 13*nb rows in one stage where they fit in a
+    block's shared memory (Q3 in 3D, nb = 64: 53,248 B in fp64), else as
+    many rows as fit, so no nb is refused."""
+    es = torch.empty((), dtype=dtype).element_size()
+    ch, rows = bk.shared_plan(dtype, nb)
+    assert ch == (28 if nb == 27 else 8) and (ch * es) % 16 == 0
+    assert 1 <= rows <= 13 * nb and ch * rows * es <= bk.SMEM_BYTES
+    assert (rows == 13 * nb) == (13 * nb * ch * es <= bk.SMEM_BYTES)
+    if rows < 13 * nb:
+        assert (rows + 1) * ch * es > bk.SMEM_BYTES
 
 
 def test_packed_weights_built_once_per_operator_and_dtype(monkeypatch):
@@ -288,20 +296,22 @@ def test_packed_weights_built_once_per_operator_and_dtype(monkeypatch):
         st(z)
         st(z.float())
     assert calls == [F64, torch.float32]
-    # the host weights registered with the device tensors are found without
-    # a copy; an in-place change of W makes them stale, and they are packed
-    # again from the tensors
+    # the host weights kept with the operator's tensors are found without a
+    # copy; tensors that tap_tensors did not make, or an in-place change of
+    # W or dD since, are refused rather than packed from the card
     W, dD = st.taps(F64, "cpu")
     packed = bk._packed_for(W, dD)
     assert calls == [F64, torch.float32]
     assert np.array_equal(packed, real(*bk.tap_arrays(W_taps, offsets, dD_sides), F64))
-    W2, dD2 = W.clone(), dD.clone()
-    bk.register_packed(W2, dD2, packed)
-    assert bk._packed_for(W2, dD2) is packed
-    W2[0, 0, 0] += 1.0
-    again = bk._packed_for(W2, dD2)
-    assert again is not packed
-    assert np.array_equal(again, real(W2.numpy(), dD2.numpy(), F64))
+    with pytest.raises(ValueError, match="tap_tensors"):
+        bk._packed_for(W.clone(), dD)
+    with pytest.raises(ValueError, match="tap_tensors"):
+        bk._packed_for(W, dD.clone())
+    W2, dD2 = bk.tap_tensors(W_taps, offsets, dD_sides, F64, "cpu")
+    assert np.array_equal(bk._packed_for(W2, dD2), packed)
+    dD2[0, 0, 0, 0] += 1.0
+    with pytest.raises(ValueError, match="tap_tensors"):
+        bk._packed_for(W2, dD2)
 
 
 def _kernel_order(zg, packed, nb, dim):
@@ -348,3 +358,76 @@ def test_kernel_order_of_sums_matches_plain(cells, nb):
         op = MMBlockStencil(tbs.BlockStencilOperator(cells, nb, W_taps, offsets, dD_sides))
         mm = op.from_mm(bk.block_stencil_mm_reference(op.to_mm(z), W, dD, cells))
         assert (got - mm).abs().max() <= 1e-13 * mm.abs().max()
+
+
+def _shared_order(zg, W, dD, nb, dim, ch, rows):
+    """CPU emulation of csrc/blockstencil.cu bs_shared on a grid view zg
+    (cell axes reversed, modes last): per pass of ch outputs a0.., the weight
+    rows r = t*nb + b staged `rows` at a time as ws[(r - r0)*ch + c] =
+    block t (a0 + c, b) (zero past nb), then each staged row's FMA in the
+    order t, b; z taps skipped in 2D, sides on their face elements only."""
+    blocks = torch.cat([W, dD.reshape(6, nb, nb)])
+    pad = torch.nn.functional.pad(zg, (0, 0) + (1, 1) * dim)
+
+    def shifted(d, s):
+        ax = dim - 1 - d
+        sl = [slice(1, -1)] * dim
+        sl[ax] = slice(1 + s, 1 + s + zg.shape[ax])
+        return pad[tuple(sl)]
+    neigh = [zg] + [shifted(d, s) for d in range(dim) for s in (-1, 1)]
+    out = torch.empty_like(zg)
+    nrow = 13 * nb
+    for a0 in range(0, nb, ch):
+        acc = torch.zeros(zg.shape[:-1] + (ch,), dtype=zg.dtype)
+        for r0 in range(0, nrow, rows):
+            r1 = min(r0 + rows, nrow)
+            i = torch.arange((r1 - r0) * ch)
+            c, r = i % ch, r0 + i // ch
+            a = a0 + c
+            ws = torch.where(a < nb, blocks[r // nb, a.clamp(max=nb - 1), r % nb], 0.0)
+            t = r0 // nb
+            while t * nb < r1:
+                side = t - 7
+                if t < 7 and t >= 2 * dim + 1 or side >= 2 * dim:
+                    t += 1
+                    continue
+                face = [slice(None)] * (dim + 1)
+                if side >= 0:
+                    face[dim - 1 - side // 2] = slice(-1, None) if side % 2 else slice(0, 1)
+                face = tuple(face)
+                v = (neigh[t] if t < 7 else zg)[face]
+                for b in range(max(0, r0 - t * nb), min(nb, r1 - t * nb)):
+                    wr = ws[(t * nb + b - r0) * ch:(t * nb + b - r0 + 1) * ch]
+                    acc[face] = acc[face] + wr * v[..., b:b + 1]
+                t += 1
+            del ws
+        out[..., a0:a0 + ch] = acc[..., :min(ch, nb - a0)]
+    return out
+
+
+@pytest.mark.parametrize("cells,nb,stage_rows", [((3, 2, 2), 64, None), ((3, 2, 2), 64, 100),
+                                                 ((5, 4), 16, 37), ((3, 4, 2), 27, 50),
+                                                 ((4, 3), 5, 7)])
+def test_shared_path_staging_matches_plain(cells, nb, stage_rows):
+    """The shared path's chunked weight staging (emulated in fp64) equals the
+    plain versions to 1e-13 max|y|, in one stage as shared_plan gives (Q3 in
+    3D: nb = 64) and in stages cut mid-tap, and the stages leave every sum
+    bit for bit as it was."""
+    dim = len(cells)
+    W_taps, offsets, dD_sides = _random_taps(nb, dim, nb + 3)
+    W, dD = bk.tap_tensors(W_taps, offsets, dD_sides, F64, "cpu")
+    grid = tuple(reversed(cells)) + (nb,)
+    z = torch.from_numpy(np.random.default_rng(nb + 4).standard_normal(int(np.prod(grid))))
+    ch, rows = bk.shared_plan(F64, nb)
+    assert rows == 13 * nb
+    one = _shared_order(z.reshape(grid), W, dD, nb, dim, ch, rows).reshape(-1)
+    want = bk.block_stencil_em_reference(z, W, dD, cells)
+    assert (one - want).abs().max() <= 1e-13 * want.abs().max()
+    if stage_rows is not None:
+        assert (13 * nb) % stage_rows
+        cut = _shared_order(z.reshape(grid), W, dD, nb, dim, ch, stage_rows).reshape(-1)
+        assert torch.equal(cut, one)
+    if dim == 3:
+        op = MMBlockStencil(tbs.BlockStencilOperator(cells, nb, W_taps, offsets, dD_sides))
+        mm = op.from_mm(bk.block_stencil_mm_reference(op.to_mm(z), W, dD, cells))
+        assert (one - mm).abs().max() <= 1e-13 * mm.abs().max()

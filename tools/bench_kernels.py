@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time stencil27, structured_fused and the DG block stencil of a checkout of
-the port on the card.
+"""Time stencil27, structured_fused, the DG block stencil and the DG
+two-level solve of a checkout of the port on the card.
 
     python3 tools/bench_kernels.py [--root DIR] [--kernels LIST]
 
@@ -8,7 +8,7 @@ Times the port found in checkout DIR (default: the checkout holding this
 file), so that two commits can be timed in one run on one card: unpack the
 other commit into a directory and pass it as --root. The timers, problems
 and operator set-up are those of this checkout's chip_smoke.py; the checks
-against the plain versions are its phase 2. Each time is CUDA events around
+against the plain versions are its phase 2 and block_err. Each time is CUDA events around
 a loop of launches and, below 10^7 points, also around one CUDA graph of
 launches, which shows the device's time where the host's per-call cost
 would hide it. Shapes, fp32:
@@ -20,10 +20,13 @@ would hide it. Shapes, fp32:
     shape chip_smoke.py launches them at: mode-major 64^3 and 128^3 Q1
     fp32 (phases 7b/7c), element-major 2048^2 Q2 fp32, 32^2 Q2 and Q1
     fp64 (config3/config7), 6^3 Q1 fp32 (compile_block_stencil's check on
-    its proxy mesh) and 128^3 Q1 fp32, each held against its plain version
-    first (fp32 1e-6, fp64 1e-13 max|y|).
-LIST is a comma-separated subset of stencil27, structured_fused and
-blockstencil (default: all three).
+    its proxy mesh) and 128^3 Q1 fp32, and the shared-memory path at
+    37x29x23 Q2 and 10x8x6 Q3 fp64, each held against its plain version
+    first (chip_smoke.py block_err);
+  dgmg: chip_smoke.py phase 7c's DGTwoLevel PCG solve at 64^3 and 128^3 Q1
+    cells, fp32: ms per iteration of DGMG_RUNS timed runs after a warm-up.
+LIST is a comma-separated subset of stencil27, structured_fused,
+blockstencil and dgmg (default: all four).
 Prints the card's name and power limit, the ptxas registers and spills of
 the build, and one JSON line per measurement.
 """
@@ -44,8 +47,10 @@ FUSED_CELLS = [512, 256, 128, 64, 32, 16, 8]
 BLOCK_CASES = [("mm", (64,) * 3, 1, "float32"), ("mm", (128,) * 3, 1, "float32"),
                ("em", (2048, 2048), 2, "float32"), ("em", (32, 32), 2, "float64"),
                ("em", (32, 32), 1, "float64"), ("em", (6,) * 3, 1, "float32"),
-               ("em", (128,) * 3, 1, "float32")]
-KERNELS = ("stencil27", "structured_fused", "blockstencil")
+               ("em", (128,) * 3, 1, "float32"), ("em", (37, 29, 23), 2, "float64"),
+               ("mm", (10, 8, 6), 3, "float64")]
+DGMG_RUNS = 5
+KERNELS = ("stencil27", "structured_fused", "blockstencil", "dgmg")
 
 
 def reps_for(n):
@@ -118,10 +123,7 @@ def bench_block(torch, np, cs, pt, bk, dev):
             return fn(z, W, dD, cells)
         y, y_p = run(), ref(z, W, dD, cells)
         torch.cuda.synchronize()
-        err = float((y - y_p).abs().max())
-        lim = (1e-6 if dtype == torch.float32 else 1e-13) * float(y_p.abs().max())
-        if not (bool(torch.isfinite(y).all()) and err <= lim):
-            raise SystemExit(f"block_stencil_{layout} {cells}: err {err:.3e} > {lim:.3e}")
+        err = cs.block_err(f"block_stencil_{layout} {cells}", y, y_p)
         nbytes, flops = cs.block_work(cells, st.nb, z.element_size())
         rec = {"kernel": f"block_stencil_{layout}", "cells": list(cells), "k": k,
                "nb": st.nb, "dtype": dtype_name, "max_abs_err": err,
@@ -132,6 +134,13 @@ def bench_block(torch, np, cs, pt, bk, dev):
         emit(**rec)
         del z, y, y_p, W, dD, st, go
         torch.cuda.empty_cache()
+
+
+def bench_dgmg(torch, cs, pt, dev):
+    for cells in cs.DGMG_CELLS:
+        it, ms = cs.dgmg_half(torch, pt, cells, dev, runs=DGMG_RUNS)
+        emit(kernel="dgmg", cells=[cells] * 3, dtype="float32", iterations=it,
+             ms_per_iteration=ms)
 
 
 def main():
@@ -169,6 +178,8 @@ def main():
         bench_fused(torch, np, cs, pt, sfk, dev)
     if "blockstencil" in wanted:
         bench_block(torch, np, cs, pt, bk, dev)
+    if "dgmg" in wanted:
+        bench_dgmg(torch, cs, pt, dev)
     emit(root=str(root), done=True)
 
 
