@@ -57,14 +57,35 @@ Phases (each passes or raises; there is no CPU path):
      against go.jacobian_apply; (c) _dgmg_half at 64^3 and 128^3 cells:
      DGTwoLevel on the mode-major stencil inside a host PCG loop, with the
      launches per iteration counted; (d) the config3 and config7 goldens in
-     fp64 (element-major kernel, 2D), with their element-major launches.
+     fp64 (element-major kernel, 2D), with their element-major launches;
+  8. geometric multigrid on re-discretised levels (models/configs.py:66):
+     (a) CG + GeometricMultigrid (Jacobi smoother) on 3D Poisson Q2, fp32,
+     tol 1e-8, at 32^3 and 64^3 cells (N = 2,146,689, 6 levels), the
+     iteration count held flat, at 64^3 with the share of the solve spent
+     in jacobian_apply (every level apply is the general torch.func.jvp,
+     as in the reference; no hand kernel); (b) the config2_poisson_3d_gmg
+     golden at 16^3 in fp64; (c) DGTwoLevel with gmg_kwargs (the
+     GeometricMultigrid coarse solve) against its default LatticeGMG path
+     on 2D Q1 SIPG (its block stencil is the element-major kernel);
+  9. Newton and one-step time stepping (models/configs.py:113): (a) 3D Q1
+     heat at 128^3 cells, fp64, Crank-Nicolson + Newton with Jacobi-CG on
+     the lattice ELL assembled at every Newton step (the ell27 kernel in
+     each Krylov apply), per-step Newton/CG counts, wall and assembly
+     share, the L2 error at t = 0.2, at most 2 Newton iterations a step;
+     (b) the config4_heat_theta_newton golden in fp64; (c) Newton on
+     -lap u + u^3 = f (examples/03) in 3D Q1 at 128^3, fp64, on the
+     assembled ELL (4 Newton iterations), and the nonlinear
+     assemble_ell_direct against colored probing at 63^3. In (a) and (c)
+     ell27 is held against its plain version on the first ELL the solve
+     assembled (129^3 fp64, the stage or Newton operator's values and
+     Dirichlet mask) with a random z.
 
-Launch counts are set to 0 before each of phases 3 to 7 and read after
+Launch counts are set to 0 before each of phases 3 to 9 and read after
 it; a kernel of that path that was never launched fails the run (the
-comparison launches of phases 6a, 6c and 7a are not counted). Prints phase
-results and times, the card's name and power limit, one JSON line
-{"kernels": [...]} with each kernel's launches over phases 3-7, error,
-times and bound, and as its last line {"ok": true, "device": {...}}.
+comparison launches of phases 6a, 6c, 7a, 9a and 9c are not counted).
+Prints phase results and times, the card's name and power limit, one JSON
+line {"kernels": [...]} with each kernel's launches over phases 3-9,
+error, times and bound, and as its last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -123,6 +144,16 @@ CONFIG3_L2_TIGHT = 1.5662241489950314e-05
 # config7: the JAX package's CG steps today (6; the golden's 7 predates its
 # face-parity smoother, tests/test_torch_dgmg.py test_config7_golden)
 CONFIG7_STEPS = 6
+GMG_CELLS = (32, 64)   # phase 8a: 3D Q2 CG + GeometricMultigrid (64^3: N = 2,146,689)
+C2_CELLS = 16          # phase 8b: the config2 golden
+DGGMG_CELLS = 32       # phase 8c: DGTwoLevel(gmg_kwargs) on 2D Q1 SIPG
+HEAT_CELLS = 128       # phase 9a: 3D Q1 heat, N = 2,146,689
+HEAT_L2_MAX = 4e-5     # phase 9a: L2 error at t = 0.2 (CN, dt = 0.02; 1.91e-5 measured)
+HEAT_NEWTON_MAX = 2    # phase 9a: Newton iterations per step (a linear problem)
+NL_CELLS = 128         # phase 9c: -lap u + u^3 = f, 3D Q1
+NL_L2_MAX = 4.2e-5     # phase 9c: L2 error of the Newton solution (2.09e-5 measured)
+NL_NEWTON = 4          # phase 9c: Newton iterations (quadratic from the first step)
+NL_SMALL = 63          # phase 9c: nonlinear direct ELL against probing
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 
@@ -1575,6 +1606,429 @@ def phase_dg(torch, pt, dev, record):
     dg_goldens(torch, pt, dev)
 
 
+def sine3d_problem():
+    """models/configs.py _Sine3D: -lap u = 3 pi^2 sin sin sin, u = 0 on the
+    boundary."""
+    import torch
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+
+    pi = math.pi
+
+    class Sine3D(ConvectionDiffusionProblem):
+        def exact(self, p):
+            return torch.sin(pi * p[:, 0]) * torch.sin(pi * p[:, 1]) * torch.sin(pi * p[:, 2])
+
+        def f(self, x):
+            return 3 * pi**2 * (torch.sin(pi * x[..., 0]) * torch.sin(pi * x[..., 1])
+                                * torch.sin(pi * x[..., 2]))
+    return Sine3D()
+
+
+def gmg_poisson(torch, pt, cells, dev):
+    """(V, go, GeometricMultigrid, problem) of 3D Poisson Q2 on the unit
+    cube (config2_poisson_3d_gmg, models/configs.py:66-82)."""
+    from dune_pdelab_tpu_torch.linalg.multigrid import GeometricMultigrid
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
+
+    p = sine3d_problem()
+    mesh = pt.StructuredMesh([0.0] * 3, [1.0] * 3, (cells,) * 3)
+    fem = pt.QkFEM(2, 3)
+    V = pt.FunctionSpace(mesh, fem)
+    go = pt.GridOperator(V, ConvectionDiffusionFEM(p),
+                         constraints=pt.constraints(p.dirichlet_bctype(), V, device=dev))
+    gmg = GeometricMultigrid(ConvectionDiffusionFEM(p), mesh, fem,
+                             bctype=p.dirichlet_bctype(), device=dev)
+    return V, go, gmg, p
+
+
+def gmg_solve(torch, pt, cells, dev, instrument=False):
+    """Phase 8a at cells^3: CG + GeometricMultigrid (Jacobi smoother) on 3D
+    Poisson Q2, fp32, to 1e-8. With `instrument`, the same solve again with
+    every jacobian_apply (the fine operator's and each level's) timed
+    between two device syncs, for the share of the solve spent there, and
+    one fine apply's wall time against its device time (torch.profiler).
+    Returns the iteration count."""
+    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
+
+    (V, go, gmg, _), build_s = timed(torch, lambda: gmg_poisson(torch, pt, cells, dev))
+    N = V.ndofs
+    x0 = V.zero(torch.float32, dev)
+    b = go.residual(x0)
+    ls = LinearSolverBackend(solver="cg", precond=gmg)
+    _, setup_s = timed(torch, lambda: gmg(go, x0, 0.0))
+    (z, st), wall = timed(torch, lambda: ls.solve(go, x0, b, 1e-8))
+    true_rel = float(torch.linalg.norm(b - go.jacobian_apply(x0, z)) / torch.linalg.norm(b))
+    log(f"[phase 8a] 3D Q2 {cells}^3 cells (N = {N}, {gmg.nlevels} levels): CG + "
+        f"GeometricMultigrid fp32 to 1e-8: {st.iterations} iterations in {wall:.4f} s = "
+        f"{1e3 * wall / max(st.iterations, 1):.3f} ms/iteration, converged "
+        f"{bool(st.converged)}, true rel defect {true_rel:.3e} (fp32); hierarchy "
+        f"{build_s:.2f} s, setup {setup_s:.2f} s")
+    # fp32 cannot go below about eps32 * cond(A) in the true defect
+    if not (bool(st.converged) and bool(torch.isfinite(z).all()) and true_rel < 1e-3):
+        raise AssertionError(f"CG + GeometricMultigrid at {cells}^3 failed: {st}, "
+                             f"true rel {true_rel:.3e}")
+    if instrument:
+        spent = {"s": 0.0, "n": 0}
+
+        def timed_apply(f):
+            def apply(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = f(*a, **k)
+                torch.cuda.synchronize()
+                spent["s"] += time.perf_counter() - t0
+                spent["n"] += 1
+                return out
+            return apply
+
+        ops = [go] + gmg.gos
+        for g in ops:
+            g.jacobian_apply = timed_apply(g.jacobian_apply)
+        (_, st2), wall2 = timed(torch, lambda: ls.solve(go, x0, b, 1e-8))
+        for g in ops:
+            del g.jacobian_apply
+        reps = 5
+        _, apply_wall = timed(torch, lambda: [go.jacobian_apply(x0, b) for _ in range(reps)])
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                go.jacobian_apply(x0, b)
+            torch.cuda.synchronize()
+        dev_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                     for e in prof.key_averages()) / 1e3 / reps
+        log(f"[phase 8a] {cells}^3 instrumented solve {wall2:.4f} s ({st2.iterations} "
+            f"iterations): {spent['n']} jacobian_apply calls {spent['s']:.4f} s = "
+            f"{100 * spent['s'] / wall2:.1f}% of it; one fine jacobian_apply "
+            f"{1e3 * apply_wall / reps:.3f} ms wall, {dev_ms:.3f} ms device time "
+            f"(torch.profiler)")
+        if st2.iterations != st.iterations:
+            raise AssertionError("the instrumented solve took other iterations")
+    del z, b, ls, gmg, go, V
+    torch.cuda.empty_cache()
+    return st.iterations
+
+
+def gmg_config2(torch, pt, dev):
+    """Phase 8b: the config2_poisson_3d_gmg golden at C2_CELLS^3 in fp64."""
+    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    want = json.loads((ROOT / "tests" / "golden_parity.json").read_text())[
+        "config2_poisson_3d_gmg"]
+    V, go, gmg, p = gmg_poisson(torch, pt, C2_CELLS, dev)
+    slp = pt.StationaryLinearProblemSolver(
+        go, LinearSolverBackend(solver="cg", precond=gmg), reduction=1e-10, verbose=0)
+    x, wall = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
+    l2 = float(l2_difference(V, x, p.exact))
+    its = slp.result.linear_solver_iterations
+    rel = abs(l2 - want["l2_error"]) / want["l2_error"]
+    log(f"[phase 8b] config2 fp64 {C2_CELLS}^3 (ndofs {V.ndofs}): {its} CG iterations on "
+        f"{gmg.nlevels} levels, L2 {l2:.16e} (golden {want['l2_error']:.16e}, rel "
+        f"{rel:.2e}), {wall:.2f} s")
+    if not (slp.result.converged and its == want["iterations"]
+            and gmg.nlevels == want["levels"] and V.ndofs == want["ndofs"] and rel <= 1e-8):
+        raise AssertionError("config2 golden mismatch")
+
+
+def gmg_dg_two_level(torch, pt, dev):
+    """Phase 8c: DGTwoLevel with gmg_kwargs (GeometricMultigrid on the Q1
+    subspace) against the default path (LatticeGMG) on 2D Q1 SIPG at
+    DGGMG_CELLS^2, fp64, CG to 1e-10 on the general-jvp tier."""
+    from dune_pdelab_tpu_torch.linalg import DGTwoLevel
+    from dune_pdelab_tpu_torch.linalg.multigrid import GeometricMultigrid
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
+    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
+
+    p = unit_source_problem()
+    V, go = dg_operator(pt, (DGGMG_CELLS,) * 2, 1, p)
+    b = go.residual(V.zero(torch.float64, dev))
+    its, sols = {}, {}
+    for name, kw in (("LatticeGMG", None),
+                     ("GeometricMultigrid", {"pre_sweeps": 2, "post_sweeps": 2})):
+        tl = DGTwoLevel(go, ConvectionDiffusionFEM(p), gmg_kwargs=kw, device=dev)
+        if (tl.gmg_lattice is None) != (kw is not None) or (
+                kw is not None and not isinstance(tl.gmg, GeometricMultigrid)):
+            raise AssertionError(f"DGTwoLevel took the wrong coarse solve for {name}")
+        ls = LinearSolverBackend(solver="cg", precond=tl, use_stencil=False)
+        (sols[name], s), wall = timed(torch, lambda: ls.solve(
+            go, V.zero(torch.float64, dev), b, 1e-10))
+        its[name] = s.iterations
+        log(f"[phase 8c] DGTwoLevel coarse {name} on {DGGMG_CELLS}^2 Q1 SIPG (N = "
+            f"{V.ndofs}) fp64: {s.iterations} CG iterations, converged "
+            f"{bool(s.converged)}, {wall:.2f} s")
+        if not bool(s.converged):
+            raise AssertionError(f"DGTwoLevel with {name} did not converge")
+    dz = float(torch.linalg.norm(sols["LatticeGMG"] - sols["GeometricMultigrid"])
+               / torch.linalg.norm(sols["LatticeGMG"]))
+    log(f"[phase 8c] iterations {its}; solutions rel L2 {dz:.3e}")
+    if not dz <= 1e-8:
+        raise AssertionError(f"the two DGTwoLevel paths disagree: {dz:.3e}")
+
+
+def phase_gmg(torch, pt, dev):
+    """Phase 8: geometric multigrid on re-discretised levels (the general
+    GridOperator: no hand kernel on the level applies)."""
+    its = {n: gmg_solve(torch, pt, n, dev, instrument=n == GMG_CELLS[-1])
+           for n in GMG_CELLS}
+    if not its[GMG_CELLS[-1]] <= its[GMG_CELLS[0]] + 2:
+        raise AssertionError(f"GeometricMultigrid iterations not flat: {its}")
+    gmg_config2(torch, pt, dev)
+    gmg_dg_two_level(torch, pt, dev)
+
+
+def heat_problem(dim):
+    """du/dt - lap u = f with u = exp(-t) prod_d sin(pi x_d) (the heat
+    problem of models/configs.py:113-145 in `dim` dimensions)."""
+    import torch
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+
+    pi = math.pi
+
+    def s(x):
+        out = torch.sin(pi * x[..., 0])
+        for d in range(1, dim):
+            out = out * torch.sin(pi * x[..., d])
+        return out
+
+    class Heat(ConvectionDiffusionProblem):
+        def u_exact(self, t):
+            return lambda p: math.exp(-t) * s(p)
+
+        def f(self, x):
+            return (dim * pi**2 - 1.0) * math.exp(-self.time) * s(x)
+    return Heat()
+
+
+def heat_run(torch, pt, dim, cells, dtype, dev, matrix_free, steps=10, dt=0.02, tag=""):
+    """Crank-Nicolson + Newton (reduction 1e-9) with Jacobi-CG per stage,
+    `steps` steps of dt (config4's recipe). Returns (L2 error at the end,
+    Newton iterations, per-step records)."""
+    from dune_pdelab_tpu_torch.instationary import OneStepMethod, crank_nicolson
+    from dune_pdelab_tpu_torch.ops import L2, ConvectionDiffusionFEM
+    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
+    from dune_pdelab_tpu_torch.solvers import linear as linear_mod
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    p = heat_problem(dim)
+    V = pt.FunctionSpace(pt.StructuredMesh([0.0] * dim, [1.0] * dim, (cells,) * dim),
+                         pt.QkFEM(1, dim))
+    cgm = pt.constraints(p.dirichlet_bctype(), V, device=dev)
+    go0 = pt.GridOperator(V, ConvectionDiffusionFEM(p), constraints=cgm)
+    go1 = pt.GridOperator(V, L2(), constraints=cgm)
+    ls = LinearSolverBackend(solver="cg", precond="jacobi", matrix_free=matrix_free)
+    osm = OneStepMethod(crank_nicolson(), go0, go1, ls, pdesolver="newton", reduction=1e-9)
+    x = V.interpolate(p.u_exact(0.0), dtype=dtype, device=dev)
+    asm = {"s": 0.0, "first": None}
+    assemble = linear_mod.assemble_ell
+
+    def timed_assemble(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = assemble(*a, **k)
+        torch.cuda.synchronize()
+        asm["s"] += time.perf_counter() - t0
+        if asm["first"] is None:
+            asm["first"] = out
+        return out
+
+    linear_mod.assemble_ell = timed_assemble
+    steps_rec = []
+    t = 0.0
+    try:
+        for _ in range(steps):
+            n0, l0, a0 = (osm.result.total_newton_iterations,
+                          osm.result.total_linear_iterations, asm["s"])
+            x, wall = timed(torch, lambda: osm.apply(t, dt, x))
+            t += dt
+            res = osm.pdesolver.result
+            steps_rec.append((osm.result.total_newton_iterations - n0,
+                              osm.result.total_linear_iterations - l0, wall,
+                              asm["s"] - a0, res.defect / res.first_defect, res.defect))
+    finally:
+        linear_mod.assemble_ell = assemble
+    l2 = float(l2_difference(V, x, p.u_exact(t)))
+    return (l2, osm.result.total_newton_iterations, steps_rec, ls.report(), V.ndofs,
+            asm["first"])
+
+
+def ell_check(torch, mat, tag, dev):
+    """ell27 against its plain version on an EllMatrix a solve assembled
+    (its values, mask and lattice), with a random z: on the unconstrained
+    rows the max abs error within 1e-13 of their max|y| (fp64), on the
+    constrained rows y equal to z. Its launches are not counted."""
+    from dune_pdelab_tpu_torch.kernels import ell27 as ek
+
+    if mat is None or not mat.uses_ell27:
+        raise AssertionError(f"{tag}: no lattice ELL was assembled")
+    saved = ek.launches
+    n = math.prod(mat.dims)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    z = torch.randn(n, generator=gen, dtype=mat.values.dtype, device=dev)
+    y = ek.ell27(mat.values, z, mat.mask, mat.dims)
+    y_p = ek.ell27_reference(mat.values, z, mat.mask, mat.dims)
+    ek.launches = saved
+    free = ~mat.mask
+    err = float((y - y_p)[free].abs().max())
+    scale = float(y_p[free].abs().max())
+    fixed_ok = bool(torch.equal(y[mat.mask], z[mat.mask]))
+    log(f"[{tag}] ell27 on the assembled {'x'.join(map(str, mat.dims))} "
+        f"{str(mat.values.dtype).replace('torch.', '')} ELL, random z: unconstrained "
+        f"rows max abs err {err:.3e} (their max|y| {scale:.3e}, limit 1e-13 of it), "
+        f"constrained rows equal to z: {fixed_ok}")
+    if not (err <= 1e-13 * scale and fixed_ok):
+        raise AssertionError(f"{tag}: ell27 disagrees with its plain version")
+
+
+def newton_heat(torch, pt, dev):
+    """Phase 9a: 3D Q1 heat at HEAT_CELLS^3, fp64, Crank-Nicolson + Newton
+    with LinearSolverBackend(cg, jacobi, matrix_free=False): the stage
+    operator's lattice ELL is assembled again at each Newton step and every
+    Krylov apply is the ell27 kernel."""
+    l2, nits, rec, rep, N, first = heat_run(torch, pt, 3, HEAT_CELLS, torch.float64, dev,
+                                            matrix_free=False)
+    ell_check(torch, first, "phase 9a", dev)
+    del first
+    wall = sum(r[2] for r in rec)
+    asm = sum(r[3] for r in rec)
+    for i, (nn, nl, w, a, red, d) in enumerate(rec):
+        log(f"[phase 9a] step {i + 1}: {nn} Newton, {nl} CG iterations, {w:.3f} s "
+            f"(ELL assembly {a:.3f} s), defect {d:.3e} = {red:.3e} of the first")
+    log(f"[phase 9a] heat 3D Q1 {HEAT_CELLS}^3 cells (N = {N}) fp64, CN + Newton, "
+        f"{len(rec)} steps of 0.02: {nits} Newton and {sum(r[1] for r in rec)} CG "
+        f"iterations, {wall / len(rec):.3f} s/step, ELL assembly {100 * asm / wall:.1f}% "
+        f"of it; L2 error at t = 0.2: {l2:.6e}\n{rep}")
+    if "assembled EllMatrix [ell27 CUDA kernel]" not in rep:
+        raise AssertionError("phase 9a did not take the ell27 tier")
+    # Newton stops at 1e-9 of the first defect or at its absolute limit
+    # 1e-12; a wrong Jacobian would still reach it, in more iterations
+    if not (all(r[4] <= 1e-9 or r[5] <= 1e-12 for r in rec) and l2 < HEAT_L2_MAX
+            and all(r[0] <= HEAT_NEWTON_MAX for r in rec)):
+        raise AssertionError(f"heat run failed: L2 {l2:.3e}, reductions "
+                             f"{[r[4] for r in rec]}, Newton {[r[0] for r in rec]}")
+
+
+def newton_config4(torch, pt, dev):
+    """Phase 9b: the config4_heat_theta_newton golden (2D 16^2 Q1, fp64,
+    general-jvp tier) on the card."""
+    want = json.loads((ROOT / "tests" / "golden_parity.json").read_text())[
+        "config4_heat_theta_newton"]
+    (l2, nits, rec, rep, N, _), wall = timed(torch, lambda: heat_run(
+        torch, pt, 2, 16, torch.float64, dev, matrix_free=True))
+    rel = abs(l2 - want["l2_error"]) / want["l2_error"]
+    log(f"[phase 9b] config4 fp64 (ndofs {N}): {nits} Newton iterations, L2 {l2:.16e} "
+        f"(golden {want['l2_error']:.16e}, rel {rel:.2e}), {wall:.2f} s; "
+        f"{rep.splitlines()[0]}")
+    if not (nits == want["newton_iterations"] and N == want["ndofs"] and rel <= 1e-8):
+        raise AssertionError("config4 golden mismatch")
+
+
+def nonlinear_poisson(pt, dim, cells, dev):
+    """(V, go, x0, u_exact) of -lap u + u^3 = f (examples/03_nonlinear_newton.py
+    in `dim` dimensions): u = prod_d sin(pi x_d) + 0.5."""
+    import torch
+    from dune_pdelab_tpu_torch.ops import LocalOperator
+
+    pi = math.pi
+
+    def s(x):
+        out = torch.sin(pi * x[..., 0])
+        for d in range(1, dim):
+            out = out * torch.sin(pi * x[..., d])
+        return out
+
+    class NonlinearPoisson(LocalOperator):
+        def alpha_volume(self, ctx, u):
+            tab = ctx.tab
+            return (self.accumulate_gradient(tab, ctx.factor, self.gradient_at_qp(tab, u))
+                    + self.accumulate_value(tab, ctx.factor, self.value_at_qp(tab, u) ** 3))
+
+        def lambda_volume(self, ctx):
+            sx = s(ctx.x)
+            f = dim * pi**2 * sx + (sx + 0.5) ** 3
+            return self.accumulate_value(ctx.tab, ctx.factor, -f)
+
+    V = pt.FunctionSpace(pt.StructuredMesh([0.0] * dim, [1.0] * dim, (cells,) * dim),
+                         pt.QkFEM(1, dim))
+    cgm = pt.constraints(True, V, device=dev)
+    go = pt.GridOperator(V, NonlinearPoisson(), constraints=cgm)
+    u_exact = lambda p: s(p) + 0.5
+    x0 = pt.interpolate_dirichlet(u_exact, V, cgm, V.zero(torch.float64, dev))
+    return V, go, x0, u_exact
+
+
+def newton_nonlinear(torch, pt, dev):
+    """Phase 9c: Newton on -lap u + u^3 = f in 3D Q1 at NL_CELLS^3, fp64,
+    LinearSolverBackend(cg, jacobi, matrix_free=False) (the ELL assembled at
+    each linearization point, the ell27 kernel in every Krylov apply); then
+    assemble_ell_direct of the nonlinear operator against colored probing
+    at a random linearization point at NL_SMALL^3."""
+    from dune_pdelab_tpu_torch.assembly.ell import assemble_ell, assemble_ell_direct
+    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend, NewtonMethod
+    from dune_pdelab_tpu_torch.solvers import linear as linear_mod
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    V, go, x0, u_exact = nonlinear_poisson(pt, 3, NL_CELLS, dev)
+    ls = LinearSolverBackend(solver="cg", precond="jacobi", matrix_free=False)
+    newton = NewtonMethod(go, ls, reduction=1e-10, verbose=0)
+    defects, assembled = [], []
+    line_search = newton._line_search
+
+    def recorded(*a):
+        out = line_search(*a)
+        defects.append(out[1])
+        return out
+
+    def recorded_assembly(*a, **k):
+        out = assemble(*a, **k)
+        if not assembled:
+            assembled.append(out)
+        return out
+
+    newton._line_search = recorded
+    assemble = linear_mod.assemble_ell
+    linear_mod.assemble_ell = recorded_assembly
+    try:
+        x, wall = timed(torch, lambda: newton.apply(x0))
+    finally:
+        linear_mod.assemble_ell = assemble
+    res = newton.result
+    l2 = float(l2_difference(V, x, u_exact))
+    log(f"[phase 9c] -lap u + u^3 = f, 3D Q1 {NL_CELLS}^3 cells (N = {V.ndofs}) fp64: "
+        f"{res.iterations} Newton iterations ({res.assemblies} assemblies, "
+        f"{res.linear_solver_iterations} CG iterations) in {wall:.2f} s, first defect "
+        f"{res.first_defect:.6e}, defect per step "
+        f"{', '.join(f'{d:.3e}' for d in defects)}, L2 error {l2:.6e}; "
+        f"{ls.report(go).splitlines()[0]}")
+    if not (res.converged and l2 < NL_L2_MAX and res.iterations == NL_NEWTON):
+        raise AssertionError("nonlinear Newton at full size failed")
+    if "assembled EllMatrix [ell27 CUDA kernel]" not in ls.report(go):
+        raise AssertionError("phase 9c did not take the ell27 tier")
+    ell_check(torch, assembled[0], "phase 9c", dev)
+    del x, x0, go, V, ls, assembled
+    torch.cuda.empty_cache()
+
+    V, go, _, _ = nonlinear_poisson(pt, 3, NL_SMALL, dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x_lin = 0.5 + 0.1 * torch.randn(V.ndofs, generator=gen, dtype=torch.float64, device=dev)
+    direct, t_direct = timed(torch, lambda: assemble_ell_direct(go, x_lin=x_lin))
+    probed, t_probed = timed(torch, lambda: assemble_ell(go, x_lin=x_lin))
+    scale = float(probed.values.abs().max())
+    err = float((direct.values - probed.values).abs().max())
+    log(f"[phase 9c] nonlinear assemble_ell_direct {NL_SMALL}^3 at a random x_lin: "
+        f"{t_direct:.3f} s, probed {t_probed:.3f} s, max abs diff {err:.3e} "
+        f"({err / scale:.2e} of max |value|)")
+    if not err <= 1e-12 * scale:
+        raise AssertionError("nonlinear direct ELL disagrees with probing")
+
+
+def phase_newton(torch, pt, dev):
+    """Phase 9: Newton and one-step time stepping."""
+    newton_heat(torch, pt, dev)
+    torch.cuda.empty_cache()
+    newton_config4(torch, pt, dev)
+    newton_nonlinear(torch, pt, dev)
+
+
 def main():
     if not (ROOT / "dune_pdelab_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -1631,6 +2085,10 @@ def main():
          ("structured_fused", "ell27")),
         ("phase 7 (DG)", lambda: phase_dg(torch, pt, dev, record),
          ("blockstencil_mm", "blockstencil_em", "stencil27")),
+        ("phase 8 (geometric multigrid)", lambda: phase_gmg(torch, pt, dev),
+         ("blockstencil_em",)),
+        ("phase 9 (Newton, time stepping)", lambda: phase_newton(torch, pt, dev),
+         ("ell27",)),
     ]
     totals = dict.fromkeys(counters, 0)
     for name, run, needed in paths:
@@ -1645,7 +2103,7 @@ def main():
             raise AssertionError(f"{name} never launched {missing}: {counts}")
         for k in totals:
             totals[k] += counts[k]
-    log(f"launch counts over phases 3-7: {totals}")
+    log(f"launch counts over phases 3-9: {totals}")
 
     meta = {
         "stencil27": ("dune_pdelab_tpu_torch/csrc/stencil27.cu",

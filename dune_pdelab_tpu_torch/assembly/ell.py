@@ -186,8 +186,10 @@ def assemble_ell_direct(go, x_lin=None, time=0.0, check=False):
 
     Applies to leaf C0 tensor-nodal Qk spaces on uniform non-periodic
     meshes, volume-kernel Jacobians (no face terms) and non-affine
-    constraints; returns None otherwise. A nonlinear operator needs the
-    local-coefficient gather, which waits for ROADMAP slice 8.
+    constraints; returns None otherwise. A nonlinear operator is
+    linearised at x_lin: its local coefficients are gathered through the
+    GridOperator's DOF map (slices on the lattice); a linear one probes at
+    zero, as the reference does.
 
     check=True holds the result against go.jacobian_apply (1e-5 relative).
     Nothing is cached: each call builds the values anew.
@@ -201,10 +203,6 @@ def assemble_ell_direct(go, x_lin=None, time=0.0, check=False):
         return None                      # face jacobian terms: use probing
     if go.cg is not None and getattr(go.cg, "has_affine", False):
         return None                      # affine constraints: use probing
-    if not getattr(go.lop, "is_linear", False):
-        raise NotImplementedError(
-            "assemble_ell_direct of a nonlinear operator needs the local "
-            "coefficient gather (ROADMAP slice 8)")
     if x_lin is None:
         x_lin = _default_x_lin(go)
     dtype, device = x_lin.dtype, x_lin.device
@@ -226,7 +224,10 @@ def assemble_ell_direct(go, x_lin=None, time=0.0, check=False):
                      for d in reversed(range(dim)))
 
     ctx = go._volume_ctx(time, dtype, device)
-    u0 = torch.zeros((E, m), dtype=dtype, device=device)
+    if getattr(go.lop, "is_linear", False):
+        u0 = torch.zeros((E, m), dtype=dtype, device=device)
+    else:
+        u0 = go.dof_maps[0].gather(x_lin)               # (E, m) local coefficients
     V = torch.zeros((len(offsets),) + grid_shape, dtype=dtype, device=device)
     for b in range(m):
         tangent = torch.zeros(m, dtype=dtype, device=device)

@@ -39,7 +39,9 @@ from dune_pdelab_tpu_torch.fe.quadrature import quadrature_rule
 from dune_pdelab_tpu_torch.ops.base import (
     FaceContext, LeafTab, SkeletonContext, VolumeContext,
 )
-from dune_pdelab_tpu_torch.utils.common import device_key, full_fp32_on_cuda
+from dune_pdelab_tpu_torch.utils.common import (
+    default_float, device_key, full_fp32_on_cuda, resolve_device,
+)
 
 _KERNELS = ("alpha_volume", "lambda_volume", "alpha_boundary",
             "lambda_boundary", "alpha_skeleton", "lambda_skeleton")
@@ -307,6 +309,16 @@ class GridOperator:
         if self.cg is not None:
             jz = torch.where(mask, z, jz)
         return jz
+
+    def linear_operator(self, time=0.0, dtype=None, device=None):
+        """For linear LOPs: the closure z -> J z (the linearization point
+        is irrelevant; zeros of `dtype` on `device`, default: the default
+        float on the constraint mask's device, else the default device)."""
+        if device is None:
+            device = self.cg.mask.device if self.cg is not None else None
+        x0 = torch.zeros(self.space.ndofs, dtype=dtype or default_float(),
+                         device=resolve_device(device))
+        return lambda z: self.jacobian_apply(x0, z, time)
 
     # ------------------------------------------------------------------
     # probed blocks: element Jacobians, diagonal blocks, assembled Jacobian

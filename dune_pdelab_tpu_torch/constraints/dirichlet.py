@@ -1,4 +1,4 @@
-"""Constraints: Dirichlet masks.
+"""Constraints: Dirichlet masks (and the empty set, `no_constraints`).
 
 PyTorch port of dune_pdelab_tpu/constraints/dirichlet.py without affine
 (hanging-node) rows, which wait for ROADMAP slice 11. A constraint set is a
@@ -95,3 +95,8 @@ def interpolate_dirichlet(g, space, cg: DirichletConstraints, x):
     (reference idiom: dune/pdelab/test/testpoisson.cc:201)."""
     xg = space.interpolate(g, dtype=x.dtype, device=x.device)
     return copy_constrained_dofs(cg, xg, x)
+
+
+def no_constraints(space, device=None) -> DirichletConstraints:
+    """NoConstraints analog (reference: constraints/noconstraints.hh)."""
+    return DirichletConstraints(np.zeros(space.ndofs, dtype=bool), device=device)

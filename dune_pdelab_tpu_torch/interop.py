@@ -2,8 +2,9 @@
 
 Takes plain numpy data (e.g. `st.dims`, `st.k`, `st.weights`, `st.offsets`
 and `np.asarray(st.mask)` of a JAX StencilOperator, the level state of a
-JAX LatticeGMG, or `np.asarray(x)` of a JAX DOF vector) and builds the
-port's objects from it. Never imports jax, so it runs where jax is absent.
+JAX LatticeGMG or GeometricMultigrid, or `np.asarray(x)` of a JAX DOF
+vector) and builds the port's objects from it. Never imports jax, so it
+runs where jax is absent.
 Tensors land on `device`, default utils/common.default_device().
 """
 from __future__ import annotations
@@ -54,6 +55,41 @@ def lattice_gmg_from_numpy(dims, k, stencils, transfers, coarse_lu, *, pre=2,
                       torch.as_tensor(np.asarray(piv) + 1, dtype=torch.int32)),
                      pre=pre, post=post, smoother=smoother, omega=omega,
                      cycle=cycle, lmax=None if lmax is None else list(lmax))
+    return gmg
+
+
+def geometric_mg_from_numpy(lop, mesh, fem, transfers, diags, coarse_lu, *,
+                            bctype=None, lmax=None, device=None,
+                            dtype=torch.float64, **options):
+    """Port GeometricMultigrid of a linear operator from a JAX
+    GeometricMultigrid's numpy state, without its setup: `transfers` per
+    level (idx, w) (`gmg.transfers`), the level diagonals (`gmg._diags`),
+    the coarse LU as scipy's (lu, piv) with 0-based pivots (converted to
+    LAPACK's 1-based ones) and the Chebyshev bounds (`gmg._lmax`). The
+    level operators are the port's own, re-discretised from (lop, mesh,
+    fem, bctype) and linearised at zero; `options` are GeometricMultigrid's
+    (cycle, smoother, sweeps, omega, ...). Tensors are held in `dtype` on
+    `device`."""
+    from dune_pdelab_tpu_torch.linalg.multigrid import GeometricMultigrid
+
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    gmg = GeometricMultigrid(lop, mesh, fem, bctype=bctype, nlevels=len(diags),
+                             device=device, **options)
+    gmg.transfers = [(np.asarray(i, np.int32), np.asarray(w, np.float64))
+                     for i, w in transfers]
+    gmg._xs = [torch.zeros(s.ndofs, dtype=dtype, device=device) for s in gmg.spaces]
+    gmg._time = 0.0
+    gmg._diags = [t(d) for d in diags]
+    if lmax is not None:
+        gmg._lmax = [t(v) for v in lmax]
+    lu, piv = coarse_lu
+    gmg._coarse_lu = (t(lu), torch.as_tensor(np.asarray(piv) + 1, dtype=torch.int32,
+                                             device=device))
+    gmg._build_apply(gmg._level_maps(dtype))
     return gmg
 
 

@@ -4,7 +4,10 @@ PyTorch port of dune_pdelab_tpu/linalg/dgmultigrid.py (reference:
 dune/pdelab/backend/istl/seq_amg_dg_backend.hh:146 — DG matrix + assembled
 CG subspace prolongation + AMG on the CG space; cg_to_dg_prolongation.hh).
 The coarse solve is one LatticeGMG V-cycle on the Q1 CG subspace (every
-3D level on the stencil27 kernel), the DG smoother is colored symmetric
+3D level on the stencil27 kernel); where LatticeGMG does not apply (a CG
+subspace not Dirichlet on the whole boundary, a coarse operator that is
+not a lattice stencil) or `gmg_kwargs` tune the coarse solve, one
+GeometricMultigrid cycle (linalg/multigrid.py). The DG smoother is colored symmetric
 block Gauss-Seidel (face-parity two-coloring: DG blocks couple only through
 faces) with the element block inverses taken from the block stencil's
 3^dim boundary classes, and the CG->DG prolongation is the per-element L2
@@ -18,10 +21,10 @@ Two cycles compute the same preconditioner:
     (nz, nb, ny, nx), the block inverses as a (nz, ny, nx, nb, nb) array
     built on the device from the class table, the DG<->CG transfers as
     corner slice adds; flat layout only at entry and exit.
-The reference's three-jit split of the mode-major cycle (a workaround for
-its remote compiler) has no counterpart. Other coarse spaces raise:
-GeometricMultigrid waits for ROADMAP slice 4, AMG for slice 10, simplex
-meshes for slice 11.
+The mode-major cycle runs with the LatticeGMG coarse solve, as in the
+reference. The reference's three-jit split of that cycle (a workaround for
+its remote compiler) has no counterpart. Other coarse spaces raise: AMG
+waits for ROADMAP slice 10, simplex meshes for slice 11.
 
 Usable directly as the `precond` callable of LinearSolverBackend.
 """
@@ -48,8 +51,9 @@ class DGTwoLevel:
     go_dg:   the DG GridOperator (single leaf: QkDG on a structured mesh)
     cg_lop:  the CG discretization of the same PDE for the coarse space
              (e.g. ConvectionDiffusionFEM(problem))
-    bctype:  Dirichlet bctype for the CG subspace (strong constraints);
-             the whole boundary must be Dirichlet (LatticeGMG's contract)
+    bctype:  Dirichlet bctype for the CG subspace (strong constraints)
+    gmg_kwargs: options of the GeometricMultigrid coarse solve (given:
+             GeometricMultigrid even where LatticeGMG would apply)
     coarse:  'gmg' or 'auto' (the same here)
     device:  where the coarse hierarchy lives (default: the default device)
     """
@@ -58,6 +62,7 @@ class DGTwoLevel:
                  post_smooth=1, gmg_kwargs=None, coarse="auto",
                  amg_kwargs=None, device=None):
         from dune_pdelab_tpu_torch.linalg.gmg_lattice import LatticeGMG
+        from dune_pdelab_tpu_torch.linalg.multigrid import GeometricMultigrid
 
         space = go_dg.space
         if not (space.is_leaf and space.fem.continuity == "DG"):
@@ -69,10 +74,6 @@ class DGTwoLevel:
                 "ROADMAP slice 10)")
         if coarse not in ("auto", "gmg"):
             raise ValueError(f"coarse={coarse!r}")
-        if gmg_kwargs:
-            raise NotImplementedError(
-                "DGTwoLevel with gmg_kwargs runs GeometricMultigrid, which is "
-                "not ported yet (ROADMAP slice 4)")
         self.go_dg = go_dg
         self.pre = pre_smooth
         self.post = post_smooth
@@ -81,23 +82,21 @@ class DGTwoLevel:
         dim = mesh.dim
 
         # conforming Q1 subspace (cg_to_dg_prolongation.hh analog) with a
-        # stencil-resident lattice GMG
+        # stencil-resident lattice GMG where it applies: fully Dirichlet
+        # boundary, a lattice-stencil operator, no explicit gmg_kwargs
         cg_fem = QkFEM(1, dim)
         self.V_cg = FunctionSpace(mesh, cg_fem)
         self.cg_cg = make_constraints(bctype, self.V_cg, device=self.device)
+        self.gmg_lattice = None
         bmask = _leaf_boundary_dof_mask(self.V_cg)
-        if not bool(np.all(self.cg_cg.mask_np[np.nonzero(bmask)[0]])):
-            raise NotImplementedError(
-                "DGTwoLevel on a CG subspace that is not Dirichlet on the whole "
-                "boundary needs GeometricMultigrid, which is not ported yet "
-                "(ROADMAP slice 4)")
-        try:
-            self.gmg_lattice = LatticeGMG(self.V_cg, cg_lop, device=self.device)
-        except ValueError as e:
-            raise NotImplementedError(
-                "the CG coarse operator is not a lattice stencil; DGTwoLevel then "
-                "needs GeometricMultigrid, which is not ported yet (ROADMAP "
-                "slice 4)") from e
+        if not gmg_kwargs and bool(np.all(self.cg_cg.mask_np[np.nonzero(bmask)[0]])):
+            try:
+                self.gmg_lattice = LatticeGMG(self.V_cg, cg_lop, device=self.device)
+            except (ValueError, NotImplementedError):
+                self.gmg_lattice = None
+        self.gmg = None if self.gmg_lattice is not None else GeometricMultigrid(
+            cg_lop, mesh, cg_fem, bctype=bctype, device=self.device,
+            **(gmg_kwargs or {}))
         self._cg_map = make_leaf_dof_map(self.V_cg, None, offset=0)
 
         # CG -> DG embedding weights W[j, c]: the element-local corner hat
@@ -161,7 +160,8 @@ class DGTwoLevel:
             bst_src = operator
             if operator is not None and mesh.dim == 3:
                 operator = try_mm_block_stencil(operator) or operator
-        use_mm = getattr(operator, "apply_mm", None) is not None and mesh.dim == 3
+        use_mm = (self.gmg_lattice is not None and mesh.dim == 3
+                  and getattr(operator, "apply_mm", None) is not None)
         self._bst_src = bst_src
         self._cache = {}
         Dinv = None
@@ -173,11 +173,15 @@ class DGTwoLevel:
                                    device=x_lin.device)
 
         gl = self.gmg_lattice
-        lmask = gl.stencils[0].mask
+        if gl is not None:
+            lmask = gl.stencils[0].mask
 
-        def gmg_apply(rc):
-            # corrections vanish at (strongly) constrained CG dofs
-            return gl._vcycle(0, torch.where(lmask, 0.0, rc))
+            def gmg_apply(rc):
+                # corrections vanish at (strongly) constrained CG dofs
+                return gl._vcycle(0, torch.where(lmask, 0.0, rc))
+        else:
+            self.gmg.setup(None, 0.0, dtype=x_lin.dtype)
+            gmg_apply = self.gmg._apply
 
         A = (operator if operator is not None
              else (lambda z: go.jacobian_apply(x_lin, z, time)))

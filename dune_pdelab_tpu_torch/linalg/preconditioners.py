@@ -5,13 +5,17 @@ dune/pdelab/backend/istl/seqistlsolverbackend.hh SeqJac/SeqSOR/AMG
 combinations, and the matrix-free block preconditioners of
 dune/pdelab/backend/istl/matrixfree/blockdiagonalwrapper.hh and
 iterativeblockjacobipreconditioner.hh:267): Jacobi, element-block Jacobi,
-Chebyshev, and colored element-block Gauss-Seidel. The multicolor SSOR
-family waits for ROADMAP slice 10.
+Chebyshev, colored element-block Gauss-Seidel, and multicolor SSOR on the
+DOF lattice (the SeqSSOR analog). Every color step writes each DOF once
+(an index put, not an atomic add), so the result is the same from run to
+run.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from dune_pdelab_tpu_torch.utils.common import resolve_device
 
 
 def identity():
@@ -165,3 +169,72 @@ def checkerboard_colors(mesh, device=None):
         code += (mi[:, d] % 2) << d
     return [torch.as_tensor(np.nonzero(code == c)[0], device=device)
             for c in range(2**mesh.dim)]
+
+
+def ssor_like(A, diag, omega=1.0, sweeps=2):
+    """Symmetric-Jacobi smoothing stand-in for SeqSSOR: damped Jacobi
+    iterations applied symmetrically. For a genuine SOR-class method use
+    `multicolor_ssor` below."""
+    dinv = omega / diag
+
+    def apply(r):
+        z = dinv * r
+        for _ in range(sweeps - 1):
+            z = z + dinv * (r - A(z))
+        return z
+
+    return apply
+
+
+def dof_lattice_colors(space, device=None):
+    """Coordinate-parity coloring of a C0 Qk DOF lattice: (k+1)^dim classes
+    by per-axis index mod (k+1). Two DOFs coupled by the Qk stencil
+    (per-axis offsets in [-k, k], not all zero) always land in different
+    classes, so each class is an independent set (the DOF-level
+    counterpart of the element halo coloring, reference:
+    dune/pdelab/common/partition/halo/colored.hh:31). Returns int64 index
+    tensors on `device` (default: the default device)."""
+    dims = getattr(space, "_dof_grid_dims", None)
+    if dims is None or space.fem.continuity != "C0":
+        raise ValueError("dof_lattice_colors needs a structured C0 space")
+    m = space.fem.degree + 1
+    code = np.zeros(space.ndofs, dtype=np.int64)
+    g = np.arange(space.ndofs, dtype=np.int64)
+    for d in range(space.mesh.dim):
+        code = code * m + (g % dims[d]) % m
+        g //= dims[d]
+    device = resolve_device(device)
+    return [torch.as_tensor(np.nonzero(code == c)[0], device=device)
+            for c in range(m ** space.mesh.dim) if np.any(code == c)]
+
+
+def multicolor_ssor(A, diag, colors, omega=1.0, sweeps=1):
+    """Multicolor SSOR (the parallel SeqSSOR analog, reference slot:
+    dune/pdelab/backend/istl/seqistlsolverbackend.hh SSOR combinations):
+    one sweep is Gauss-Seidel over the color classes forward then
+    backward. With a fixed color order the forward+backward composition is
+    symmetric, so the result is an SPD preconditioner for CG."""
+
+    def half(z, r, order):
+        for cidx in order:
+            r_cur = r - A(z)
+            z = z.index_put((cidx,), z[cidx] + omega * r_cur[cidx] / diag[cidx])
+        return z
+
+    def apply(r):
+        z = torch.zeros_like(r)
+        for _ in range(sweeps):
+            z = half(z, r, colors)
+            z = half(z, r, colors[::-1])
+        return z
+
+    return apply
+
+
+def ssor_preconditioner(go, x_lin, time=0.0, omega=1.0, sweeps=1):
+    """LinearSolverBackend `precond` callable: multicolor SSOR on the DOF
+    lattice of a structured C0 space."""
+    colors = dof_lattice_colors(go.space, device=x_lin.device)
+    diag = go.jacobian_diagonal(x_lin, time)
+    return multicolor_ssor(lambda z: go.jacobian_apply(x_lin, z, time), diag,
+                           colors, omega=omega, sweeps=sweeps)

@@ -30,6 +30,8 @@ class StructuredMesh:
         self.periodic = (False,) * self.dim
         self.h = (self.upper - self.lower) / np.array(self.cells)
         self.nelements = int(np.prod(self.cells))
+        self.vdims = tuple(c + 1 for c in self.cells)     # vertex grid
+        self.nvertices = int(np.prod(self.vdims))
 
     @property
     def uniform(self) -> bool:
@@ -65,6 +67,15 @@ class StructuredMesh:
             [[(c >> d) & 1 for d in range(self.dim)] for c in range(self.ncorners)],
             dtype=np.int64,
         )
+
+    def vertex_coords(self) -> np.ndarray:
+        """(NV, dim) vertex coordinates, dimension 0 fastest."""
+        v = np.arange(self.nvertices, dtype=np.int64)
+        mi = np.empty((self.nvertices, self.dim), dtype=np.int64)
+        for d in range(self.dim):
+            mi[:, d] = v % self.vdims[d]
+            v = v // self.vdims[d]
+        return self.lower + mi * self.h
 
     def element_corner_coords(self) -> np.ndarray:
         """(E, 2^dim, dim) corner coordinates."""
@@ -119,6 +130,13 @@ class StructuredMesh:
                 side.append(np.full(len(sel), s, dtype=np.int64))
         return {"element": np.concatenate(elem), "axis": np.concatenate(axis),
                 "side": np.concatenate(side)}
+
+    def refine(self, factor: int = 2) -> "StructuredMesh":
+        """Uniformly refined mesh (global refinement analog of
+        grid.globalRefine). Mapped meshes are refused at construction
+        (ROADMAP slice 11)."""
+        return StructuredMesh(self.lower, self.upper,
+                              tuple(c * factor for c in self.cells))
 
     def coarsen(self, factor: int = 2) -> "StructuredMesh":
         """Uniformly coarsened mesh (for geometric multigrid hierarchies).

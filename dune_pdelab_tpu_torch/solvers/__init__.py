@@ -7,3 +7,9 @@ from dune_pdelab_tpu_torch.solvers.linear import (  # noqa: F401
 from dune_pdelab_tpu_torch.solvers.stationary import (  # noqa: F401
     StationaryLinearProblemSolver, StationaryResult,
 )
+from dune_pdelab_tpu_torch.solvers.newton import (  # noqa: F401
+    NewtonError, NewtonMethod, NewtonResult,
+)
+from dune_pdelab_tpu_torch.solvers.utilities import (  # noqa: F401
+    GridOperatorPreconditioner, SolverStatistics, check_lop_interface, dense_jacobian,
+)

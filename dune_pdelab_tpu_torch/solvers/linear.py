@@ -34,6 +34,7 @@ kernels' launch counters.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -93,7 +94,7 @@ class LinearSolverBackend:
                              f"{sorted(krylov.SOLVERS)}")
         if not callable(self.precond) and self.precond not in _PRECONDS:
             raise ValueError(f"unknown preconditioner {self.precond!r} (the SSOR "
-                             "and AMG backends wait for ROADMAP slice 10)")
+                             "backends pass a callable: SEQ_CG_SSOR, SEQ_BCGS_SSOR)")
 
     def _reasons(self, go):
         return self._setup_cache.setdefault((id(go), "tier_reasons"), {})
@@ -119,11 +120,20 @@ class LinearSolverBackend:
             self._setup_cache[key] = st
         return self._setup_cache[key]
 
-    def _assembled_for(self, go, x_lin, time):
+    @staticmethod
+    def _keep(go, reuse):
+        """Whether data set up at an earlier solve still holds: always for
+        a linear operator, for a nonlinear one (a OneStepGridOperator, whose
+        stage weights change with dt, among them) only when the caller
+        reuses its linearization point (reuse=True)."""
+        return reuse or getattr(go.lop, "is_linear", False)
+
+    def _assembled_for(self, go, x_lin, time, reuse=False):
         """The lattice-ELL matrix, else the sparse COO Jacobian; assembled
-        once for a linear operator, at each solve for a nonlinear one."""
+        once for a linear operator, at each solve for a nonlinear one
+        unless reuse=True."""
         key = (id(go), "matval")
-        if key not in self._setup_cache or not getattr(go.lop, "is_linear", False):
+        if key not in self._setup_cache or not self._keep(go, reuse):
             mat = assemble_ell(go, x_lin, time) if self.use_ell else None
             if mat is None:
                 self._reasons(go)["lattice-ELL"] = (
@@ -133,9 +143,9 @@ class LinearSolverBackend:
             self._setup_cache[key] = mat
         return self._setup_cache[key]
 
-    def _jacobi_diag(self, go, op, x_lin, b, time):
+    def _jacobi_diag(self, go, op, x_lin, b, time, reuse=False):
         key = (id(go), "diag", b.dtype, device_key(b.device))
-        if key not in self._setup_cache:
+        if key not in self._setup_cache or not self._keep(go, reuse):
             if op is not None:
                 d = op.diagonal(dtype=b.dtype, device=b.device)
             else:
@@ -143,19 +153,20 @@ class LinearSolverBackend:
             self._setup_cache[key] = d.to(device=b.device, dtype=b.dtype)
         return self._setup_cache[key]
 
-    def _precond_setup(self, go, op, x_lin, b, time):
+    def _precond_setup(self, go, op, x_lin, b, time, reuse=False):
         """Preconditioner data, computed once per operator, dtype and device
-        for a linear operator and at each solve for a nonlinear one."""
+        for a linear operator and at each solve for a nonlinear one unless
+        reuse=True."""
         p = self.precond
         if p in (None, "none", "richardson"):
             return {}
         key = (id(go), "precond", p, b.dtype, device_key(b.device))
-        if key in self._setup_cache and getattr(go.lop, "is_linear", False):
+        if key in self._setup_cache and self._keep(go, reuse):
             return self._setup_cache[key]
         xl = x_lin.to(device=b.device, dtype=b.dtype)
         setup = {}
         if p in ("jacobi", "chebyshev"):
-            setup["diag"] = self._jacobi_diag(go, op, x_lin, b, time)
+            setup["diag"] = self._jacobi_diag(go, op, x_lin, b, time, reuse)
         if p == "chebyshev":
             setup["lmax"] = preconditioners.power_iteration(
                 lambda z: go.jacobian_apply(xl, z, time), setup["diag"],
@@ -209,14 +220,14 @@ class LinearSolverBackend:
                              "operator or use_stencil=False)")
         return "\n".join(lines)
 
-    def _operator(self, go, x_lin, b, time):
+    def _operator(self, go, x_lin, b, time, reuse=False):
         """(A, the stencil Jacobi reads its diagonal from or None, path)."""
         if callable(self.precond):
             return (lambda z: go.jacobian_apply(x_lin, z, time), None,
                     "general-jvp (matrix-free) + custom preconditioner "
                     f"{type(self.precond).__name__}")
         if not self.matrix_free:
-            mat = self._assembled_for(go, x_lin, time)
+            mat = self._assembled_for(go, x_lin, time, reuse)
             if isinstance(mat, EllMatrix):
                 how = _kernel_how(mat.uses_ell27, "ell27", b.device)
                 return mat, None, f"assembled EllMatrix [{how}]"
@@ -240,15 +251,22 @@ class LinearSolverBackend:
         return (lambda z: go.jacobian_apply(x_lin, z, time), None,
                 "general-jvp (matrix-free batched assembly per apply)")
 
-    def solve(self, go, x_lin, b, reduction, time=0.0, x0=None):
-        """Solve J(x_lin) z = b to relative `reduction`; returns (z, stats)."""
-        A, op, path = self._operator(go, x_lin, b, time)
+    def solve(self, go, x_lin, b, reduction, time=0.0, x0=None, reuse=False):
+        """Solve J(x_lin) z = b to relative `reduction`; returns (z, stats).
+
+        reuse=True: keep the previously assembled Jacobian and
+        preconditioner data (the NewtonMethod reassemble_threshold
+        contract, reference: dune/pdelab/solver/newton.hh:98-120); x_lin
+        must then be the linearization point of that earlier assembly. A
+        callable preconditioner keeps its own cache (GeometricMultigrid:
+        per linearization point)."""
+        A, op, path = self._operator(go, x_lin, b, time, reuse)
         kw = {"restart": self.restart} if self.solver == "gmres" else {}
         run = krylov.SOLVERS[self.solver]
         if callable(self.precond):
             M = self.precond(go, x_lin, time)
         else:
-            setup = self._precond_setup(go, op, x_lin, b, time)
+            setup = self._precond_setup(go, op, x_lin, b, time, reuse)
             if isinstance(A, MMBlockStencil) and self.precond in _MM_PRECONDS:
                 # iterate in the mode-major layout: to_mm is a permutation,
                 # so the diagonal transforms as the residual does
@@ -314,6 +332,21 @@ def SEQ_BCGS_ILUn(level=1, **kw):
                                **kw)
 
 
+def SEQ_CG_SSOR(omega=1.0, sweeps=1, **kw):
+    """ISTLBackend_SEQ_CG_SSOR analog: multicolor SSOR on the DOF lattice
+    (forward+backward Gauss-Seidel over coordinate-parity color classes)."""
+    p = functools.partial(preconditioners.ssor_preconditioner, omega=omega,
+                          sweeps=sweeps)
+    return LinearSolverBackend(solver="cg", precond=p, **kw)
+
+
+def SEQ_BCGS_SSOR(omega=1.0, sweeps=1, **kw):
+    """ISTLBackend_SEQ_BCGS_SSOR analog."""
+    p = functools.partial(preconditioners.ssor_preconditioner, omega=omega,
+                          sweeps=sweeps)
+    return LinearSolverBackend(solver="bicgstab", precond=p, **kw)
+
+
 def SEQ_CG_BlockJacobi(**kw):
     """CG with element-block Jacobi (exact block-diagonal inverse on DG)."""
     kw.setdefault("solver", "cg")
@@ -333,7 +366,5 @@ def _not_ported(name, what, slice_):
     return make
 
 
-SEQ_CG_SSOR = _not_ported("SEQ_CG_SSOR", "linalg/preconditioners.py (SSOR)", 10)
-SEQ_BCGS_SSOR = _not_ported("SEQ_BCGS_SSOR", "linalg/preconditioners.py (SSOR)", 10)
 SEQ_CG_AMG = _not_ported("SEQ_CG_AMG", "linalg/amg.py", 10)
 SEQ_BCGS_AMG = _not_ported("SEQ_BCGS_AMG", "linalg/amg.py", 10)

@@ -1,14 +1,17 @@
-"""Grid-function norms: evaluate FE solutions at quadrature points, L2 errors.
+"""Discrete grid functions and norms: evaluate FE solutions, L2 errors.
 
-PyTorch port of `evaluate_at_quadrature` and `l2_difference` of
-dune_pdelab_tpu/space/functions.py (reference: the test oracle
-dune/pdelab/test/l2difference.hh:15-34). Uniform meshes only,
-as the port's VolumeGeometry; `exact` receives the (npts, dim) quadrature
-points as a float64 tensor on x's device (the port's callback convention)
-and returns a tensor, array or scalar.
+PyTorch port of dune_pdelab_tpu/space/functions.py (reference:
+DiscreteGridFunction, dune/pdelab/gridfunctionspace/
+gridfunctionspaceutilities.hh:54, and the test oracles
+dune/pdelab/test/l2difference.hh:15-34, l2norm.hh). Uniform meshes only,
+as the port's VolumeGeometry; `exact` and `exact_grad` receive the
+(npts, dim) quadrature points as a float64 tensor on x's device (the
+port's callback convention) and return a tensor, array or scalar. Norms
+of a complex x are real.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dune_pdelab_tpu_torch.assembly.dofmaps import make_leaf_dof_map
@@ -48,3 +51,91 @@ def l2_difference(space, x, exact, quad_order=None):
     d = u - torch.broadcast_to(ue.reshape(-1) if ue.ndim else ue,
                                (u.numel(),)).reshape(u.shape)
     return torch.sqrt(torch.real(torch.sum(factor * d * torch.conj(d))))
+
+
+def _at_points(v, like, shape):
+    """A callback's value as a tensor of x's dtype and device, in `shape`."""
+    t = torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    return torch.broadcast_to(t.reshape(shape) if t.numel() > 1 else t, shape)
+
+
+def l2_norm(space, x, quad_order=None):
+    """|| u_h ||_L2 (l2norm.hh analog); real for a complex x."""
+    _, u, _, factor = evaluate_at_quadrature(space, x, quad_order)
+    return torch.sqrt(torch.real(torch.sum(factor * u * torch.conj(u))))
+
+
+def h1_seminorm_difference(space, x, exact_grad, quad_order=None):
+    """| u_h - exact |_H1 given the exact gradient callable (points (npts,
+    dim) -> (npts, dim))."""
+    xq, _, gu, factor = evaluate_at_quadrature(space, x, quad_order)
+    d = gu - _at_points(exact_grad(xq.reshape(-1, xq.shape[-1])), x, gu.shape)
+    return torch.sqrt(torch.real(torch.sum(factor * torch.sum(d * torch.conj(d), dim=-1))))
+
+
+def integrate_grid_function(space, x, quad_order=None):
+    """∫ u_h dx (functionutilities.hh integrateGridFunction analog)."""
+    _, u, _, factor = evaluate_at_quadrature(space, x, quad_order)
+    return torch.sum(factor * u)
+
+
+def evaluate_at_points(space, x, pts):
+    """u_h at arbitrary points (npts, dim) of a uniform mesh: locate each
+    point's element and reference coordinates, tabulate the basis there
+    (the reference's per-point adaptivity._evaluate_on, in one batch).
+    Returns a tensor of x's dtype on x's device."""
+    mesh = space.mesh
+    pts = np.atleast_2d(pts.detach().cpu().numpy() if isinstance(pts, torch.Tensor)
+                        else np.asarray(pts, dtype=np.float64))
+    rel = (pts - mesh.lower) / mesh.h
+    e_mi = np.clip(np.floor(rel).astype(np.int64), 0, np.array(mesh.cells) - 1)
+    vals, _ = space.fem.tabulate(rel - e_mi)                  # (npts, nb)
+    dofs = torch.as_tensor(space.element_dofs[mesh.element_index(e_mi)],
+                           device=x.device)
+    return torch.sum(torch.as_tensor(vals, dtype=x.dtype, device=x.device) * x[dofs],
+                     dim=1)
+
+
+class DiscreteGridFunction:
+    """Evaluable view of (space, DOF vector): DiscreteGridFunction analog
+    (reference: gridfunctionspaceutilities.hh:54) with the arithmetic
+    combinators of the reference's function/ directory (product,
+    difference, scaled, ...). Point callables take (npts, dim) points and
+    return a tensor."""
+
+    def __init__(self, space, x):
+        self.space = space
+        self.x = x
+
+    def __call__(self, pts):
+        return evaluate_at_points(self.space, self.x, pts)
+
+    # -- combinators return plain point-callables ---------------------------
+    def __add__(self, other):
+        return _combine(self, other, lambda a, b: a + b)
+
+    def __sub__(self, other):
+        return _combine(self, other, lambda a, b: a - b)
+
+    def __mul__(self, other):
+        return _combine(self, other, lambda a, b: a * b)
+
+    __rmul__ = __mul__
+
+    def squared(self):
+        return _combine(self, self, lambda a, b: a * b)
+
+    def l2_norm(self, quad_order=None):
+        return l2_norm(self.space, self.x, quad_order)
+
+    def integrate(self, quad_order=None):
+        return integrate_grid_function(self.space, self.x, quad_order)
+
+
+def _combine(f, g, op):
+    def h(pts):
+        a = torch.as_tensor(f(pts)) if callable(f) else f
+        b = torch.as_tensor(g(pts)) if callable(g) else g
+        return op(a, b)
+
+    return h

@@ -96,6 +96,14 @@ class FunctionSpace:
         return _leaf_boundary_dof_mask(self)
 
     # -- node coordinates & interpolation ------------------------------------
+    def dof_coords(self) -> np.ndarray:
+        """(ndofs, dim) nodal coordinates: lattice arithmetic for a C0
+        space, the element node positions for a DG one (element-major)."""
+        if self._dof_grid_dims is not None:
+            return self.dof_coords_at(np.arange(self.ndofs, dtype=np.int64))
+        pts = self._geometry_at(np.atleast_2d(self.fem.interpolation_points))
+        return pts.reshape(-1, self.mesh.dim)
+
     def dof_coords_at(self, idx: np.ndarray) -> np.ndarray:
         """(len(idx), dim) nodal coordinates of selected DOFs, by lattice
         arithmetic (no per-element geometry sweep)."""

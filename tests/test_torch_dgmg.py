@@ -10,7 +10,8 @@
     forward sweep, not symmetric) on the backend's block-stencil tier, and
     CG with Chebyshev (the same lambda_max start vector as the JAX
     package) take the JAX package's iteration counts;
-  * the coarse spaces that are not ported raise, naming their slices.
+  * the coarse space that is not ported (AMG) raises, naming its slice;
+    gmg_kwargs build the GeometricMultigrid coarse solve.
 """
 import json
 from pathlib import Path
@@ -170,8 +171,13 @@ def test_chebyshev_cg_iterations_match_jax(sipg2d):
 
 
 def test_unported_coarse_spaces_raise():
+    """AMG still raises, naming its slice; gmg_kwargs, which raised before
+    GeometricMultigrid was ported, now build that coarse solve."""
+    from dune_pdelab_tpu_torch.linalg.multigrid import GeometricMultigrid
+
     _, tgo = _pair(2, (8, 8))
     with pytest.raises(NotImplementedError, match="slice 10"):
         DGTwoLevel(tgo, TFEM(TSource()), coarse="amg")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        DGTwoLevel(tgo, TFEM(TSource()), gmg_kwargs={"pre": 2})
+    tl = DGTwoLevel(tgo, TFEM(TSource()), gmg_kwargs={"pre_sweeps": 3})
+    assert tl.gmg_lattice is None and isinstance(tl.gmg, GeometricMultigrid)
+    assert tl.gmg.pre == 3

@@ -158,8 +158,10 @@ def test_assembly_matches_jax(cells, k):
 
 def test_direct_declines_like_jax():
     """A lop without alpha_volume declines in both; face terms decline in
-    JAX (the port's GridOperator refuses such a lop); a nonlinear lop waits
-    for slice 8."""
+    JAX (the port's GridOperator refuses such a lop); a lop flagged
+    nonlinear is assembled at its linearization point (which waited for
+    slice 8 before it was ported; its JAX parity:
+    tests/test_torch_newton.py)."""
     class JSource:
         is_linear = True
         quadrature_factor, quadrature_add = 2, 0
@@ -197,8 +199,11 @@ def test_direct_declines_like_jax():
 
     tgo = tpt.GridOperator(tV, TNonlinear(TVarCoeff()),
                            constraints=tpt.constraints(True, tV), skip_boundary=True)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tell.assemble_ell_direct(tgo, tV.zero(F64))
+    x_lin = torch.from_numpy(np.random.default_rng(8).standard_normal(tV.ndofs))
+    direct = tell.assemble_ell_direct(tgo, x_lin, check=True)
+    probed = tell.assemble_ell(tgo, x_lin)
+    assert float((direct.values - probed.values).abs().max()) <= (
+        1e-12 * float(probed.values.abs().max()))
 
 
 def test_direct_cache_and_check(monkeypatch):
