@@ -78,13 +78,29 @@ Phases (each passes or raises; there is no CPU path):
      assemble_ell_direct against colored probing at 63^3. In (a) and (c)
      ell27 is held against its plain version on the first ELL the solve
      assembled (129^3 fp64, the stage or Newton operator's values and
-     Dirichlet mask) with a random z.
+     Dirichlet mask) with a random z;
+ 10. composite spaces and Taylor-Hood (Navier-)Stokes (no hand kernel: the
+     Q2 velocity V-cycles run the plain k > 1 stencil form, the other
+     applies the general torch.func.jvp): (a) the 3D Taylor-Hood problem of
+     tests/test_stokes3d.py (unpinned pressure, triangular StokesGMGSchur,
+     GMRES(100)) in fp32 to 1e-6 at 32^3 and 64^3 cells (N = 6,714,692),
+     and at 64^3 in fp64: iterations held to a plateau, the fp64 true
+     residual, the velocity L2 error falling, peak memory, and at 64^3 the
+     solve's split between the
+     Taylor-Hood jacobian_apply, the velocity V-cycles and the
+     pressure-mass Chebyshev, with one of each (and one fine Q2 stencil
+     apply) against its device time; (b) the config5 and config10 goldens
+     in fp64, and a Taylor-Hood residual on an interleaved velocity
+     (IndexDofMap) twice bit-equal and equal to the lexicographic one; (c)
+     Cahouet-Chabard instationary Stokes at 256^2 in fp64, at most 80 GMRES
+     iterations a step; (d) the Newton lid-driven cavity at 64^2 and
+     DGNavierStokes at 8^2 (block-Jacobi GMRES), fp64.
 
-Launch counts are set to 0 before each of phases 3 to 9 and read after
+Launch counts are set to 0 before each of phases 3 to 10 and read after
 it; a kernel of that path that was never launched fails the run (the
 comparison launches of phases 6a, 6c, 7a, 9a and 9c are not counted).
 Prints phase results and times, the card's name and power limit, one JSON
-line {"kernels": [...]} with each kernel's launches over phases 3-9,
+line {"kernels": [...]} with each kernel's launches over phases 3-10,
 error, times and bound, and as its last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -154,6 +170,29 @@ NL_CELLS = 128         # phase 9c: -lap u + u^3 = f, 3D Q1
 NL_L2_MAX = 4.2e-5     # phase 9c: L2 error of the Newton solution (2.09e-5 measured)
 NL_NEWTON = 4          # phase 9c: Newton iterations (quadratic from the first step)
 NL_SMALL = 63          # phase 9c: nonlinear direct ELL against probing
+STOKES_CELLS = (32, 64)   # phase 10a: 3D Taylor-Hood, N = 859,812 / 6,714,692
+STOKES_PLATEAU = 12       # phase 10a: its[64^3] <= its[32^3] + 12 (tests/test_stokes3d.py:116)
+# phase 10a: the fp64 true relative residual of the fp32 solve at 32^3; it is
+# fp32's floor and grows as h^-2 (2.40e-6, 7.16e-6 at 8^3, 16^3 on the CPU,
+# 2.755e-5, 1.100e-4 at 32^3, 64^3 on an H100, PERF.md), so a size n^3 is held
+# to STOKES_TRUE_REL * max(1, (n / 32)^2); the fp64 solve at the largest size
+# to STOKES_TRUE_REL64
+STOKES_TRUE_REL = 1e-4
+STOKES_TRUE_REL64 = 1e-5
+# phase 10a: fp32's recomputed preconditioned defect reduction (GMRES to 1e-6;
+# 1.490e-6 / 1.914e-6 measured at 32^3 / 64^3 on an H100, PERF.md)
+STOKES_PREC_RED32 = 3e-6
+JAX_CONFIG5_ITS = 32      # phase 10b: config5 on the JAX package today (the golden's 42
+#                           predates its mass Chebyshev: mass_cheby=0 reproduces it)
+CC_CELLS = 256            # phase 10c: Cahouet-Chabard instationary Stokes, 2D, fp64
+CC_ITS_MAX = 80           # phase 10c: GMRES iterations per step (tests/test_stokes3d.py:185)
+CC_L2_MAX = 5e-4          # phase 10c: velocity L2 error at T (tests/test_stokes3d.py:184)
+CAVITY_CELLS = 64         # phase 10d: Newton lid-driven cavity, StokesGMGSchur GMRES
+DGNS_CELLS = 32           # phase 10d: DGNavierStokes Q2dg/Q1dg, N = 22,528
+DGNS_APPLY_REL = 1e-12    # phase 10d: card against CPU residual and J.v (fp64, of max|y|)
+DGNS_GMRES_ITS = 50       # phase 10d: block-Jacobi GMRES iterations, card and CPU
+DGNS_GMRES_GAP = 1e-8     # phase 10d: relative gap of the card's and the CPU's reductions
+CARD = "card not read yet"   # nvidia-smi name and power limit, set by main()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 
@@ -1687,20 +1726,12 @@ def gmg_solve(torch, pt, cells, dev, instrument=False):
         (_, st2), wall2 = timed(torch, lambda: ls.solve(go, x0, b, 1e-8))
         for g in ops:
             del g.jacobian_apply
-        reps = 5
-        _, apply_wall = timed(torch, lambda: [go.jacobian_apply(x0, b) for _ in range(reps)])
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                go.jacobian_apply(x0, b)
-            torch.cuda.synchronize()
-        dev_ms = sum(getattr(e, "self_device_time_total", 0.0)
-                     for e in prof.key_averages()) / 1e3 / reps
+        w_ms, dev_ms, all_ms = device_ms(torch, lambda: go.jacobian_apply(x0, b), 5)
         log(f"[phase 8a] {cells}^3 instrumented solve {wall2:.4f} s ({st2.iterations} "
             f"iterations): {spent['n']} jacobian_apply calls {spent['s']:.4f} s = "
             f"{100 * spent['s'] / wall2:.1f}% of it; one fine jacobian_apply "
-            f"{1e3 * apply_wall / reps:.3f} ms wall, {dev_ms:.3f} ms device time "
-            f"(torch.profiler)")
+            f"{w_ms:.3f} ms wall, {dev_ms:.3f} ms device time (torch.profiler kernel "
+            f"rows; all rows {all_ms:.3f}, which counts each kernel twice)")
         if st2.iterations != st.iterations:
             raise AssertionError("the instrumented solve took other iterations")
     del z, b, ls, gmg, go, V
@@ -2028,6 +2059,493 @@ def phase_newton(torch, pt, dev):
     newton_config4(torch, pt, dev)
     newton_nonlinear(torch, pt, dev)
 
+# -- phase 10: composite spaces and Taylor-Hood (Navier-)Stokes ---------------
+def _a4(x):
+    return x**2 * (1 - x) ** 2
+
+
+def _da4(x):
+    return 2 * x * (1 - x) * (1 - 2 * x)
+
+
+def _dda4(x):
+    return 12 * x**2 - 12 * x + 2
+
+
+def _ddda4(x):
+    return 24 * x - 12
+
+
+def stokes_params(base, f, mu=1.0, rho=0.0):
+    """A NavierStokesParameters of `base` class with body force f(x)."""
+    class P(base):
+        pass
+    P.f = lambda self, x: f(x)
+    return P(mu=mu, rho=rho)
+
+
+def stokes_f3d(x):
+    """tests/test_stokes3d.py _f_stokes: -lap u + grad p of the div-free
+    u = curl(0, 0, a(x) a(y) a(z)), p = x^3 + y^3 + z^3 - 3/4 (mu = 1)."""
+    import torch
+    xx, yy, zz = x[..., 0], x[..., 1], x[..., 2]
+    lap1 = (_dda4(xx) * _da4(yy) * _a4(zz) + _a4(xx) * _ddda4(yy) * _a4(zz)
+            + _a4(xx) * _da4(yy) * _dda4(zz))
+    lap2 = -(_ddda4(xx) * _a4(yy) * _a4(zz) + _da4(xx) * _dda4(yy) * _a4(zz)
+             + _da4(xx) * _a4(yy) * _dda4(zz))
+    return torch.stack([-lap1 + 3 * xx**2, -lap2 + 3 * yy**2, 3 * zz**2], dim=-1)
+
+
+def stokes_u3d(p):
+    import torch
+    x, y, z = p[:, 0], p[:, 1], p[:, 2]
+    return torch.stack([_a4(x) * _da4(y) * _a4(z), -_da4(x) * _a4(y) * _a4(z),
+                        torch.zeros_like(x)], dim=-1)
+
+
+def stokes_f2d(x):
+    """tests/test_stokes.py ManufacturedStokes.f (mu = 1)."""
+    import torch
+    xx, yy = x[..., 0], x[..., 1]
+    f1 = -(_dda4(xx) * _da4(yy) + _a4(xx) * _ddda4(yy)) + 3 * xx**2
+    f2 = (_ddda4(xx) * _a4(yy) + _da4(xx) * _dda4(yy)) + 3 * yy**2
+    return torch.stack([f1, f2], dim=-1)
+
+
+def stokes_u2d(p):
+    import torch
+    x, y = p[:, 0], p[:, 1]
+    return torch.stack([_a4(x) * _da4(y), -_da4(x) * _a4(y)], dim=-1)
+
+
+def velocity_l2(W, x, exact):
+    """L2 error of the velocity components of a Taylor-Hood vector."""
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    V = W.children[0]
+    err2 = 0.0
+    for c in range(V.k):
+        err2 += float(l2_difference(V.child, V.restrict(W.restrict(x, 0), c),
+                                    lambda p, c=c: exact(p)[:, c])) ** 2
+    return math.sqrt(err2)
+
+
+def synced_timer(torch, spent, key, f):
+    """f wrapped so that each call adds its wall time between two device
+    syncs to spent[key] = [seconds, calls]."""
+    def call(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = f(*a, **k)
+        torch.cuda.synchronize()
+        spent[key][0] += time.perf_counter() - t0
+        spent[key][1] += 1
+        return out
+    return call
+
+
+def device_ms(torch, fn, reps):
+    """(wall ms, device ms, all-rows ms) per call of fn(): wall from synced
+    timers; device time summed over torch.profiler's CUDA kernel rows
+    only; all-rows: the sum over every row of key_averages() (the CPU
+    operator rows repeat their kernels' device time)."""
+    from torch.autograd import DeviceType
+
+    _, wall = timed(torch, lambda: [fn() for _ in range(reps)])
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    kern = sum(e.self_device_time_total for e in rows if e.device_type == DeviceType.CUDA)
+    every = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
+    return 1e3 * wall / reps, kern / 1e3 / reps, every / 1e3 / reps
+
+
+def stokes3d(torch, pt, cells, dev, instrument=False, dtype=None):
+    """Phase 10a at cells^3: the 3D Taylor-Hood problem of
+    tests/test_stokes3d.py:71-103 (unpinned pressure, triangular
+    StokesGMGSchur, GMRES(100)) in fp32 (or `dtype`) to a reduction of 1e-6. With
+    `instrument`, the solve again with the Taylor-Hood jacobian_apply,
+    the velocity V-cycles and the pressure-mass Chebyshev timed between
+    device syncs, and one apply of each against its device time.
+    Returns (iterations, velocity L2 error)."""
+    from dune_pdelab_tpu_torch.ops import NavierStokesParameters, TaylorHoodNavierStokes
+    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
+    from dune_pdelab_tpu_torch.solvers.stokes import (
+        StokesGMGSchur, stokes_constraints, taylor_hood_space,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def build():
+        W = taylor_hood_space(pt.StructuredMesh([0.0] * 3, [1.0] * 3, (cells,) * 3), 2)
+        go = pt.GridOperator(W, TaylorHoodNavierStokes(
+            stokes_params(NavierStokesParameters, stokes_f3d)),
+            constraints=stokes_constraints(W, pin_pressure=False, device=dev))
+        return W, go, StokesGMGSchur(W, mu=1.0, triangular=True, device=dev)
+
+    (W, go, pre), setup_s = timed(torch, build)
+    if pre._vgmg is None:
+        raise AssertionError("phase 10a: StokesGMGSchur fell back to diagonal Jacobi")
+    ls = LinearSolverBackend(solver="gmres", precond=pre, restart=100, maxiter=2000)
+    slp = pt.StationaryLinearProblemSolver(go, ls, reduction=1e-6, verbose=0)
+    dtype = dtype or torch.float32
+    x0 = W.zero(dtype, dev)
+    x, wall = timed(torch, lambda: slp.apply(x0))
+    its = slp.result.linear_solver_iterations
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    x64 = x.double()
+    red = float(ls.stats_history[-1].reduction)
+    true_rel = float(torch.linalg.norm(go.residual(x64))
+                     / torch.linalg.norm(go.residual(torch.zeros_like(x64))))
+    l2 = velocity_l2(W, x64, stokes_u3d)
+    prec = str(dtype).replace("torch.float", "fp")
+    log(f"[phase 10a] ({CARD}) 3D Taylor-Hood Q2/Q1 {cells}^3 cells (N = {W.ndofs}, "
+        f"{pre._vgmg.nlevels} velocity levels) {prec}, StokesGMGSchur GMRES(100) to 1e-6: "
+        f"{its} iterations in {wall:.3f} s = {1e3 * wall / max(its, 1):.2f} ms/iteration, "
+        f"converged {slp.result.converged} (recomputed preconditioned defect reduction "
+        f"{red:.3e}); setup {setup_s:.2f} s; true rel residual "
+        f"{true_rel:.3e} (fp64); velocity L2 error {l2:.6e}; peak memory {peak:.2f} GiB")
+    # fp64: GMRES's own flag. fp32: the flag compares the recomputed
+    # preconditioned defect with 1e-6 and reads False (the recurrence
+    # reached 1e-6, the recomputed defect ends above it), so that
+    # recomputed reduction is held to STOKES_PREC_RED32 instead
+    if dtype == torch.float64:
+        ok, bound_rel = slp.result.converged, STOKES_TRUE_REL64
+    else:
+        ok, bound_rel = red <= STOKES_PREC_RED32, STOKES_TRUE_REL * max(1.0, (cells / 32) ** 2)
+    if not (ok and true_rel <= bound_rel and math.isfinite(l2)):
+        raise AssertionError(f"phase 10a at {cells}^3 {prec} failed: {its} iterations, "
+                             f"true rel {true_rel:.3e} (bound {bound_rel:.1e})")
+    if instrument:
+        spent = {"jacobian_apply": [0.0, 0], "V-cycles": [0.0, 0], "mass Chebyshev": [0.0, 0]}
+        go.jacobian_apply = synced_timer(torch, spent, "jacobian_apply", go.jacobian_apply)
+        pre._vgmg.apply = synced_timer(torch, spent, "V-cycles", pre._vgmg.apply)
+        pre._mass_solve = synced_timer(torch, spent, "mass Chebyshev", pre._mass_solve)
+        try:
+            _, wall2 = timed(torch, lambda: slp.apply(x0))
+        finally:
+            del go.jacobian_apply, pre._vgmg.apply, pre._mass_solve
+        if slp.result.linear_solver_iterations != its:
+            raise AssertionError("phase 10a: the instrumented solve took other iterations")
+        rest = wall2 - sum(v[0] for v in spent.values())
+        log(f"[phase 10a] ({CARD}) {cells}^3 instrumented solve {wall2:.3f} s: "
+            + ", ".join(f"{k} {v[0]:.3f} s ({v[1]} calls, {100 * v[0] / wall2:.1f}%)"
+                        for k, v in spent.items())
+            + f", the rest (GMRES, residual) {rest:.3f} s ({100 * rest / wall2:.1f}%)")
+        gen = torch.Generator(device=dev).manual_seed(10)
+        z = torch.randn(W.ndofs, generator=gen, device=dev)
+        rb = torch.randn((3, pre.nv), generator=gen, device=dev)
+        st = pre._vgmg.stencils[0]
+        for name, fn in (("Taylor-Hood jacobian_apply", lambda: go.jacobian_apply(x0, z)),
+                         ("velocity V-cycle (3 components)", lambda: pre._vgmg.apply(rb)),
+                         (f"Q2 stencil apply {st.dims} (3 components)", lambda: st(rb)),
+                         ("pressure-mass Chebyshev", lambda: pre._mass_solve(z[pre.pidx]))):
+            w_ms, d_ms, all_ms = device_ms(torch, fn, 5)
+            log(f"[phase 10a] ({CARD}) {cells}^3 one {name}: {w_ms:.3f} ms wall, "
+                f"{d_ms:.3f} ms device time (torch.profiler kernel rows; all rows "
+                f"{all_ms:.3f})")
+    del x, x64, x0, slp, ls, pre, go, W
+    torch.cuda.empty_cache()
+    return its, l2
+
+
+def stokes_at_scale(torch, pt, dev):
+    """Phase 10a: both sizes in fp32, the plateau and the L2 checks, and
+    the largest size again in fp64 (its answer past fp32's floor)."""
+    res = {n: stokes3d(torch, pt, n, dev, instrument=n == STOKES_CELLS[-1])
+           for n in STOKES_CELLS}
+    (its0, l20), (its1, l21) = res[STOKES_CELLS[0]], res[STOKES_CELLS[-1]]
+    its64, l264 = stokes3d(torch, pt, STOKES_CELLS[-1], dev, dtype=torch.float64)
+    log(f"[phase 10a] ({CARD}) iterations {its0} / {its1} (fp64: {its64}), velocity L2 "
+        f"{l20:.3e} / {l21:.3e} (fp64: {l264:.3e}) at {STOKES_CELLS[0]}^3 / "
+        f"{STOKES_CELLS[-1]}^3")
+    if not (its1 <= its0 + STOKES_PLATEAU and l21 < l20 and l264 < l20):
+        raise AssertionError(f"phase 10a: no plateau or no L2 decrease: {res}")
+
+
+def config5_run(torch, pt, dev, mass_cheby):
+    """models/configs.py config5_stokes_taylor_hood on the port, fp64."""
+    from dune_pdelab_tpu_torch.ops import NavierStokesParameters, TaylorHoodNavierStokes
+    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
+    from dune_pdelab_tpu_torch.solvers.stokes import (
+        StokesGMGSchur, stokes_constraints, taylor_hood_space,
+    )
+
+    W = taylor_hood_space(pt.StructuredMesh([0.0, 0.0], [1.0, 1.0], (8, 8)), 2)
+    go = pt.GridOperator(W, TaylorHoodNavierStokes(
+        stokes_params(NavierStokesParameters, stokes_f2d)),
+        constraints=stokes_constraints(W, device=dev))
+    ls = LinearSolverBackend(solver="gmres", restart=100, maxiter=20000,
+                             precond=StokesGMGSchur(W, mu=1.0, mass_cheby=mass_cheby,
+                                                    device=dev))
+    slp = pt.StationaryLinearProblemSolver(go, ls, reduction=1e-9, verbose=0)
+    x = slp.apply(W.zero(torch.float64, dev))
+    return (slp.result.converged, slp.result.linear_solver_iterations, W.ndofs,
+            velocity_l2(W, x, stokes_u2d))
+
+
+def config10_run(torch, pt, dev):
+    """models/configs.py config10_stokes_outflow on the port, fp64."""
+    from dune_pdelab_tpu_torch.ops import (
+        NavierStokesParameters, StokesBC, TaylorHoodNavierStokes,
+    )
+    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
+    from dune_pdelab_tpu_torch.solvers.stokes import StokesBlockJacobi, taylor_hood_space
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    MU, L, P0 = 0.7, 2.0, 1.3
+
+    def u_exact(p):
+        return torch.stack([p[:, 1] * (1 - p[:, 1]), torch.zeros_like(p[:, 0])], dim=-1)
+
+    class Poiseuille(NavierStokesParameters):
+        def g(self, x):
+            return torch.stack([x[..., 1] * (1 - x[..., 1]), torch.zeros_like(x[..., 0])],
+                               dim=-1)
+
+        def bctype(self, x):
+            on_wall = (x[..., 1] < 1e-10) | (x[..., 1] > 1 - 1e-10)
+            return torch.where(on_wall, StokesBC.VELOCITY_DIRICHLET,
+                               torch.where(x[..., 0] > L - 1e-10, StokesBC.STRESS_NEUMANN,
+                                           StokesBC.VELOCITY_DIRICHLET))
+
+        def j(self, x, normal):
+            return P0 * normal
+
+    prm = Poiseuille(mu=MU, rho=0.0)
+    W = taylor_hood_space(pt.StructuredMesh([0.0, 0.0], [L, 1.0], (12, 6)), degree=2)
+    cgm = pt.constraints((prm.velocity_bctype(), None), W, device=dev)
+    go = pt.GridOperator(W, TaylorHoodNavierStokes(prm), constraints=cgm)
+    ls = LinearSolverBackend(solver="gmres", precond=StokesBlockJacobi(W, MU, device=dev),
+                             restart=150, maxiter=40000)
+    slp = pt.StationaryLinearProblemSolver(go, ls, reduction=1e-11, verbose=0)
+    xg = W.interpolate((u_exact, lambda p: torch.zeros(len(p), dtype=torch.float64)),
+                       dtype=torch.float64, device=dev)
+    x = slp.apply(torch.where(cgm.mask, xg, 0.0))
+    l2_p = float(l2_difference(W.children[1], W.restrict(x, 1),
+                               lambda p: 2 * MU * (L - p[:, 0]) + P0))
+    return (slp.result.converged, slp.result.linear_solver_iterations, W.ndofs,
+            velocity_l2(W, x, u_exact), l2_p)
+
+
+def interleaved_residual(torch, pt, dev):
+    """Two residuals of Taylor-Hood on an interleaved velocity (IndexDofMap
+    scatter through the transpose map) at 32^3, fp32: bit-equal, and equal
+    to the lexicographic layout's up to fp32 rounding."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.assembly.dofmaps import IndexDofMap
+    from dune_pdelab_tpu_torch.ops import NavierStokesParameters, TaylorHoodNavierStokes
+
+    mesh = pt.StructuredMesh([0.0] * 3, [1.0] * 3, (32,) * 3)
+    Vv, Vp = pt.FunctionSpace(mesh, pt.QkFEM(2, 3)), pt.FunctionSpace(mesh, pt.QkFEM(1, 3))
+    lop = TaylorHoodNavierStokes(stokes_params(NavierStokesParameters, stokes_f3d))
+    gos = {}
+    for ordering in ("interleaved", "lexicographic"):
+        W = pt.CompositeSpace(pt.PowerSpace(Vv, 3, ordering=ordering), Vp)
+        gos[ordering] = pt.GridOperator(W, lop, constraints=pt.constraints(
+            (True, None), W, device=dev))
+    go = gos["interleaved"]
+    if not all(isinstance(dm, IndexDofMap) for dm in go.dof_maps[:3]):
+        raise AssertionError("interleaved velocity leaves did not take IndexDofMap")
+    n, nv = go.space.ndofs, Vv.ndofs
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(n, generator=gen, device=dev)
+    r1, r2 = go.residual(x), go.residual(x)
+    if not torch.equal(r1, r2):
+        raise AssertionError("interleaved residual differs between two calls")
+    # the lexicographic index of every interleaved DOF
+    i = np.arange(3 * nv)
+    lex = np.concatenate([(i % 3) * nv + i // 3, np.arange(3 * nv, n)])
+    perm = torch.as_tensor(lex, device=dev)
+    xl = torch.empty_like(x)
+    xl[perm] = x
+    rl = gos["lexicographic"].residual(xl)
+    err = float((rl[perm] - r1).abs().max() / rl.abs().max())
+    log(f"[phase 10b] ({CARD}) Taylor-Hood residual on an interleaved velocity at 32^3 "
+        f"fp32 (N = {n}): two calls bit-equal; against the lexicographic layout "
+        f"{err:.2e} of max|r|")
+    if not err <= 1e-5:
+        raise AssertionError("interleaved and lexicographic residuals disagree")
+
+
+def stokes_goldens(torch, pt, dev):
+    """Phase 10b: config5 and config10 in fp64 on the card, and the
+    interleaved residual's repeatability."""
+    gold = json.loads((ROOT / "tests" / "golden_parity.json").read_text())
+    c5, c10 = gold["config5_stokes_taylor_hood"], gold["config10_stokes_outflow"]
+    for mass_cheby, want_its in ((4, JAX_CONFIG5_ITS), (0, c5["iterations"])):
+        (conv, its, n, l2), wall = timed(torch, lambda: config5_run(torch, pt, dev, mass_cheby))
+        rel = abs(l2 - c5["velocity_l2_error"]) / c5["velocity_l2_error"]
+        log(f"[phase 10b] ({CARD}) config5 fp64 (ndofs {n}), mass_cheby={mass_cheby}: {its} "
+            f"GMRES iterations (want {want_its}), velocity L2 {l2:.16e} (golden rel "
+            f"{rel:.2e}), {wall:.2f} s")
+        if not (conv and its == want_its and n == c5["ndofs"] and rel <= 1e-8):
+            raise AssertionError("config5 golden mismatch")
+    (conv, its, n, l2v, l2p), wall = timed(torch, lambda: config10_run(torch, pt, dev))
+    log(f"[phase 10b] ({CARD}) config10 fp64 (ndofs {n}): {its} GMRES iterations (golden "
+        f"{c10['iterations']}), l2_v {l2v:.3e}, l2_p {l2p:.3e} (golden {c10['l2_v_error']:.3e}"
+        f", {c10['l2_p_error']:.3e}), {wall:.2f} s")
+    if not (conv and its == c10["iterations"] and n == c10["ndofs"]
+            and abs(l2v - c10["l2_v_error"]) <= 1e-9 and abs(l2p - c10["l2_p_error"]) <= 1e-9):
+        raise AssertionError("config10 golden mismatch")
+    interleaved_residual(torch, pt, dev)
+
+
+def cahouet_chabard(torch, pt, dev):
+    """Phase 10c: the instationary Stokes problem of tests/test_stokes3d.py
+    (_run_cc: u = e^-t u0, implicit Euler, dt 0.02 to T 0.1,
+    CahouetChabardSchur GMRES(150) to 1e-9) at CC_CELLS^2 cells, fp64."""
+    from dune_pdelab_tpu_torch import instationary as inst
+    from dune_pdelab_tpu_torch.ops import (
+        NavierStokesMass, NavierStokesParameters, TaylorHoodNavierStokes,
+    )
+    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
+    from dune_pdelab_tpu_torch.solvers.stokes import (
+        CahouetChabardSchur, stokes_constraints, taylor_hood_space,
+    )
+
+    class Decaying(NavierStokesParameters):
+        def f(self, x):
+            xx, yy = x[..., 0], x[..., 1]
+            u1, u2 = _a4(xx) * _da4(yy), -_da4(xx) * _a4(yy)
+            fs = stokes_f2d(x)
+            return math.exp(-self.time) * torch.stack([fs[..., 0] - u1, fs[..., 1] - u2],
+                                                      dim=-1)
+
+    def build():
+        W = taylor_hood_space(pt.StructuredMesh([0.0, 0.0], [1.0, 1.0],
+                                                (CC_CELLS, CC_CELLS)), 2)
+        cgm = stokes_constraints(W, bctype=True, pin_pressure=True, device=dev)
+        prm = Decaying(mu=1.0, rho=1.0)
+        go_s = pt.GridOperator(W, TaylorHoodNavierStokes(prm), constraints=cgm)
+        go_t = pt.GridOperator(W, NavierStokesMass(rho=1.0), constraints=cgm)
+        ls = LinearSolverBackend(solver="gmres", restart=150, maxiter=20000,
+                                 precond=CahouetChabardSchur(W, mu=1.0, rho=1.0, device=dev))
+        osm = inst.OneStepMethod(inst.one_step_theta(1.0), go_s, go_t, ls,
+                                 pdesolver="linear", reduction=1e-9)
+        return W, osm
+
+    (W, osm), setup_s = timed(torch, build)
+    x = W.interpolate((stokes_u2d, lambda p: p[:, 0] ** 3 + p[:, 1] ** 3 - 0.5),
+                      dtype=torch.float64, device=dev)
+    t, per_step, walls = 0.0, [], []
+    while t < 0.1 - 1e-12:
+        before = osm.result.total_linear_iterations
+        x, w = timed(torch, lambda: osm.apply(t, 0.02, x))
+        t += 0.02
+        per_step.append(osm.result.total_linear_iterations - before)
+        walls.append(w)
+    l2 = velocity_l2(W, x, lambda p: math.exp(-t) * stokes_u2d(p))
+    log(f"[phase 10c] ({CARD}) Cahouet-Chabard Stokes 2D Q2/Q1 {CC_CELLS}^2 cells (N = "
+        f"{W.ndofs}) fp64, implicit Euler dt 0.02 to T = {t:.2f}: GMRES iterations per step "
+        f"{per_step}, s per step {', '.join(f'{w:.2f}' for w in walls)} (first includes the "
+        f"stage GMG build), setup {setup_s:.2f} s; velocity L2 error at T {l2:.6e}")
+    if not (max(per_step) <= CC_ITS_MAX and l2 < CC_L2_MAX):
+        raise AssertionError(f"phase 10c failed: iterations {per_step}, L2 {l2:.3e}")
+
+
+def cavity_newton(torch, pt, dev):
+    """Phase 10d (1): the Newton lid-driven cavity of tests/test_stokes.py:
+    118-148 (mu 0.01, rho 1, regularized lid) at CAVITY_CELLS^2, fp64. The
+    linear solver is StokesGMGSchur GMRES(150): the test's StokesBlockJacobi
+    takes 46,495 GMRES iterations at 16^2 already (CPU, PERF.md)."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.ops import NavierStokesParameters, TaylorHoodNavierStokes
+    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend, NewtonMethod
+    from dune_pdelab_tpu_torch.solvers.stokes import (
+        StokesGMGSchur, stokes_constraints, taylor_hood_space,
+    )
+
+    W = taylor_hood_space(pt.StructuredMesh([0.0, 0.0], [1.0, 1.0],
+                                            (CAVITY_CELLS, CAVITY_CELLS)), 2)
+    go = pt.GridOperator(W, TaylorHoodNavierStokes(NavierStokesParameters(mu=0.01, rho=1.0)),
+                         constraints=stokes_constraints(W, device=dev))
+    ls = LinearSolverBackend(solver="gmres", restart=150, maxiter=30000,
+                             precond=StokesGMGSchur(W, mu=0.01, device=dev))
+    newton = NewtonMethod(go, ls, reduction=1e-8, verbose=0, min_linear_reduction=1e-4)
+    coords = W.children[0].child.dof_coords()
+    lid = np.isclose(coords[:, 1], 1.0)
+    ux = torch.as_tensor(np.where(lid, 4 * coords[:, 0] * (1 - coords[:, 0]), 0.0),
+                         device=dev)
+    x0 = W.zero(torch.float64, dev)
+    x0 = W.embed(x0, 0, W.children[0].embed(W.restrict(x0, 0), 0, ux))
+    x, wall = timed(torch, lambda: newton.apply(x0))
+    res = newton.result
+    vmax = float(W.children[0].restrict(W.restrict(x, 0), 0).abs().max())
+    log(f"[phase 10d] ({CARD}) Newton lid-driven cavity Re 100, Q2/Q1 {CAVITY_CELLS}^2 "
+        f"(N = {W.ndofs}) fp64: {res.iterations} Newton iterations, "
+        f"{res.linear_solver_iterations} GMRES iterations, {wall:.2f} s, converged "
+        f"{res.converged}, defect {res.defect:.3e} from {res.first_defect:.3e}, max |u_x| "
+        f"{vmax:.4f}")
+    if not (res.converged and 0.0 < vmax <= 1.01):
+        raise AssertionError("phase 10d: the cavity Newton solve failed")
+
+
+def dg_navier_stokes(torch, pt, dev):
+    """Phase 10d (2): DGNavierStokes of tests/test_dgstokes.py:20-43 (Q2dg/Q1dg,
+    one pinned pressure DOF) at DGNS_CELLS^2, fp64. The residual and J.v at
+    a seeded x on the card against the same operator on the CPU; then
+    DGNS_GMRES_ITS iterations of block-Jacobi GMRES (one cycle, from zero)
+    on the card and on the CPU, whose reductions must agree: a converged
+    solve takes block-Jacobi GMRES thousands of iterations at this size,
+    each one general-jvp DG apply."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.ops import DGNavierStokes, NavierStokesParameters
+    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
+
+    mesh = pt.StructuredMesh([0.0, 0.0], [1.0, 1.0], (DGNS_CELLS, DGNS_CELLS))
+    Vv = pt.FunctionSpace(mesh, pt.QkDGFEM(2, 2))
+    W = pt.CompositeSpace(pt.PowerSpace(Vv, 2), pt.FunctionSpace(mesh, pt.QkDGFEM(1, 2)))
+    mask = np.zeros(W.ndofs, dtype=bool)
+    mask[int(W.child_global(1, np.array([0]))[0])] = True
+    go = pt.GridOperator(W, DGNavierStokes(stokes_params(NavierStokesParameters, stokes_f2d)),
+                         constraints=pt.DirichletConstraints(mask, device=dev))
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(12)
+    x_np, z_np = rng.standard_normal(W.ndofs), rng.standard_normal(W.ndofs)
+    errs = {}
+    for name, fn in (("residual", lambda x, z: go.residual(x)),
+                     ("J.v", lambda x, z: go.jacobian_apply(x, z))):
+        card = fn(torch.as_tensor(x_np, device=dev), torch.as_tensor(z_np, device=dev)).cpu()
+        host = fn(torch.from_numpy(x_np), torch.from_numpy(z_np))
+        errs[name] = float((card - host).abs().max() / host.abs().max())
+    runs = {}
+    for where in (dev, cpu):
+        ls = LinearSolverBackend(solver="gmres", precond="block_jacobi",
+                                 restart=DGNS_GMRES_ITS, maxiter=DGNS_GMRES_ITS)
+        x0 = W.zero(torch.float64, where)
+        b = go.residual(x0)
+        (z, st), wall = timed(torch, lambda: ls.solve(go, x0, b, 1e-9))
+        true = float(torch.linalg.norm(go.residual(x0 - z)) / torch.linalg.norm(b))
+        runs[where.type] = (int(st.iterations), float(st.reduction), true, wall)
+    (its, red, true, wall), (its_c, red_c, true_c, wall_c) = runs[dev.type], runs["cpu"]
+    gap = max(abs(red - red_c) / red_c, abs(true - true_c) / true_c)
+    log(f"[phase 10d] ({CARD}) DGNavierStokes Q2dg/Q1dg {DGNS_CELLS}^2 (N = {W.ndofs}) fp64: "
+        f"card against CPU residual {errs['residual']:.2e}, J.v {errs['J.v']:.2e} of max|y|; "
+        f"block-Jacobi GMRES, {its} iterations from zero: preconditioned reduction "
+        f"{red:.6e} (CPU {red_c:.6e}), true reduction {true:.6e} (CPU {true_c:.6e}), "
+        f"relative gap {gap:.2e}; {wall:.2f} s on the card = "
+        f"{1e3 * wall / max(its, 1):.1f} ms/iteration (CPU {wall_c:.2f} s)")
+    if not (max(errs.values()) <= DGNS_APPLY_REL and its == its_c == DGNS_GMRES_ITS
+            and red < 1.0 and true < 1.0 and gap <= DGNS_GMRES_GAP):
+        raise AssertionError("phase 10d: the DG Stokes operator or GMRES disagrees with the CPU")
+
+
+def phase_stokes(torch, pt, dev):
+    """Phase 10: composite spaces and Taylor-Hood (Navier-)Stokes. No hand
+    kernel: the Q2 velocity V-cycles run the plain k > 1 stencil form, the
+    Taylor-Hood, pressure-mass and pressure-Laplacian applies the general
+    torch.func.jvp."""
+    stokes_at_scale(torch, pt, dev)
+    stokes_goldens(torch, pt, dev)
+    cahouet_chabard(torch, pt, dev)
+    cavity_newton(torch, pt, dev)
+    dg_navier_stokes(torch, pt, dev)
+
 
 def main():
     if not (ROOT / "dune_pdelab_tpu_torch" / "csrc").is_dir():
@@ -2049,7 +2567,8 @@ def main():
     from dune_pdelab_tpu_torch.kernels import structured_fused as sfk
 
     dev = torch.device("cuda")
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
@@ -2089,6 +2608,7 @@ def main():
          ("blockstencil_em",)),
         ("phase 9 (Newton, time stepping)", lambda: phase_newton(torch, pt, dev),
          ("ell27",)),
+        ("phase 10 (composite spaces, Stokes)", lambda: phase_stokes(torch, pt, dev), ()),
     ]
     totals = dict.fromkeys(counters, 0)
     for name, run, needed in paths:
@@ -2103,7 +2623,7 @@ def main():
             raise AssertionError(f"{name} never launched {missing}: {counts}")
         for k in totals:
             totals[k] += counts[k]
-    log(f"launch counts over phases 3-9: {totals}")
+    log(f"launch counts over phases 3-10: {totals}")
 
     meta = {
         "stencil27": ("dune_pdelab_tpu_torch/csrc/stencil27.cu",

@@ -16,8 +16,11 @@ the Krylov solvers and their backends), the DG path (QkDGFEM, boundary
 and skeleton face groups, SIPG/NIPG/IIPG, the block stencil in mode-major
 and element-major layouts, block preconditioners, DGTwoLevel), geometric
 multigrid on re-discretised levels (GeometricMultigrid, multicolor SSOR),
-Newton (NewtonMethod) and one-step time stepping (instationary/). See
-ROADMAP.md for what remains.
+Newton (NewtonMethod) and one-step time stepping (instationary/),
+composite spaces (CompositeSpace, PowerSpace, PermutedSpace,
+entity_blocked) with multi-leaf assembly, and Taylor-Hood and DG
+(Navier-)Stokes (ops/stokes.py, ops/dgnavierstokes.py) with their block
+preconditioners (solvers/stokes.py). See ROADMAP.md for what remains.
 
 Entry points put their tensors on `default_device()`, the card, unless the
 caller names a device or calls `set_default_device` (the CPU tests do).
@@ -27,7 +30,9 @@ __version__ = "0.1.0"
 
 from dune_pdelab_tpu_torch.mesh import StructuredMesh
 from dune_pdelab_tpu_torch.fe import QkDGFEM, QkFEM, gauss_legendre, quadrature_rule
-from dune_pdelab_tpu_torch.space import FunctionSpace
+from dune_pdelab_tpu_torch.space import (
+    CompositeSpace, FunctionSpace, PermutedSpace, PowerSpace, entity_blocked,
+)
 from dune_pdelab_tpu_torch.constraints import (
     DirichletConstraints, constraints, interpolate_dirichlet,
     set_constrained_dofs, set_nonconstrained_dofs, copy_constrained_dofs,

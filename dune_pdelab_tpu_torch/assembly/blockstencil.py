@@ -98,10 +98,11 @@ class BlockStencilOperator:
 
 
 def _dg_layout_ok(space):
+    if not getattr(space, "is_leaf", False):
+        return False
     fem = space.fem
     mesh = space.mesh
-    return (getattr(space, "is_leaf", False)
-            and fem.continuity == "DG"
+    return (fem.continuity == "DG"
             and mesh.geometry_type == "cube"
             and mesh.uniform
             and not any(mesh.periodic))

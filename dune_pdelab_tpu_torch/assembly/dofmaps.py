@@ -7,7 +7,12 @@ PyTorch port of dune_pdelab_tpu/assembly/dofmaps.py:
     node, so gather and scatter-add are nloc strided slice copies/adds.
   * ReshapeDofMap - DG spaces: element DOFs are contiguous, so the whole
     transfer is one reshape.
-  * IndexDofMap   - fallback: explicit index arrays + gather / index_add.
+  * IndexDofMap   - fallback: explicit index arrays. Gather is one
+    indexing op; scatter-add is one gather through the transpose map
+    (each global DOF's local slots, built once per device) and one sum in
+    a fixed order, so it uses no floating-point atomic and gives the same
+    bits on every run (the reference's `.at[].add` is an atomic add on
+    the card).
 
 All expose gather(x) -> (E, nloc) and scatter_add(r, r_loc) -> r. Face
 groups have their own transfers: SlabFaceTransfer (DG leaves on a
@@ -27,11 +32,20 @@ from dune_pdelab_tpu_torch.utils.common import device_key
 
 
 class IndexDofMap:
-    """General index-array path."""
+    """General index-array path (interleaved or permuted composite leaves,
+    C0 face groups)."""
 
     def __init__(self, element_dofs: np.ndarray):
         self._dofs_np = np.asarray(element_dofs, np.int64)
         self._dofs = {}
+        self._tmaps = {}
+
+    @classmethod
+    def of_tensor(cls, element_dofs: torch.Tensor) -> "IndexDofMap":
+        """The map of an int64 tensor, kept on its device."""
+        m = cls(element_dofs.cpu().numpy())
+        m._dofs[device_key(element_dofs.device)] = element_dofs
+        return m
 
     def _on(self, device):
         key = device_key(device)
@@ -39,12 +53,27 @@ class IndexDofMap:
             self._dofs[key] = torch.as_tensor(self._dofs_np, device=device)
         return self._dofs[key]
 
+    def _transpose(self, n, device):
+        """(n, K) slots of the flattened local array that add into each
+        global DOF, ascending; padding points at one slot past the end
+        (a zero appended at scatter time)."""
+        key = (device_key(device), int(n))
+        if key not in self._tmaps:
+            from dune_pdelab_tpu_torch.linalg.multigrid import transpose_map
+
+            idx = self._on(device).reshape(-1, 1)
+            ridx, rw = transpose_map(idx, torch.ones(idx.shape, dtype=torch.float64,
+                                                     device=idx.device), n)
+            self._tmaps[key] = torch.where(rw != 0, ridx, idx.shape[0])
+        return self._tmaps[key]
+
     def gather(self, x):
         return x[self._on(x.device)]
 
     def scatter_add(self, r, r_loc):
-        idx = self._on(r.device).reshape(-1)
-        return r.index_add(0, idx, r_loc.reshape(-1).to(r.dtype))
+        tmap = self._transpose(r.shape[0], r.device)
+        flat = r_loc.reshape(-1).to(r.dtype)
+        return r + torch.cat([flat, flat.new_zeros(1)])[tmap].sum(dim=1)
 
 
 class ReshapeDofMap:
@@ -122,9 +151,16 @@ def make_leaf_dof_map(leaf, element_dofs: np.ndarray | None, offset=None):
     """
     fem = leaf.fem
     mesh = leaf.mesh
-    if offset is not None and fem.continuity == "DG" and element_dofs is None:
-        # standalone DG leaf: the layout is element-major by construction
-        return ReshapeDofMap(int(offset), mesh.nelements, fem.nbasis)
+    if offset is not None and fem.continuity == "DG":
+        E, nb = mesh.nelements, fem.nbasis
+        if element_dofs is None:
+            # standalone DG leaf: the layout is element-major by construction
+            return ReshapeDofMap(int(offset), E, nb)
+        # a DG leaf inside a composite space: contiguous and element-major
+        expected = (offset + np.arange(E, dtype=np.int64)[:, None] * nb
+                    + np.arange(nb, dtype=np.int64)[None, :])
+        if np.array_equal(np.asarray(element_dofs, np.int64), expected):
+            return ReshapeDofMap(int(offset), E, nb)
     if (offset is not None and fem.continuity == "C0"
             and hasattr(fem, "_mi")
             and getattr(fem, "variant", "equidistant") == "equidistant"

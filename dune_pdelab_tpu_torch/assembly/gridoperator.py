@@ -1,7 +1,7 @@
 """GridOperator: global residual / Jacobian-apply as batched kernels.
 
-PyTorch port of dune_pdelab_tpu/assembly/gridoperator.py for a single-leaf
-space on a uniform non-periodic structured mesh (reference:
+PyTorch port of dune_pdelab_tpu/assembly/gridoperator.py for leaf and
+composite spaces on a uniform non-periodic structured mesh (reference:
 dune/pdelab/gridoperator/gridoperator.hh:35-240 facade,
 gridoperator/default/assembler.hh:84-279 element and intersection sweep):
 
@@ -17,8 +17,8 @@ gridoperator/default/assembler.hh:84-279 element and intersection sweep):
 
 `element_jacobians`, `element_diagonal_blocks`, the assembled `jacobian` (a
 sparse COO tensor) and `jacobian_diagonal` probe the kernels with jvps, as
-the reference does. Mapped-mesh and simplex face groups wait for ROADMAP
-slice 11; composite spaces for slice 9.
+the reference does, in the concatenated local layout of the leaves.
+Mapped-mesh and simplex face groups wait for ROADMAP slice 11.
 
 There is no jit: PyTorch runs eagerly. Context tensors (tabulations,
 factors, quadrature points) are built once per (dtype, device) and cached.
@@ -50,15 +50,30 @@ _KERNELS = ("alpha_volume", "lambda_volume", "alpha_boundary",
 class _FaceGroupData:
     """Static per-group data: faces normal to `axis` whose inside elements
     are the slab [lo, hi) of the element grid along that axis (the outside
-    elements of a skeleton group: the slab shifted by one)."""
-    __slots__ = ("axis", "side", "lo", "hi", "tr_in", "tr_out", "tabs_in",
-                 "tabs_out", "factor", "normal", "h_in", "h_out", "pts",
+    elements of a skeleton group: the slab shifted by one). `trs_in` and
+    `trs_out` hold one face transfer per leaf; `tr_in`/`tr_out` read the
+    first leaf's (on a leaf space, the only one)."""
+    __slots__ = ("axis", "side", "lo", "hi", "trs_in", "trs_out",
+                 "tabs_in", "tabs_out", "factor", "normal", "h_in", "h_out", "pts",
                  "weights")
+
+    @property
+    def tr_in(self):
+        return self.trs_in[0]
+
+    @property
+    def tr_out(self):
+        return None if self.trs_out is None else self.trs_out[0]
+
+
+def _cat_leaf_dofs(maps):
+    """Concatenate per-leaf (B, nloc_i) global-DOF maps -> (B, sum nloc_i)."""
+    return np.concatenate([np.asarray(m, dtype=np.int64) for m in maps], axis=1)
 
 
 class GridOperator:
     """Assembles the residual / Jacobian-apply of a LocalOperator over a
-    single-leaf function space (Galerkin: trial space == test space).
+    leaf or composite function space (Galerkin: trial space == test space).
 
       residual(x)            -> r with constrained rows zeroed
       jacobian_apply(x, z)   -> J(x) z, identity on constrained rows
@@ -69,23 +84,37 @@ class GridOperator:
 
     def __init__(self, space, lop, constraints=None, quad_order=None,
                  face_transfer: str = "auto", skip_boundary: bool = False):
-        if not getattr(space, "is_leaf", False):
-            raise NotImplementedError(
-                "composite spaces are not ported yet (ROADMAP slice 9)")
         if face_transfer not in ("auto", "index"):
             raise ValueError(f"face_transfer={face_transfer!r}")
         self.space = space
         self.lop = lop
         self.cg = constraints
-        self.mesh = space.mesh
+        self.leaves = space.leaves
+        self.mesh = self.leaves[0].mesh
+        if any(lf.mesh is not self.mesh for lf in self.leaves):
+            raise ValueError("all leaves must share one mesh")
+        self.nleaves = len(self.leaves)
         self._face_transfer_mode = face_transfer   # 'auto' | 'index' (debug)
-        self.dof_maps = [make_leaf_dof_map(space, None, offset=0)]
+        self._leaf_maps_cache = None
+        if space.is_leaf:
+            # one leaf at offset 0: the transfer needs no index array
+            self.dof_maps = [make_leaf_dof_map(space, None, offset=0)]
+        else:
+            self.dof_maps = []
+            for lf, m in zip(self.leaves, self._leaf_maps()):
+                own = np.asarray(lf.element_dofs, np.int64)
+                off = int(m.flat[0]) - int(own.flat[0])
+                contiguous = np.array_equal(m, off + own)
+                self.dof_maps.append(make_leaf_dof_map(
+                    lf, m, offset=off if contiguous else None))
+        self.local_sizes = tuple(lf.fem.nbasis for lf in self.leaves)
+        self.nlocal = sum(self.local_sizes)
 
-        degree = space.fem.degree
+        degree = max(lf.fem.degree for lf in self.leaves)
         self.qorder = quad_order if quad_order is not None else lop.quad_order(degree)
         qp, w = quadrature_rule(self.mesh.geometry_type, self.mesh.dim, self.qorder)
         self.vol_geo = VolumeGeometry(self.mesh, qp, w)
-        self._vol_tab = self._make_tab(qp)
+        self._vol_tabs = self._make_tabs(qp)
 
         self.has = {name: hasattr(lop, name) for name in _KERNELS}
         if skip_boundary:
@@ -107,13 +136,34 @@ class GridOperator:
     # ------------------------------------------------------------------
     # setup of face groups (uniform structured mesh)
     # ------------------------------------------------------------------
-    def _make_tab(self, pts_ref):
-        """(values, physical gradients, reference gradients, degree) of the
-        leaf at reference points (uniform geometry: one shared gradient
+    def _make_tabs(self, pts_ref):
+        """Per leaf: (values, physical gradients, reference gradients,
+        degree) at reference points (uniform geometry: one shared gradient
         transform)."""
-        fem = self.space.fem
-        vals, grads = fem.tabulate(pts_ref)
-        return vals, (grads / self.mesh.h)[None], grads, fem.degree
+        out = []
+        for lf in self.leaves:
+            vals, grads = lf.fem.tabulate(pts_ref)
+            out.append((vals, (grads / self.mesh.h)[None], grads, lf.fem.degree))
+        return out
+
+    # ------------------------------------------------------------------
+    # lazy index arrays
+    # ------------------------------------------------------------------
+    def _leaf_maps(self):
+        """Per-leaf (E, nloc) global int64 numpy DOF maps (built on first
+        use; the structured fast paths never touch them)."""
+        if self._leaf_maps_cache is None:
+            if self.space.is_leaf:
+                self._leaf_maps_cache = [np.asarray(self.space.element_dofs, np.int64)]
+            else:
+                self._leaf_maps_cache = [np.asarray(m, np.int64)
+                                         for m in self.space.leaf_element_dofs()]
+        return self._leaf_maps_cache
+
+    @property
+    def elem_gdofs_cat(self):
+        """(E, nlocal) global DOF map of the concatenated local layout."""
+        return _cat_leaf_dofs(self._leaf_maps())
 
     def _face_rule(self):
         return quadrature_rule("cube", self.mesh.dim - 1, self.qorder)
@@ -134,13 +184,18 @@ class GridOperator:
         shift = 1 if outside else 0
         return self._slab_elements(g.axis, g.lo + shift, g.hi + shift)
 
-    def _face_transfer(self, axis, lo, hi):
-        dm = self.dof_maps[0]
-        if isinstance(dm, ReshapeDofMap) and self._face_transfer_mode == "auto":
-            return SlabFaceTransfer(dm.offset, self.mesh.cells, dm.nb, axis,
-                                    lo, hi - self.mesh.cells[axis])
-        return IndexFaceTransfer(
-            self.space.element_dofs[self._slab_elements(axis, lo, hi)])
+    def _face_transfers(self, axis, lo, hi):
+        """Per-leaf face transfers of the slab [lo, hi): slices for a DG
+        (reshape) leaf, index arrays else."""
+        out = []
+        for li, dm in enumerate(self.dof_maps):
+            if isinstance(dm, ReshapeDofMap) and self._face_transfer_mode == "auto":
+                out.append(SlabFaceTransfer(dm.offset, self.mesh.cells, dm.nb, axis,
+                                            lo, hi - self.mesh.cells[axis]))
+            else:
+                out.append(IndexFaceTransfer(
+                    self._leaf_maps()[li][self._slab_elements(axis, lo, hi)]))
+        return out
 
     def _build_boundary_groups(self):
         mesh = self.mesh
@@ -152,11 +207,11 @@ class GridOperator:
                 g = _FaceGroupData()
                 g.axis, g.side = a, s
                 g.lo, g.hi = (0, 1) if s == 0 else (c_a - 1, c_a)
-                g.tr_in = self._face_transfer(a, g.lo, g.hi)
-                g.tr_out = None
+                g.trs_in = self._face_transfers(a, g.lo, g.hi)
+                g.trs_out = None
                 g.pts = embed_face_points(qpf, a, s, mesh.dim)
                 g.weights = wf
-                g.tabs_in = self._make_tab(g.pts)
+                g.tabs_in = self._make_tabs(g.pts)
                 g.tabs_out = None
                 g.factor = fgeo.factor
                 n = np.zeros(mesh.dim)
@@ -177,13 +232,13 @@ class GridOperator:
             g = _FaceGroupData()
             g.axis, g.side = a, None
             g.lo, g.hi = 0, c_a - 1
-            g.tr_in = self._face_transfer(a, 0, c_a - 1)
-            g.tr_out = self._face_transfer(a, 1, c_a)
+            g.trs_in = self._face_transfers(a, 0, c_a - 1)
+            g.trs_out = self._face_transfers(a, 1, c_a)
             g.pts = embed_face_points(qpf, a, 1, mesh.dim)   # upper face of inside
             pts_out = embed_face_points(qpf, a, 0, mesh.dim)  # lower face of outside
             g.weights = wf
-            g.tabs_in = self._make_tab(g.pts)
-            g.tabs_out = self._make_tab(pts_out)
+            g.tabs_in = self._make_tabs(g.pts)
+            g.tabs_out = self._make_tabs(pts_out)
             g.factor = fgeo.factor
             n = np.zeros(mesh.dim)
             n[a] = 1.0                                        # inside -> outside
@@ -204,9 +259,9 @@ class GridOperator:
         return self._ctx_cache[key]
 
     @staticmethod
-    def _leaf_tab(raw, t):
-        phi, gphys, gref, deg = raw
-        return (LeafTab(phi=t(phi), grad=t(gphys), ref_grad=t(gref), degree=deg),)
+    def _leaf_tab(raws, t):
+        return tuple(LeafTab(phi=t(phi), grad=t(gphys), ref_grad=t(gref), degree=deg)
+                     for phi, gphys, gref, deg in raws)
 
     def _volume_ctx(self, time, dtype, device) -> VolumeContext:
         vg = self.vol_geo
@@ -218,7 +273,7 @@ class GridOperator:
             x = (vg.origins_tensor(dtype, device)[:, None, :]
                  + t(vg.qp_phys_offset)[None])
             return dict(weights=t(vg.weights), x=x, factor=t(vg.factor),
-                        tabs=self._leaf_tab(self._vol_tab, t),
+                        tabs=self._leaf_tab(self._vol_tabs, t),
                         jac_inv_T=t(vg.jac_inv_T), cell_volume=t(vg.cell_volume))
         return VolumeContext(time=time, **self._cached(("vol",), build, dtype, device))
 
@@ -260,29 +315,50 @@ class GridOperator:
     # ------------------------------------------------------------------
     # residual
     # ------------------------------------------------------------------
-    def residual_unconstrained(self, x, time=0.0):
-        """Assembled residual WITHOUT the constrained-row zeroing."""
+    def _pack(self, r_loc):
+        """A kernel's output as a per-leaf tuple."""
+        return (r_loc,) if self.nleaves == 1 else tuple(r_loc)
+
+    def _uarg(self, u_leaf):
+        """Per-leaf inputs as a kernel argument: the tensor of a leaf
+        space, a tuple on a composite one."""
+        return u_leaf[0] if self.nleaves == 1 else tuple(u_leaf)
+
+    @staticmethod
+    def _scatter(r, transfers, r_loc):
+        for tr, rl in zip(transfers, r_loc):
+            r = tr.scatter_add(r, rl)
+        return r
+
+    def residual_unconstrained(self, x, time=0.0, lambdas=True):
+        """Assembled residual WITHOUT the constrained-row zeroing.
+        lambdas=False leaves out the lambda_* terms, which do not depend
+        on x (what a Jacobian-vector product differentiates)."""
         lop = self.lop.set_time(time)
-        dm = self.dof_maps[0]
         dtype, device = x.dtype, x.device
         r = torch.zeros_like(x)
         vctx = self._volume_ctx(time, dtype, device)
         if self.has["alpha_volume"]:
-            r = dm.scatter_add(r, lop.alpha_volume(vctx, dm.gather(x)))
-        if self.has["lambda_volume"]:
-            r = dm.scatter_add(r, lop.lambda_volume(vctx))
+            u = self._uarg([dm.gather(x) for dm in self.dof_maps])
+            r = self._scatter(r, self.dof_maps, self._pack(lop.alpha_volume(vctx, u)))
+        if lambdas and self.has["lambda_volume"]:
+            r = self._scatter(r, self.dof_maps, self._pack(lop.lambda_volume(vctx)))
         for g in self.bnd_groups:
+            if not (self.has["alpha_boundary"] or lambdas):
+                continue
             fctx = self._face_ctx(g, time, dtype, device)
             if self.has["alpha_boundary"]:
-                r = g.tr_in.scatter_add(r, lop.alpha_boundary(fctx, g.tr_in.gather(x)))
-            if self.has["lambda_boundary"]:
-                r = g.tr_in.scatter_add(r, lop.lambda_boundary(fctx))
+                u = self._uarg([tr.gather(x) for tr in g.trs_in])
+                r = self._scatter(r, g.trs_in, self._pack(lop.alpha_boundary(fctx, u)))
+            if lambdas and self.has["lambda_boundary"]:
+                r = self._scatter(r, g.trs_in, self._pack(lop.lambda_boundary(fctx)))
         for g in self.skel_groups:
             sctx = self._skel_ctx(g, time, dtype, device)
-            r_in, r_out = lop.alpha_skeleton(sctx, g.tr_in.gather(x),
-                                             g.tr_out.gather(x))
-            r = g.tr_in.scatter_add(r, r_in)
-            r = g.tr_out.scatter_add(r, r_out)
+            r_in, r_out = lop.alpha_skeleton(
+                sctx, self._uarg([tr.gather(x) for tr in g.trs_in]),
+                self._uarg([tr.gather(x) for tr in g.trs_out]))
+            r = self._scatter(r, g.trs_in, self._pack(r_in))
+            r = self._scatter(r, g.trs_out, self._pack(r_out))
         return r
 
     def residual(self, x, time=0.0):
@@ -305,7 +381,8 @@ class GridOperator:
             zf = torch.where(mask, 0.0, z)
         else:
             zf = z
-        _, jz = jvp(lambda y: self.residual_unconstrained(y, time), (x,), (zf,))
+        _, jz = jvp(lambda y: self.residual_unconstrained(y, time, lambdas=False),
+                    (x,), (zf,))
         if self.cg is not None:
             jz = torch.where(mask, z, jz)
         return jz
@@ -337,21 +414,52 @@ class GridOperator:
 
         return vmap(column)(eye).permute(1, 2, 0)
 
+    def _flat(self, kernel, sides=1):
+        """A kernel of per-leaf inputs as a function of the concatenated
+        local layout (B, sides * nlocal) -> (B, sides * nlocal); sides = 2
+        takes and returns [inside leaves, outside leaves]."""
+        sizes = self.local_sizes * sides
+
+        def f(ucat):
+            parts = list(torch.split(ucat, sizes, dim=1))
+            n = self.nleaves
+            args = [self._uarg(parts[i * n:(i + 1) * n]) for i in range(sides)]
+            out = kernel(*args)
+            outs = (out,) if sides == 1 else out
+            return torch.cat([p for o in outs for p in self._pack(o)], dim=1)
+
+        return f
+
+    @staticmethod
+    def _cat(transfers, x):
+        return torch.cat([tr.gather(x) for tr in transfers], dim=1)
+
     def _skeleton_inputs(self, g, x, time):
         lop = self.lop.set_time(time)
         sctx = self._skel_ctx(g, time, x.dtype, x.device)
-        return lop, sctx, g.tr_in.gather(x), g.tr_out.gather(x)
+        return lop, sctx, self._cat(g.trs_in, x), self._cat(g.trs_out, x)
+
+    def _skeleton_side(self, lop, sctx, ui, uo, side):
+        """The skeleton kernel's side-`side` output as a function of that
+        side's concatenated local values, the other side held fixed."""
+        fixed = self._uarg(torch.split(uo if side == 0 else ui, self.local_sizes, dim=1))
+
+        def kernel(u):
+            r = (lop.alpha_skeleton(sctx, u, fixed) if side == 0
+                 else lop.alpha_skeleton(sctx, fixed, u))
+            return r[side]
+
+        return self._flat(kernel)
 
     def element_jacobians(self, x, time=0.0):
         """Per-element dense volume Jacobian blocks (E, nlocal, nlocal)."""
-        dm = self.dof_maps[0]
-        u = dm.gather(x)                                  # (E, nloc)
+        u = self._cat(self.dof_maps, x)                   # (E, nlocal)
         E, nloc = u.shape
         if not self.has["alpha_volume"]:
             return torch.zeros((E, nloc, nloc), dtype=x.dtype, device=x.device)
         lop = self.lop.set_time(time)
         vctx = self._volume_ctx(time, x.dtype, x.device)
-        return self._probe(lambda v: lop.alpha_volume(vctx, v), u)
+        return self._probe(self._flat(lambda v: lop.alpha_volume(vctx, v)), u)
 
     def element_diagonal_blocks(self, x, time=0.0):
         """Per-element diagonal Jacobian blocks including the boundary and
@@ -366,13 +474,13 @@ class GridOperator:
         if self.has["alpha_boundary"]:
             for g in self.bnd_groups:
                 fctx = self._face_ctx(g, time, x.dtype, dev)
-                Jb = self._probe(lambda u: lop.alpha_boundary(fctx, u),
-                                 g.tr_in.gather(x))
+                Jb = self._probe(self._flat(lambda u: lop.alpha_boundary(fctx, u)),
+                                 self._cat(g.trs_in, x))
                 J = J.index_add(0, torch.as_tensor(self.group_elements(g), device=dev), Jb)
         for g in self.skel_groups:
             lop, sctx, ui, uo = self._skeleton_inputs(g, x, time)
-            Jii = self._probe(lambda u: lop.alpha_skeleton(sctx, u, uo)[0], ui)
-            Joo = self._probe(lambda u: lop.alpha_skeleton(sctx, ui, u)[1], uo)
+            Jii = self._probe(self._skeleton_side(lop, sctx, ui, uo, 0), ui)
+            Joo = self._probe(self._skeleton_side(lop, sctx, ui, uo, 1), uo)
             J = J.index_add(0, torch.as_tensor(self.group_elements(g), device=dev), Jii)
             J = J.index_add(0, torch.as_tensor(self.group_elements(g, True),
                                                device=dev), Joo)
@@ -382,20 +490,13 @@ class GridOperator:
         """Two-sided (F, 2n, 2n) skeleton Jacobian blocks, rows and columns
         ordered [inside dofs, outside dofs]."""
         lop, sctx, ui, uo = self._skeleton_inputs(g, x, time)
-        F, n = ui.shape
-        eye = torch.eye(2 * n, dtype=x.dtype, device=x.device)
-
-        def column(sel):
-            _, (ci, co) = jvp(lambda a, b: lop.alpha_skeleton(sctx, a, b), (ui, uo),
-                              (sel[:n].expand(F, n), sel[n:].expand(F, n)))
-            return torch.cat([ci, co], dim=1)
-
-        return vmap(column)(eye).permute(1, 2, 0)
+        return self._probe(self._flat(lambda a, b: lop.alpha_skeleton(sctx, a, b), 2),
+                           torch.cat([ui, uo], dim=1))
 
     def _all_jacobian_blocks(self, x, time):
         """[(global dofs (B, n), blocks (B, n, n))] of every integration
         domain contributing to the Jacobian."""
-        ed = self.space.element_dofs
+        ed = self.elem_gdofs_cat
         out = []
         if self.has["alpha_volume"]:
             out.append((ed, self.element_jacobians(x, time)))
@@ -403,8 +504,8 @@ class GridOperator:
             lop = self.lop.set_time(time)
             for g in self.bnd_groups:
                 fctx = self._face_ctx(g, time, x.dtype, x.device)
-                Jb = self._probe(lambda u: lop.alpha_boundary(fctx, u),
-                                 g.tr_in.gather(x))
+                Jb = self._probe(self._flat(lambda u: lop.alpha_boundary(fctx, u)),
+                                 self._cat(g.trs_in, x))
                 out.append((ed[self.group_elements(g)], Jb))
         for g in self.skel_groups:
             gd = np.concatenate([ed[self.group_elements(g)],
@@ -443,8 +544,10 @@ class GridOperator:
         """diag(J) including all integration domains; constrained rows -> 1.
 
         One jvp per local basis function and domain (J[:, b, b] of the b-th
-        probe), summed through the DOF map and the face transfers: slices
-        on a structured space, so the result is the same from run to run."""
+        probe, in the concatenated local layout of the leaves), summed
+        through each leaf's DOF map and face transfers: slices on a
+        structured leaf, the transpose map else, so the result is the same
+        from run to run."""
         d = torch.zeros(self.space.ndofs, dtype=x.dtype, device=x.device)
         lop = self.lop.set_time(time)
 
@@ -457,24 +560,23 @@ class GridOperator:
                 _, col = jvp(f, (u,), (sel.expand(B, n),))
                 out[:, b] = col[:, b]
                 del col
-            return out
+            return torch.split(out, self.local_sizes, dim=1)
 
         if self.has["alpha_volume"]:
-            dm = self.dof_maps[0]
             vctx = self._volume_ctx(time, x.dtype, x.device)
-            d = dm.scatter_add(d, diag_of(lambda v: lop.alpha_volume(vctx, v),
-                                          dm.gather(x)))
+            d = self._scatter(d, self.dof_maps, diag_of(
+                self._flat(lambda v: lop.alpha_volume(vctx, v)), self._cat(self.dof_maps, x)))
         if self.has["alpha_boundary"]:
             for g in self.bnd_groups:
                 fctx = self._face_ctx(g, time, x.dtype, x.device)
-                d = g.tr_in.scatter_add(d, diag_of(
-                    lambda u: lop.alpha_boundary(fctx, u), g.tr_in.gather(x)))
+                d = self._scatter(d, g.trs_in, diag_of(
+                    self._flat(lambda u: lop.alpha_boundary(fctx, u)), self._cat(g.trs_in, x)))
         for g in self.skel_groups:
             lop, sctx, ui, uo = self._skeleton_inputs(g, x, time)
-            d = g.tr_in.scatter_add(d, diag_of(
-                lambda u: lop.alpha_skeleton(sctx, u, uo)[0], ui))
-            d = g.tr_out.scatter_add(d, diag_of(
-                lambda u: lop.alpha_skeleton(sctx, ui, u)[1], uo))
+            d = self._scatter(d, g.trs_in, diag_of(
+                self._skeleton_side(lop, sctx, ui, uo, 0), ui))
+            d = self._scatter(d, g.trs_out, diag_of(
+                self._skeleton_side(lop, sctx, ui, uo, 1), uo))
         if self.cg is not None:
             d = torch.where(self.cg.mask_on(x.device), 1.0, d)
         return d

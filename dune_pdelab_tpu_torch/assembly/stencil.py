@@ -11,8 +11,9 @@ with one random vector, and returns a StencilOperator.
 StencilOperator.__call__ sends k = 1, single-class 3D operators to the
 stencil27 kernel (kernels/stencil27.py: the CUDA kernel for a CUDA tensor,
 its plain version for a CPU tensor); the multi-class (k > 1) and 2D
-operators run the plain padded-slice form here, as the JAX package leaves
-them to XLA.
+operators run the plain torch form here (padded slices for one class, a
+strided window and one tensordot per class for several), as the JAX
+package leaves them to XLA. Applies take a vector or a batch of vectors.
 
 Validity requirements: single-leaf C0 tensor Lagrange space on a uniform
 non-periodic mesh, linear operator with translation-invariant coefficients,
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 
 from dune_pdelab_tpu_torch.kernels.stencil27 import stencil27, tap_tensor
 from dune_pdelab_tpu_torch.space.space import _leaf_boundary_dof_mask, to_numpy
-from dune_pdelab_tpu_torch.utils.common import default_float, resolve_device
+from dune_pdelab_tpu_torch.utils.common import default_float, device_key, resolve_device
 
 # Meshes with more elements than this are probed on a small proxy mesh of
 # the same spacing (module constant so a test can lower it).
@@ -49,38 +50,71 @@ class StencilOperator:
                                and len(self.dims) == 3)
         self.w27 = (tap_tensor(offsets, weights[0]) if self.uses_stencil27
                     else None)
+        self._dense = {}
+
+    def _dense_weights(self, dtype, device):
+        """Per residue class, the weights as a dense (2k+1,)*dim tensor in
+        the grid's C order (slowest axis first), zeros where no tap."""
+        key = (dtype, device_key(device))
+        if key not in self._dense:
+            dim, k = len(self.dims), self.k
+            W = np.zeros((self.weights.shape[0],) + (2 * k + 1,) * dim)
+            for t, off in enumerate(self.offsets):
+                W[(slice(None),) + tuple(int(off[d]) + k for d in reversed(range(dim)))] = (
+                    self.weights[:, t])
+            self._dense[key] = torch.as_tensor(W, dtype=dtype, device=device)
+        return self._dense[key]
 
     def _apply_impl(self, z):
-        """Plain padded-slice form, any k and dimension."""
+        """Plain form, any k and dimension; z is (N,) or a batch (B, N).
+
+        One class (k = 1): a weighted sum of padded slices, one per tap.
+        Several classes (k > 1): per class, a strided window view of the
+        padded grid (output points x (2k+1)^dim taps) contracted with the
+        class's dense weights in one tensordot, so an apply takes a few
+        launches per class instead of two per tap."""
         dims = self.dims
         dim = len(dims)
         k = self.k
         zf = z if self.mask is None else torch.where(self.mask, 0.0, z)
-        grid = zf.reshape(tuple(reversed(dims)))          # C-order, dim0 last
+        batch = z.shape[:-1]
+        grid = zf.reshape(batch + tuple(reversed(dims)))  # C-order, dim0 last
         pad = k
         gp = F.pad(grid, (pad, pad) * dim)
         out = torch.zeros_like(grid)
-        classes = (list(itertools.product(*[range(k)] * dim))
-                   if self.weights.shape[0] > 1 else [(0,) * dim])
-        for ci, cls in enumerate(classes):
-            w = self.weights[ci]
-            step = k if len(classes) > 1 else 1
-            sl = tuple(slice(cls[d], None, step) for d in reversed(range(dim)))
-            size = out[sl].shape
+        if self.weights.shape[0] > 1:
+            W = self._dense_weights(z.dtype, z.device)
+            sp = gp.stride()
+            nb = len(batch)
+            for ci, cls in enumerate(itertools.product(*[range(k)] * dim)):
+                sl = (Ellipsis,) + tuple(slice(cls[d], None, k) for d in reversed(range(dim)))
+                size = out[sl].shape
+                start = gp.storage_offset() + sum(
+                    cls[dim - 1 - a] * sp[nb + a] for a in range(dim))
+                win = gp.as_strided(size + (2 * k + 1,) * dim,
+                                    sp[:nb] + tuple(k * st for st in sp[nb:]) + sp[nb:],
+                                    start)
+                out[sl] = torch.tensordot(win, W[ci], dims=dim)
+        else:
+            w = self.weights[0]
             acc = None
             for t, off in enumerate(self.offsets):
                 if w[t] == 0.0:
                     continue
-                start = [pad + cls[d] + int(off[d]) for d in reversed(range(dim))]
-                piece = gp[tuple(slice(s, s + step * (n - 1) + 1, step)
-                                 for s, n in zip(start, size))]
+                start = [pad + int(off[d]) for d in reversed(range(dim))]
+                piece = gp[(Ellipsis,) + tuple(slice(s, s + n) for s, n in
+                                               zip(start, grid.shape[len(batch):]))]
                 acc = float(w[t]) * piece if acc is None else acc + float(w[t]) * piece
-            out[sl] = 0.0 if acc is None else acc
-        y = out.reshape(-1)
+            out[...] = 0.0 if acc is None else acc
+        y = out.reshape(batch + (-1,))
         return y if self.mask is None else torch.where(self.mask, z, y)
 
     def __call__(self, z):
+        """y = A z for z (N,) or a batch (B, N)."""
         if self.uses_stencil27:
+            if z.ndim > 1:
+                return torch.stack([stencil27(zi, self.mask, self.w27, self.dims)
+                                    for zi in z])
             return stencil27(z, self.mask, self.w27, self.dims)
         return self._apply_impl(z)
 

@@ -65,7 +65,7 @@ def _qualifies(go, include_lambda):
     if include_lambda and not go.has.get("lambda_volume"):
         return False
     # the kernel takes tensor rules of at most QMAX Gauss points per axis
-    return go._vol_tab[0].shape[0] <= QMAX**3
+    return go._vol_tabs[0][0].shape[0] <= QMAX**3
 
 
 def _tabulation(go, dtype, device):
@@ -73,7 +73,7 @@ def _tabulation(go, dtype, device):
     kernel's order a = dx + 2 dy + 4 dz."""
     mi = np.asarray(go.space.fem._mi)
     order = np.argsort(mi[:, 0] + 2 * mi[:, 1] + 4 * mi[:, 2])
-    phi, gphys = go._vol_tab[0], go._vol_tab[1][0]
+    phi, gphys = go._vol_tabs[0][0], go._vol_tabs[0][1][0]
     nqp = phi.shape[0]
     tab = np.concatenate([phi[:, order], gphys[:, order, :].reshape(nqp, 24),
                           go.vol_geo.factor[0][:, None]], axis=1)

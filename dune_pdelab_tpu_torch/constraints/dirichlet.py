@@ -1,7 +1,8 @@
 """Constraints: Dirichlet masks (and the empty set, `no_constraints`).
 
-PyTorch port of dune_pdelab_tpu/constraints/dirichlet.py without affine
-(hanging-node) rows, which wait for ROADMAP slice 11. A constraint set is a
+PyTorch port of dune_pdelab_tpu/constraints/dirichlet.py, on leaf and
+composite spaces, without affine (hanging-node) rows, which wait for
+ROADMAP slice 11. A constraint set is a
 (ndofs,) bool mask, True where the DOF is constrained; the DOF-vector
 helpers mirror dune/pdelab/constraints/common/constraints.hh:796-972 as
 masked torch ops.
@@ -46,7 +47,8 @@ def _leaf_constraints(bctype, space: FunctionSpace) -> np.ndarray:
     callable evaluated at boundary DOF node coordinates (a float64 numpy
     array, as in the reference) returning a bool array (True = Dirichlet).
     """
-    if bctype is None:
+    if bctype is None or space.fem.continuity != "C0":
+        # DG boundary conditions are weak (face terms of the local operator)
         return np.zeros(space.ndofs, dtype=bool)
     bmask = space.boundary_dof_mask()
     if bctype is True:
@@ -58,17 +60,28 @@ def _leaf_constraints(bctype, space: FunctionSpace) -> np.ndarray:
     return mask
 
 
+def _mask(bctype, space) -> np.ndarray:
+    """Constrained-DOF mask of a leaf or composite space: composite spaces
+    recurse and place each child's mask through the ordering."""
+    if getattr(space, "is_leaf", False):
+        return _leaf_constraints(bctype, space)
+    if not isinstance(bctype, (tuple, list)):
+        bctype = (bctype,) * space.nchildren
+    mask = np.zeros(space.ndofs, dtype=bool)
+    for i, (c, bc) in enumerate(zip(space.children, bctype)):
+        mask[space.child_global(i, np.arange(c.ndofs, dtype=np.int64))] = _mask(bc, c)
+    return mask
+
+
 def constraints(bctype, space, device=None) -> DirichletConstraints:
-    """Assemble constraints for a leaf space.
+    """Assemble constraints for a (possibly composite) space.
 
     Analog of `Dune::PDELab::constraints(param, gfs, cg)` (reference:
-    dune/pdelab/constraints/common/constraints.hh:775).
+    dune/pdelab/constraints/common/constraints.hh:775). For a composite
+    space pass a tuple of per-child bctypes (or one, applied to every
+    child).
     """
-    if not getattr(space, "is_leaf", False):
-        raise NotImplementedError(
-            "constraints on composite spaces are not ported yet "
-            "(ROADMAP slice 9)")
-    return DirichletConstraints(_leaf_constraints(bctype, space), device=device)
+    return DirichletConstraints(_mask(bctype, space), device=device)
 
 
 def set_constrained_dofs(cg: DirichletConstraints, value, x):

@@ -67,6 +67,10 @@ class OneStepGridOperator:
         # data stage-dependent: the backends set it up at every solve
         self.lop = _StageLOPInfo(is_linear=False)
 
+    @property
+    def elem_gdofs_cat(self):
+        return self.go0.elem_gdofs_cat
+
     def _mask(self, x):
         return self.cg.mask_on(x.device)
 
@@ -85,8 +89,8 @@ class OneStepGridOperator:
         """J z = wa * M z + wb * A(x) z, identity on constrained rows."""
         zf = z if self.cg is None else torch.where(self._mask(z), 0.0, z)
         _, jz = torch.func.jvp(
-            lambda y: (sc.wa * self.go1.residual_unconstrained(y, sc.t)
-                       + sc.wb * self.go0.residual_unconstrained(y, sc.t)),
+            lambda y: (sc.wa * self.go1.residual_unconstrained(y, sc.t, lambdas=False)
+                       + sc.wb * self.go0.residual_unconstrained(y, sc.t, lambdas=False)),
             (x,), (zf,))
         if self.cg is not None:
             jz = torch.where(self._mask(z), z, jz)

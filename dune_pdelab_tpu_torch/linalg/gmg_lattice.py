@@ -18,6 +18,8 @@ operation stays in lattice form:
 
 Transfers, smoothing, the CG vector updates and the coarse solve are plain
 torch (ROADMAP: they move into kernels only when a measurement asks).
+`apply` also cycles a batch (B, N) of right-hand sides together (the
+Stokes velocity components), one launch per operation for the batch.
 There is no jit: `apply` runs the V-cycle eagerly, and `solve_host` reads
 the defect on the host once per iteration, which is its stopping rule.
 
@@ -256,24 +258,27 @@ class LatticeGMG:
             ("lu", r.dtype, device_key(r.device)),
             lambda: (self._coarse_lu[0].to(r.device, r.dtype),
                      self._coarse_lu[1].to(r.device)))
-        return torch.linalg.lu_solve(lu, piv, r[:, None])[:, 0]
+        rhs = r.reshape(-1, r.shape[-1]).T                 # one column per vector
+        return torch.linalg.lu_solve(lu, piv, rhs).T.reshape(r.shape)
 
     # -- grid-shaped transfer ops ---------------------------------------------
     def _restrict(self, l, res):
         """fine level l flat -> coarse level l+1 flat (P^T)."""
-        g = res.reshape(tuple(reversed(self.dims[l])))
-        for d in range(g.ndim):
+        batch = res.shape[:-1]
+        g = res.reshape(batch + tuple(reversed(self.dims[l])))
+        for d in range(len(self.dims[l])):
             _, _, ridx, rw = self._transfer(l, d, res)
             g = _axis_apply(g, ridx, rw, g.ndim - 1 - d)
-        return g.reshape(-1)
+        return g.reshape(batch + (-1,))
 
     def _prolong(self, l, zc):
         """coarse level l+1 flat -> fine level l flat (P)."""
-        g = zc.reshape(tuple(reversed(self.dims[l + 1])))
-        for d in range(g.ndim):
+        batch = zc.shape[:-1]
+        g = zc.reshape(batch + tuple(reversed(self.dims[l + 1])))
+        for d in range(len(self.dims[l + 1])):
             idx, w, _, _ = self._transfer(l, d, zc)
             g = _axis_apply(g, idx, w, g.ndim - 1 - d)
-        return g.reshape(-1)
+        return g.reshape(batch + (-1,))
 
     # -- V-cycle ----------------------------------------------------------------
     def _smooth(self, l, z, r, steps):
@@ -324,7 +329,8 @@ class LatticeGMG:
         return self._smooth(l, z, r, self.post)
 
     def apply(self, r):
-        """One V-cycle: approximate A^-1 r (identity on constrained rows)."""
+        """One V-cycle: approximate A^-1 r (identity on constrained rows);
+        r is a vector (N,) or a batch (B, N), cycled together."""
         return self._vcycle(0, r)
 
     def __call__(self, go, x_lin, time):

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dune_pdelab_tpu_torch.assembly.dofmaps import IndexDofMap
 from dune_pdelab_tpu_torch.utils.common import resolve_device
 
 
@@ -54,26 +55,24 @@ def block_jacobi(element_dofs, blocks, overlap_counts=None):
     partition and this is the exact block-diagonal inverse; for conforming
     spaces DOFs are shared and the result is scaled by the overlap counts.
     """
-    Dinv = _explicit_block_inverse(blocks)
-    if overlap_counts is None:
-        overlap_counts = _overlap_counts(element_dofs, blocks.dtype)
-    return _block_jacobi_apply(element_dofs, Dinv, overlap_counts)
+    return _block_jacobi_apply(element_dofs, _explicit_block_inverse(blocks), overlap_counts)
 
 
-def _overlap_counts(element_dofs, dtype):
-    """Number of elements that hold each DOF (DOFs 0..max of the map)."""
-    dofs = element_dofs.reshape(-1)
-    n = int(dofs.max()) + 1
-    return torch.zeros(n, dtype=dtype, device=dofs.device).index_add(
-        0, dofs, torch.ones(dofs.shape[0], dtype=dtype, device=dofs.device))
-
-
-def _block_jacobi_apply(element_dofs, Dinv, counts):
-    dofs = element_dofs.reshape(-1)
+def _block_jacobi_apply(element_dofs, Dinv, counts=None):
+    """The block solves summed over shared DOFs through one transpose map
+    (assembly/dofmaps.py IndexDofMap): no atomics, one result per run.
+    counts: the number of elements that hold each DOF (from the map when
+    None)."""
+    dm = IndexDofMap.of_tensor(element_dofs)
+    if counts is None:
+        n = int(element_dofs.max()) + 1
+        counts = dm.scatter_add(torch.zeros(n, dtype=Dinv.dtype, device=Dinv.device),
+                                torch.ones(element_dofs.shape, dtype=Dinv.dtype,
+                                           device=Dinv.device))
 
     def apply(r):
-        z_loc = torch.einsum("ejk,ek->ej", Dinv.to(r.dtype), r[element_dofs])
-        return torch.zeros_like(r).index_add(0, dofs, z_loc.reshape(-1)) / counts
+        z_loc = torch.einsum("ejk,ek->ej", Dinv.to(r.dtype), dm.gather(r))
+        return dm.scatter_add(torch.zeros_like(r), z_loc) / counts
 
     return apply
 

@@ -11,3 +11,7 @@ from dune_pdelab_tpu_torch.ops.l2 import L2, L2VolumeFunctional  # noqa: F401
 from dune_pdelab_tpu_torch.ops.nonlinearconvectiondiffusion import (  # noqa: F401
     NonlinearConvectionDiffusionFEM, NonlinearConvectionDiffusionProblem,
 )
+from dune_pdelab_tpu_torch.ops.stokes import (  # noqa: F401
+    NavierStokesMass, NavierStokesParameters, StokesBC, TaylorHoodNavierStokes,
+)
+from dune_pdelab_tpu_torch.ops.dgnavierstokes import DGNavierStokes  # noqa: F401

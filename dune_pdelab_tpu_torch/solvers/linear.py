@@ -173,7 +173,7 @@ class LinearSolverBackend:
                 go.space.ndofs, dtype=b.dtype)
         elif p in ("block_jacobi", "block_gs"):
             blocks = go.element_diagonal_blocks(xl, time)
-            setup["dofs"] = torch.as_tensor(go.space.element_dofs, device=b.device)
+            setup["dofs"] = torch.as_tensor(go.elem_gdofs_cat, device=b.device)
             setup["dinv"] = preconditioners._explicit_block_inverse(blocks)
             if p == "block_gs":
                 setup["colors"] = preconditioners.checkerboard_colors(
@@ -192,9 +192,7 @@ class LinearSolverBackend:
             return preconditioners.chebyshev(A, setup["diag"], setup["lmax"],
                                              degree=self.cheby_degree)
         if p == "block_jacobi":
-            counts = preconditioners._overlap_counts(setup["dofs"], setup["dinv"].dtype)
-            return preconditioners._block_jacobi_apply(setup["dofs"], setup["dinv"],
-                                                       counts)
+            return preconditioners._block_jacobi_apply(setup["dofs"], setup["dinv"])
         return preconditioners._colored_sweeps(A, setup["dofs"], setup["dinv"],
                                                setup["colors"])
 

@@ -1,10 +1,18 @@
 """Discrete function spaces: DOF maps as lattice arithmetic.
 
-PyTorch port of dune_pdelab_tpu/space/space.py, limited to the single-leaf
-spaces on a structured cube mesh: continuous (C0) Qk on the DOF lattice and
-discontinuous (DG) Qk numbered element-major, DOF e*nb + j for local basis
-function j of element e. Composite, power and permuted spaces wait for
-ROADMAP slice 9; H(div) and H(curl) layouts for slice 13.
+PyTorch port of dune_pdelab_tpu/space/space.py on a structured cube mesh.
+Leaves: continuous (C0) Qk on the DOF lattice and discontinuous (DG) Qk
+numbered element-major, DOF e*nb + j for local basis function j of element
+e. H(div) and H(curl) layouts wait for ROADMAP slice 13.
+
+Composite spaces (reference: powergridfunctionspace.hh /
+compositegridfunctionspace.hh, e.g. Taylor-Hood = Composite(Power<dim>(Q2),
+Q1)) are trees of leaf spaces over one flat DOF vector. Children are placed
+by an ordering: 'lexicographic' (child-major, reference:
+ordering/lexicographicordering.hh:105), 'interleaved' or 'entity_blocked'
+(per DOF, equal-size children, interleavedordering.hh:28), a permutation
+(PermutedSpace, permutedordering.hh) or the heterogeneous entity blocking
+of `entity_blocked` (entityblockedlocalordering.hh:33).
 
 Setup stays numpy on the host, as in the reference. The (E, nlocal)
 `element_dofs` map is built lazily: the structured fast paths
@@ -20,7 +28,7 @@ from dune_pdelab_tpu_torch.fe.basis import (
     FiniteElement, lagrange_nodes_1d, q1_geometry,
 )
 from dune_pdelab_tpu_torch.mesh.structured import StructuredMesh
-from dune_pdelab_tpu_torch.utils.common import default_float, resolve_device
+from dune_pdelab_tpu_torch.utils.common import default_float, device_key, resolve_device
 
 
 def to_numpy(v) -> np.ndarray:
@@ -95,6 +103,22 @@ class FunctionSpace:
         """(ndofs,) bool mask of DOFs on the domain boundary."""
         return _leaf_boundary_dof_mask(self)
 
+    # -- tree protocol shared with CompositeSpace (used by the assembler) ------
+    @property
+    def leaves(self):
+        return (self,)
+
+    @property
+    def leaf_offsets(self):
+        return (0,)
+
+    def local_sizes(self):
+        return (self.fem.nbasis,)
+
+    def global_element_dofs(self):
+        """(E, nlocal) global DOF indices, offsets applied (leaf: identity)."""
+        return self.element_dofs
+
     # -- node coordinates & interpolation ------------------------------------
     def dof_coords(self) -> np.ndarray:
         """(ndofs, dim) nodal coordinates: lattice arithmetic for a C0
@@ -152,6 +176,226 @@ class FunctionSpace:
 
     def __repr__(self):
         return f"FunctionSpace({self.fem!r}, ndofs={self.ndofs}, name={self.name!r})"
+
+
+def _embed(x, index, xc):
+    """x with x[index] = xc, as a new tensor (the reference's functional
+    `.at[index].set`)."""
+    y = x.clone()
+    y[index] = xc.to(y.dtype)
+    return y
+
+
+class CompositeSpace:
+    """Heterogeneous product space (CompositeGridFunctionSpace analog).
+
+    One flat DOF vector; children are mapped in by `ordering`:
+      'lexicographic'  - children stacked child-major
+      'interleaved'    - equal-size children interleaved per DOF
+      'entity_blocked' - as 'interleaved', on one shared mesh (with equal
+         children each lattice entity carries one DOF of every child)
+    `chunk` declares a uniform block size over the flat index space
+    (reference: ordering/chunkedblockordering.hh:112), read by `block_view`.
+    """
+
+    is_leaf = False
+
+    def __init__(self, *children, ordering: str = "lexicographic",
+                 name: str = "", chunk: int | None = None):
+        if not children:
+            raise ValueError("CompositeSpace needs at least one child")
+        self.children = tuple(children)
+        self.ordering = ordering
+        self.name = name
+        sizes = [c.ndofs for c in self.children]
+        self.ndofs = sum(sizes)
+        if ordering == "lexicographic":
+            offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+            self._child_offset = offs.astype(np.int64)
+        elif ordering in ("interleaved", "entity_blocked"):
+            if len(set(sizes)) != 1:
+                raise ValueError(f"{ordering} ordering needs equal-size children")
+            if ordering == "entity_blocked":
+                meshes = {id(lf.mesh) for c in self.children for lf in c.leaves}
+                if len(meshes) != 1:
+                    raise ValueError("entity_blocked needs one shared mesh")
+            self._child_offset = None
+        else:
+            raise ValueError(f"unknown ordering {ordering!r}")
+        self.chunk = chunk
+        if chunk is not None:
+            if self.ndofs % chunk:
+                raise ValueError(f"chunk size {chunk} does not divide ndofs {self.ndofs}")
+            self.nchunks = self.ndofs // chunk
+
+    def block_view(self, x):
+        """(nchunks, chunk) view of a flat vector (chunked descriptor)."""
+        if self.chunk is None:
+            raise ValueError("space has no chunked blocking descriptor")
+        return x.reshape(self.nchunks, self.chunk)
+
+    @property
+    def nchildren(self):
+        return len(self.children)
+
+    def child_global(self, i: int, child_dofs: np.ndarray) -> np.ndarray:
+        """Map child-i DOF indices to flat global indices."""
+        if self.ordering == "lexicographic":
+            return self._child_offset[i] + child_dofs
+        return child_dofs * self.nchildren + i
+
+    @property
+    def leaves(self):
+        return tuple(lf for c in self.children for lf in c.leaves)
+
+    def leaf_element_dofs(self):
+        """One (E, nlocal) global DOF map per leaf, offsets applied."""
+        out = []
+        for i, c in enumerate(self.children):
+            maps = ([c.element_dofs.astype(np.int64)] if c.is_leaf
+                    else c.leaf_element_dofs())
+            out.extend(self.child_global(i, m) for m in maps)
+        return out
+
+    def local_sizes(self):
+        return tuple(n for c in self.children for n in c.local_sizes())
+
+    def _child_index(self, i: int):
+        if self.ordering == "lexicographic":
+            o = int(self._child_offset[i])
+            return slice(o, o + self.children[i].ndofs)
+        return slice(i, None, self.nchildren)
+
+    def restrict(self, x, i: int):
+        """Child i's DOF subvector of the flat vector (a view)."""
+        return x[self._child_index(i)]
+
+    def embed(self, x, i: int, xc):
+        """x with child i's subvector replaced by xc (a new tensor)."""
+        return _embed(x, self._child_index(i), xc)
+
+    def interpolate(self, fs, dtype=None, device=None):
+        """Interpolate a tuple of callables (one per child) into a flat vector."""
+        parts = [c.interpolate(f, dtype=dtype, device=device)
+                 for c, f in zip(self.children, fs)]
+        x = torch.zeros(self.ndofs, dtype=parts[0].dtype, device=parts[0].device)
+        for i, xc in enumerate(parts):
+            x = self.embed(x, i, xc)
+        return x
+
+    def zero(self, dtype=None, device=None):
+        return torch.zeros(self.ndofs, dtype=dtype or default_float(),
+                           device=resolve_device(device))
+
+    def __repr__(self):
+        return (f"CompositeSpace({', '.join(map(repr, self.children))}, "
+                f"ordering={self.ordering!r})")
+
+
+class PermutedSpace(CompositeSpace):
+    """Permuted ordering wrapper (reference: ordering/permutedordering.hh):
+    global index = perm[inner index] for any bijection perm on [0, ndofs).
+    Assembly, constraints and solves all see the permuted layout."""
+
+    def __init__(self, child, perm, name: str = ""):
+        super().__init__(child, ordering="lexicographic", name=name)
+        perm = np.asarray(perm, dtype=np.int64)
+        if perm.shape != (child.ndofs,):
+            raise ValueError("perm must have one entry per dof")
+        self.perm = perm
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm), dtype=np.int64)
+        self.inv_perm = inv
+        self._perms = {}
+
+    def _perm_on(self, device):
+        key = device_key(device)
+        if key not in self._perms:
+            self._perms[key] = torch.as_tensor(self.perm, device=device)
+        return self._perms[key]
+
+    def child_global(self, i: int, child_dofs):
+        return self.perm[np.asarray(child_dofs, dtype=np.int64)]
+
+    def restrict(self, x, i: int = 0):
+        """Inner-ordered copy of the permuted flat vector."""
+        return x[self._perm_on(x.device)]
+
+    def embed(self, x, i: int, xc):
+        return _embed(x, self._perm_on(x.device), xc)
+
+    def interpolate(self, f, dtype=None, device=None):
+        xc = self.children[0].interpolate(f, dtype=dtype, device=device)
+        return self.embed(torch.zeros_like(xc), 0, xc)
+
+    def __repr__(self):
+        return f"PermutedSpace({self.children[0]!r})"
+
+
+class PowerSpace(CompositeSpace):
+    """k identical copies of a child space (PowerGridFunctionSpace analog,
+    reference: gridfunctionspace/powergridfunctionspace.hh)."""
+
+    def __init__(self, child, k: int, ordering: str = "lexicographic", name: str = ""):
+        super().__init__(*([child] * k), ordering=ordering, name=name)
+        self.child = child
+        self.k = k
+
+    def interpolate(self, f, dtype=None, device=None):
+        """f: a tuple of callables, or one callable returning (npts, k)."""
+        fs = ([(lambda pts, i=i: to_numpy(f(pts))[..., i]) for i in range(self.k)]
+              if callable(f) else f)
+        return super().interpolate(fs, dtype=dtype, device=device)
+
+
+def VectorSpace(mesh, fem, ncomp=None, ordering="lexicographic", name=""):
+    """Vector-valued space (VectorGridFunctionSpace analog, reference:
+    gridfunctionspace/vectorgridfunctionspace.hh:33)."""
+    return PowerSpace(FunctionSpace(mesh, fem), ncomp or mesh.dim,
+                      ordering=ordering, name=name)
+
+
+def entity_blocked(space: CompositeSpace, name: str = "") -> PermutedSpace:
+    """Heterogeneous entity-blocked ordering (reference:
+    ordering/entityblockedlocalordering.hh:33,155): per-entity blocks of all
+    children's DOFs with a block size that varies by entity (Taylor-Hood:
+    (vx, vy, p) at vertices, (vx, vy) at Q2-only nodes).
+
+    Works for any composite tree of nodal C0 leaves on one shared mesh:
+    DOFs are grouped by nodal coordinate (the entity's position), entity
+    after entity, with the tree's leaf order inside each block. Returns a
+    PermutedSpace carrying `entity_block_sizes` (one entry per entity, in
+    layout order)."""
+
+    def leaf_globals(s):
+        if s.is_leaf:
+            return [(np.arange(s.ndofs, dtype=np.int64), s)]
+        return [(s.child_global(i, idx), lf)
+                for i, c in enumerate(s.children) for idx, lf in leaf_globals(c)]
+
+    pairs = leaf_globals(space)
+    if len({id(lf.mesh) for _, lf in pairs}) != 1:
+        raise ValueError("entity_blocked needs one shared mesh")
+    coords = np.empty((space.ndofs, pairs[0][1].mesh.dim))
+    rank = np.empty(space.ndofs, dtype=np.int64)
+    for r, (gidx, lf) in enumerate(pairs):
+        if lf.fem.nodes is None or lf.fem.continuity != "C0":
+            raise NotImplementedError("entity_blocked permutation needs nodal C0 leaves")
+        coords[gidx] = lf.dof_coords()
+        rank[gidx] = r
+    # quantize coordinates so shared-entity nodes compare equal
+    h_min = np.min([np.min(lf.mesh.h) if lf.mesh.uniform else 1.0 for _, lf in pairs])
+    q = np.round(coords / (1e-6 * h_min)).astype(np.int64)
+    # entity-major (lexsort: the last key is primary), leaf rank fastest
+    order = np.lexsort((rank,) + tuple(q[:, d] for d in range(q.shape[1])))
+    perm = np.empty(space.ndofs, dtype=np.int64)
+    perm[order] = np.arange(space.ndofs)
+    out = PermutedSpace(space, perm, name=name or space.name)
+    qs = q[order]
+    newblock = np.any(qs[1:] != qs[:-1], axis=1)
+    starts = np.concatenate([[0], np.nonzero(newblock)[0] + 1, [space.ndofs]])
+    out.entity_block_sizes = np.diff(starts)
+    return out
 
 
 def _leaf_boundary_dof_mask(space: FunctionSpace) -> np.ndarray:

@@ -412,7 +412,7 @@ def test_rules_above_qmax_take_the_general_path():
 
     assert make_fused_japply(go_of(7)) is not None
     go = go_of(8)
-    assert go._vol_tab[0].shape[0] == 5**3
+    assert go._vol_tabs[0][0].shape[0] == 5**3
     assert make_fused_japply(go) is None and make_fused_residual(go) is None
     gmg = VarCoeffGMG(go)
     assert len(gmg.lmax) == 2 and all(np.isfinite(gmg.lmax))
