@@ -95,12 +95,26 @@ Phases (each passes or raises; there is no CPU path):
      Cahouet-Chabard instationary Stokes at 256^2 in fp64, at most 80 GMRES
      iterations a step; (d) the Newton lid-driven cavity at 64^2 and
      DGNavierStokes at 8^2 (block-Jacobi GMRES), fp64.
+ 11. the algebraic solvers (no hand kernel of their own: the AMG cycle is
+     plain-torch padded-ELL SpMVs, its setup host scipy): (a) the
+     config12_simplex_amg golden at 32^2 in fp64; (b) AMG-CG on 2D simplex
+     P1 Poisson at 256^2, 512^2 and 1024^2 cells in fp64 to 1e-10
+     (iterations bounded and flat, L2 error falling as h^2) and at 1024^2
+     in fp32 to 1e-6, each with its setup split, levels, operator
+     complexity, ms per iteration, one V-cycle's wall against its device
+     time and launches, true defect and peak memory; (c) the same on 3D P1
+     tetrahedra at 64^3 hexes (N = 274,625); (d) SEQ_CG_AMG on phase 4's
+     README problem at 127^3 in fp32 (the Krylov operator on stencil27);
+     (e) DGTwoLevel(coarse="amg") on phase 7c's 64^3 Q1 SIPG problem (the
+     smoother on blockstencil_mm); (f) SEQ_SuperLU on 2D Q2 at 128^2,
+     lobpcg for the 4 smallest Dirichlet-Laplacian eigenpairs at 128^2 and
+     GenEO (method="ilu", boxes (4, 4)) at 128^2 on the card and the CPU.
 
-Launch counts are set to 0 before each of phases 3 to 10 and read after
+Launch counts are set to 0 before each of phases 3 to 11 and read after
 it; a kernel of that path that was never launched fails the run (the
 comparison launches of phases 6a, 6c, 7a, 9a and 9c are not counted).
 Prints phase results and times, the card's name and power limit, one JSON
-line {"kernels": [...]} with each kernel's launches over phases 3-10,
+line {"kernels": [...]} with each kernel's launches over phases 3-11,
 error, times and bound, and as its last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -192,6 +206,17 @@ DGNS_CELLS = 32           # phase 10d: DGNavierStokes Q2dg/Q1dg, N = 22,528
 DGNS_APPLY_REL = 1e-12    # phase 10d: card against CPU residual and J.v (fp64, of max|y|)
 DGNS_GMRES_ITS = 50       # phase 10d: block-Jacobi GMRES iterations, card and CPU
 DGNS_GMRES_GAP = 1e-8     # phase 10d: relative gap of the card's and the CPU's reductions
+AMG_SIZES = (256, 512, 1024)   # phase 11b: 2D simplex P1, N = 66,049 / 263,169 / 1,050,625
+AMG_ITS_MAX = 25          # phase 11b: AMG-CG iterations (tests/test_amg.py:93-103)
+AMG_ITS_SPREAD = 5        # phase 11b: max - min iterations over the sizes
+AMG_L2_RATIO = (3.0, 5.0)  # phase 11b: L2 error ratio per halving of h (~h^2)
+AMG_TET_CELLS = 64        # phase 11c: 3D Kuhn tetrahedra, 1,572,864 tets, N = 274,625
+AMG_TET_ITS_MAX = 30      # phase 11c (tests/test_amg.py:200-210)
+README_JACOBI_ITS = 149   # phase 4's fp32 Jacobi-CG iterations at 127^3 (PERF.md)
+DGMG_GMG_ITS = 6          # phase 7c's gmg-coarse iterations at 64^3 (PERF.md)
+DIRECT_CELLS = 128        # phase 11f: SEQ_SuperLU on 2D Q2 Poisson
+EIGEN_CELLS = 128         # phase 11f: lobpcg on the 2D Q1 Dirichlet Laplacian with mass
+GENEO_CELLS = 128         # phase 11f: GenEO (method="ilu"), boxes (4, 4)
 CARD = "card not read yet"   # nvidia-smi name and power limit, set by main()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -2547,6 +2572,350 @@ def phase_stokes(torch, pt, dev):
     dg_navier_stokes(torch, pt, dev)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: algebraic solvers (AMG on simplex and lattice operators, the
+# direct backend, LOBPCG and GenEO); no hand kernel of their own
+# ---------------------------------------------------------------------------
+
+def sine2d_problem():
+    """models/configs.py _Sine2D: u = sin(pi x) cos(2 pi y) + x."""
+    import torch
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+
+    pi = math.pi
+
+    class Sine2D(ConvectionDiffusionProblem):
+        def exact(self, p):
+            return torch.sin(pi * p[:, 0]) * torch.cos(2 * pi * p[:, 1]) + p[:, 0]
+
+        def f(self, x):
+            return 5 * pi**2 * torch.sin(pi * x[..., 0]) * torch.cos(2 * pi * x[..., 1])
+
+        def g(self, x):
+            return torch.sin(pi * x[..., 0]) * torch.cos(2 * pi * x[..., 1]) + x[..., 0]
+    return Sine2D()
+
+
+def cycle_profile(torch, fn, reps):
+    """(wall ms, device ms, kernel launches) per call of fn(): wall from
+    synced timers, device time and launches from torch.profiler's CUDA
+    kernel rows."""
+    from torch.autograd import DeviceType
+
+    fn()
+    _, wall = timed(torch, lambda: [fn() for _ in range(reps)])
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = sum(e.self_device_time_total for e in rows)
+    return 1e3 * wall / reps, kern / 1e3 / reps, sum(e.count for e in rows) / reps
+
+
+def simplex_poisson(pt, dim, cells, problem, dev):
+    """(V, go) of P1 Poisson on the triangulated unit square / Kuhn-cut unit
+    cube; pure Dirichlet, so the boundary kernels are dropped."""
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
+
+    mesh = pt.SimplexMesh.from_structured(
+        pt.StructuredMesh([0.0] * dim, [1.0] * dim, (cells,) * dim))
+    V = pt.FunctionSpace(mesh, pt.PkFEM(1, dim))
+    cgm = pt.constraints(problem.dirichlet_bctype(), V, device=dev)
+    return V, pt.GridOperator(V, ConvectionDiffusionFEM(problem), constraints=cgm,
+                              skip_boundary=True)
+
+
+def amg_solve(torch, pt, V, go, problem, dev, tag, dtype=None, amg=None, red=1e-10):
+    """StationaryLinearProblemSolver + CG + AlgebraicMultigrid on (V, go):
+    setup (split) and solve timed apart, one V-cycle profiled, the true
+    relative defect, peak memory. Returns (iterations, L2 error, amg)."""
+    from dune_pdelab_tpu_torch.linalg.amg import AlgebraicMultigrid
+    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend, StationaryLinearProblemSolver
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    dtype = dtype or torch.float64
+    torch.cuda.reset_peak_memory_stats()
+    x0 = pt.interpolate_dirichlet(problem.g, V, go.cg, V.zero(dtype, dev))
+    fresh = amg is None
+    amg = amg or AlgebraicMultigrid()
+    _, setup_s = timed(torch, lambda: amg(go, x0, 0.0))
+    ls = LinearSolverBackend(solver="cg", precond=amg)
+    slp = StationaryLinearProblemSolver(go, ls, reduction=red)
+    x, solve_s = timed(torch, lambda: slp.apply(x0))
+    its = slp.result.linear_solver_iterations
+    r0 = float(torch.linalg.norm(go.residual(x0)))
+    true_rel = float(torch.linalg.norm(go.residual(x))) / r0
+    l2 = float(l2_difference(V, x, problem.exact))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    info = amg.hierarchy_info()
+    r = torch.randn(V.ndofs, dtype=dtype, device=dev,
+                    generator=torch.Generator(dev).manual_seed(11))
+    wall, dev_ms, launches = cycle_profile(torch, lambda: amg.apply(r), 5)
+    split = ", ".join(f"{k} {v:.3f}" for k, v in amg.setup_times.items()) if fresh else "reused"
+    log(f"[{tag}] N = {V.ndofs} ({V.mesh.nelements} simplices), {dtype}: {its} CG "
+        f"iterations, converged {slp.result.converged}, true rel defect {true_rel:.3e}, "
+        f"L2 {l2:.6e}; setup {setup_s:.3f} s ({split} s); solve {solve_s:.3f} s = "
+        f"{1e3 * solve_s / max(its, 1):.3f} ms/iteration; {len(info['sizes'])} levels "
+        f"{info['sizes']}, operator complexity {info['operator_complexity']:.6f}; one "
+        f"V-cycle {wall:.3f} ms wall / {dev_ms:.3f} ms device, {launches:.0f} kernel "
+        f"launches; peak {peak:.2f} GiB; {CARD}")
+    if not (slp.result.converged and bool(torch.isfinite(x).all())):
+        raise AssertionError(f"{tag}: AMG-CG did not converge")
+    return its, l2, true_rel, amg
+
+
+def amg_config12(torch, pt, dev):
+    """Phase 11a: config12_simplex_amg (models/configs.py:490-522) at 32^2
+    in fp64 on the card, held against tests/golden_parity.json."""
+    from dune_pdelab_tpu_torch.linalg.amg import AlgebraicMultigrid
+    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend, StationaryLinearProblemSolver
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    want = json.loads((ROOT / "tests" / "golden_parity.json").read_text())[
+        "config12_simplex_amg"]
+    p = sine2d_problem()
+    V, go = simplex_poisson(pt, 2, 32, p, dev)
+    amg = AlgebraicMultigrid()
+    slp = StationaryLinearProblemSolver(
+        go, LinearSolverBackend(solver="cg", precond=amg, use_stencil=False), reduction=1e-10)
+    x = slp.apply(pt.interpolate_dirichlet(p.g, V, go.cg, V.zero(torch.float64, dev)))
+    info = amg.hierarchy_info()
+    l2 = float(l2_difference(V, x, p.exact))
+    got = {"iterations": slp.result.linear_solver_iterations, "levels": len(info["sizes"]),
+           "operator_complexity": info["operator_complexity"], "l2_error": l2,
+           "ndofs": V.ndofs}
+    log(f"[phase 11a] config12 on the card: {got} (golden {want}); {CARD}")
+    ok = (got["iterations"] == want["iterations"] and got["levels"] == want["levels"]
+          and got["ndofs"] == want["ndofs"] and slp.result.converged
+          and abs(got["operator_complexity"] / want["operator_complexity"] - 1) <= 1e-12
+          and abs(l2 / want["l2_error"] - 1) <= 1e-8)
+    if not ok:
+        raise AssertionError(f"config12 golden not reproduced: {got} vs {want}")
+
+
+def amg_simplex(torch, pt, dev):
+    """Phase 11b: AMG-CG on 2D simplex P1 Poisson in fp64 to 1e-10 at
+    AMG_SIZES cells per axis, then one fp32 solve at the largest size to
+    1e-6 on the same hierarchy."""
+    p = sine2d_problem()
+    its, errs = [], []
+    for n in AMG_SIZES:
+        V, go = simplex_poisson(pt, 2, n, p, dev)
+        it, l2, true_rel, amg = amg_solve(torch, pt, V, go, p, dev, f"phase 11b {n}^2")
+        if not (it <= AMG_ITS_MAX and true_rel <= 1e-9):
+            raise AssertionError(f"11b {n}^2: {it} iterations, true rel {true_rel:.3e}")
+        its.append(it)
+        errs.append(l2)
+        if n != AMG_SIZES[-1]:
+            del V, go, amg
+            torch.cuda.empty_cache()
+    ratios = [a / b for a, b in zip(errs, errs[1:])]
+    log(f"[phase 11b] iterations {its}, L2 ratios per halving of h {ratios}; {CARD}")
+    if max(its) - min(its) > AMG_ITS_SPREAD:
+        raise AssertionError(f"11b iterations spread: {its}")
+    if not all(AMG_L2_RATIO[0] <= q <= AMG_L2_RATIO[1] for q in ratios):
+        raise AssertionError(f"11b L2 error not falling as h^2: {errs}")
+    it32, _, rel32, _ = amg_solve(torch, pt, V, go, p, dev, f"phase 11b {AMG_SIZES[-1]}^2 fp32",
+                                  dtype=torch.float32, amg=amg, red=1e-6)
+    if not (it32 <= AMG_ITS_MAX and rel32 <= 1e-5):
+        raise AssertionError(f"11b fp32: {it32} iterations, true rel {rel32:.3e}")
+    del V, go, amg
+    torch.cuda.empty_cache()
+
+
+def amg_tets(torch, pt, dev):
+    """Phase 11c: AMG-CG on 3D tetrahedral P1 Poisson (sin sin sin) in fp64
+    to 1e-10 at AMG_TET_CELLS^3 hexes cut into six Kuhn tetrahedra each."""
+    p = sine3d_problem()
+    V, go = simplex_poisson(pt, 3, AMG_TET_CELLS, p, dev)
+    it, _, true_rel, _ = amg_solve(torch, pt, V, go, p, dev, f"phase 11c {AMG_TET_CELLS}^3 tets")
+    if not (it <= AMG_TET_ITS_MAX and true_rel <= 1e-9):
+        raise AssertionError(f"11c: {it} iterations, true rel {true_rel:.3e}")
+    del V, go
+    torch.cuda.empty_cache()
+
+
+def amg_readme(torch, pt, dev):
+    """Phase 11d: SEQ_CG_AMG on phase 4's README problem (3D Q1 Poisson,
+    f == 1, README_CELLS^3 cells) in fp32 to 1e-8: the AMG hierarchy from
+    the probed lattice ELL, the Krylov operator the compiled stencil, so
+    stencil27 launches in every iteration."""
+    from dune_pdelab_tpu_torch.kernels import stencil27 as sk
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
+    from dune_pdelab_tpu_torch.solvers import SEQ_CG_AMG
+
+    prob = unit_source_problem()
+    mesh = pt.StructuredMesh([0, 0, 0], [1, 1, 1], (README_CELLS,) * 3)
+    V = pt.FunctionSpace(mesh, pt.QkFEM(1, 3))
+    cgm = pt.constraints(prob.dirichlet_bctype(), V, device=dev)
+    go = pt.GridOperator(V, ConvectionDiffusionFEM(prob), constraints=cgm, skip_boundary=True)
+    x0 = V.zero(torch.float32, dev)
+    ls = SEQ_CG_AMG()
+    _, setup_s = timed(torch, lambda: ls.precond(go, x0, 0.0))
+    before = sk.launches
+    x, solve_s = timed(torch, lambda: pt.StationaryLinearProblemSolver(
+        go, ls, reduction=1e-8).apply(x0))
+    st = ls.stats_history[-1]
+    launched = sk.launches - before
+    info = ls.precond.hierarchy_info()
+    true_rel = float(torch.linalg.norm(go.residual(x)) / torch.linalg.norm(go.residual(x0)))
+    split = ", ".join(f"{k} {v:.3f}" for k, v in ls.precond.setup_times.items())
+    log(f"[phase 11d] SEQ_CG_AMG README problem {V.ndofs} DOFs fp32: {st.iterations} "
+        f"iterations (phase 4 Jacobi-CG: {README_JACOBI_ITS}), converged "
+        f"{bool(st.converged)}, true rel defect {true_rel:.3e}; setup {setup_s:.3f} s "
+        f"({split} s), solve {solve_s:.3f} s = {1e3 * solve_s / max(st.iterations, 1):.3f} "
+        f"ms/iteration; {len(info['sizes'])} levels, operator complexity "
+        f"{info['operator_complexity']:.6f}; stencil27 launches {launched}; {CARD}\n"
+        f"{ls.report(go)}")
+    if "compiled stencil" not in ls.report(go) or launched < st.iterations:
+        raise AssertionError("11d: the Krylov operator did not run on stencil27")
+    if not (bool(st.converged) and bool(torch.isfinite(x).all())
+            and st.iterations < README_JACOBI_ITS):
+        raise AssertionError(f"11d: {st.iterations} iterations, converged {st.converged}")
+    del x, go, V, ls
+    torch.cuda.empty_cache()
+
+
+def amg_dg(torch, pt, dev):
+    """Phase 11e: DGTwoLevel(coarse="amg") on phase 7c's 64^3 Q1 SIPG
+    problem in fp32, the smoother's operator the mode-major block stencil
+    (blockstencil_mm), in the same host PCG loop to 1e-8."""
+    from dune_pdelab_tpu_torch.assembly.blockstencil import compile_block_stencil
+    from dune_pdelab_tpu_torch.assembly.blockstencil_mm import try_mm_block_stencil
+    from dune_pdelab_tpu_torch.kernels import blockstencil as bk
+    from dune_pdelab_tpu_torch.linalg import DGTwoLevel, cg
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
+
+    cells = DGMG_CELLS[0]
+    p = unit_source_problem()
+    V, go = dg_operator(pt, (cells,) * 3, 1, p)
+    t0 = time.perf_counter()
+    A = try_mm_block_stencil(compile_block_stencil(go))
+    tl = DGTwoLevel(go, ConvectionDiffusionFEM(p), coarse="amg")
+    tl.setup(operator=A)
+    b = -go.residual(V.zero(torch.float32))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    before = bk.launches_mm
+    (x, st), solve_s = timed(torch, lambda: cg(A, b, M=tl.apply, tol=1e-8, maxiter=200))
+    launched = bk.launches_mm - before
+    true_rel = float(torch.linalg.norm(A(x) - b) / torch.linalg.norm(b))
+    info = tl.amg.hierarchy_info()
+    split = ", ".join(f"{k} {v:.3f}" for k, v in tl.amg.setup_times.items())
+    log(f"[phase 11e] DGTwoLevel(coarse='amg') {cells}^3 Q1 SIPG (N = {V.ndofs}) fp32: "
+        f"{st.iterations} CG iterations (7c gmg coarse: {DGMG_GMG_ITS}), converged "
+        f"{bool(st.converged)}, true rel residual {true_rel:.3e}; setup {setup_s:.3f} s "
+        f"(AMG {split} s; {len(info['sizes'])} levels on N = {info['sizes'][0]}); solve "
+        f"{solve_s:.3f} s = {1e3 * solve_s / max(st.iterations, 1):.3f} ms/iteration; "
+        f"blockstencil_mm launches {launched}; {CARD}")
+    if launched == 0:
+        raise AssertionError("11e: DGTwoLevel(coarse='amg') launched no blockstencil_mm")
+    if not (bool(st.converged) and bool(torch.isfinite(x).all()) and true_rel < 1e-2):
+        raise AssertionError(f"11e: {st.iterations} iterations, converged {st.converged}")
+    del x, b, tl, A, go, V
+    torch.cuda.empty_cache()
+
+
+def direct_eigen_geneo(torch, pt, dev):
+    """Phase 11f: SEQ_SuperLU on 2D Q2 Poisson at DIRECT_CELLS^2 (fp64);
+    lobpcg for the 4 smallest eigenpairs of the 2D Q1 Dirichlet Laplacian
+    with mass at EIGEN_CELLS^2 (fp64, Jacobi preconditioned); GenEO
+    (method="ilu", boxes (4, 4)) on the high-contrast 2D Q1 problem at
+    GENEO_CELLS^2 (fp64), its CG iterations on the card against the same
+    code on the CPU."""
+    from dune_pdelab_tpu_torch.linalg import cg
+    from dune_pdelab_tpu_torch.linalg.eigen import lobpcg
+    from dune_pdelab_tpu_torch.linalg.geneo import geneo_preconditioner_for
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM, ConvectionDiffusionProblem
+    from dune_pdelab_tpu_torch.ops.l2 import L2
+    from dune_pdelab_tpu_torch.solvers import SEQ_SuperLU
+
+    f64 = torch.float64
+    p = sine2d_problem()
+    mesh = pt.StructuredMesh([0, 0], [1, 1], (DIRECT_CELLS,) * 2)
+    V = pt.FunctionSpace(mesh, pt.QkFEM(2, 2))
+    go = pt.GridOperator(V, ConvectionDiffusionFEM(p),
+                         constraints=pt.constraints(p.dirichlet_bctype(), V, device=dev))
+    x0 = pt.interpolate_dirichlet(p.g, V, go.cg, V.zero(f64, dev))
+    ls = SEQ_SuperLU()
+    x, wall = timed(torch, lambda: pt.StationaryLinearProblemSolver(
+        go, ls, reduction=1e-12).apply(x0))
+    st = ls.stats_history[-1]
+    rel = float(st.defect) / float(st.defect0)
+    true_rel = float(torch.linalg.norm(go.residual(x)) / torch.linalg.norm(go.residual(x0)))
+    log(f"[phase 11f] SEQ_SuperLU 2D Q2 {DIRECT_CELLS}^2 (N = {V.ndofs}) fp64: relative "
+        f"defect {rel:.3e} (host), true rel defect {true_rel:.3e} (card), {wall:.3f} s; "
+        f"{CARD}")
+    if not (rel <= 1e-12 and true_rel <= 1e-11 and x.device == x0.device):
+        raise AssertionError(f"11f direct: rel defect {rel:.3e}, true {true_rel:.3e}")
+
+    mesh = pt.StructuredMesh([0, 0], [1, 1], (EIGEN_CELLS,) * 2)
+    V = pt.FunctionSpace(mesh, pt.QkFEM(1, 2))
+    cons = pt.constraints(True, V, device=dev)
+    goA = pt.GridOperator(V, ConvectionDiffusionFEM(ConvectionDiffusionProblem()),
+                          constraints=cons)
+    goB = pt.GridOperator(V, L2(), constraints=cons)
+    z, m = V.zero(f64, dev), cons.mask
+    d = torch.where(m, 1e6, goA.jacobian_diagonal(z))
+    res, wall = timed(torch, lambda: lobpcg(
+        lambda v: torch.where(m, 1e6 * v, goA.jacobian_apply(z, v)), k=4, n=V.ndofs,
+        B=lambda v: torch.where(m, v, goB.jacobian_apply(z, v)), M=lambda r: r / d,
+        tol=1e-4, maxiter=1000, dtype=f64, device=dev))
+    lam = (res.eigenvalues / math.pi**2).tolist()
+    exact = [2.0, 5.0, 5.0, 8.0]
+    log(f"[phase 11f] lobpcg {EIGEN_CELLS}^2 Q1 (N = {V.ndofs}) fp64: lambda / pi^2 = "
+        f"{lam}, residual norms {res.residual_norms.tolist()}, {res.iterations} "
+        f"iterations, {wall:.3f} s; {CARD}")
+    if not (all(abs(a - b) / b < 0.02 for a, b in zip(lam, exact))
+            and bool((res.residual_norms <= 1e-4).all())):
+        raise AssertionError(f"11f lobpcg: {lam}, {res.residual_norms.tolist()}")
+
+    class HighContrast(ConvectionDiffusionProblem):
+        """tests/test_solver_utils.py HighContrast: layered 1 / 1e4 diffusion."""
+
+        def A(self, x):
+            return torch.where(torch.floor(x[..., 1] * 8) % 2 == 0, 1.0, 1e4)
+
+        def f(self, x):
+            return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+    mesh = pt.StructuredMesh([0, 0], [1, 1], (GENEO_CELLS,) * 2)
+    V = pt.FunctionSpace(mesh, pt.QkFEM(1, 2))
+    its = []
+    for where in (dev, torch.device("cpu")):
+        go = pt.GridOperator(V, ConvectionDiffusionFEM(HighContrast()),
+                             constraints=pt.constraints(True, V, device=where))
+        z = V.zero(f64, where)
+        M, setup_s = timed(torch, lambda: geneo_preconditioner_for(
+            go, x_lin=z, boxes=(4, 4), nev=3, method="ilu"))
+        b = go.residual(z)
+        (_, st), solve_s = timed(torch, lambda: cg(lambda v: go.jacobian_apply(z, v), b, M=M,
+                                                   tol=1e-8, maxiter=2000))
+        its.append(st.iterations)
+        split = ", ".join(f"{k} {v:.3f}" for k, v in M.setup_times.items())
+        log(f"[phase 11f] GenEO ilu {GENEO_CELLS}^2 (N = {V.ndofs}) on {where.type}: "
+            f"{st.iterations} CG iterations, converged {bool(st.converged)}; setup "
+            f"{setup_s:.3f} s ({split} s), solve {solve_s:.3f} s; {CARD}")
+        if not bool(st.converged):
+            raise AssertionError(f"11f GenEO on {where.type} did not converge")
+    if abs(its[0] - its[1]) > 1:
+        raise AssertionError(f"11f GenEO iterations card {its[0]} vs CPU {its[1]}")
+
+
+def phase_algebraic(torch, pt, dev):
+    """Phase 11: the algebraic solvers. No hand kernel of their own: the AMG
+    cycle is plain-torch ELL SpMVs, its setup host scipy; 11d's Krylov
+    operator is stencil27, 11e's smoother operator blockstencil_mm."""
+    amg_config12(torch, pt, dev)
+    amg_simplex(torch, pt, dev)
+    amg_tets(torch, pt, dev)
+    amg_readme(torch, pt, dev)
+    amg_dg(torch, pt, dev)
+    direct_eigen_geneo(torch, pt, dev)
+
+
 def main():
     if not (ROOT / "dune_pdelab_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -2609,6 +2978,8 @@ def main():
         ("phase 9 (Newton, time stepping)", lambda: phase_newton(torch, pt, dev),
          ("ell27",)),
         ("phase 10 (composite spaces, Stokes)", lambda: phase_stokes(torch, pt, dev), ()),
+        ("phase 11 (algebraic solvers)", lambda: phase_algebraic(torch, pt, dev),
+         ("stencil27", "blockstencil_mm")),
     ]
     totals = dict.fromkeys(counters, 0)
     for name, run, needed in paths:
@@ -2623,7 +2994,7 @@ def main():
             raise AssertionError(f"{name} never launched {missing}: {counts}")
         for k in totals:
             totals[k] += counts[k]
-    log(f"launch counts over phases 3-10: {totals}")
+    log(f"launch counts over phases 3-11: {totals}")
 
     meta = {
         "stencil27": ("dune_pdelab_tpu_torch/csrc/stencil27.cu",

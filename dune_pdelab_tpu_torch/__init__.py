@@ -18,9 +18,13 @@ and element-major layouts, block preconditioners, DGTwoLevel), geometric
 multigrid on re-discretised levels (GeometricMultigrid, multicolor SSOR),
 Newton (NewtonMethod) and one-step time stepping (instationary/),
 composite spaces (CompositeSpace, PowerSpace, PermutedSpace,
-entity_blocked) with multi-leaf assembly, and Taylor-Hood and DG
+entity_blocked) with multi-leaf assembly, Taylor-Hood and DG
 (Navier-)Stokes (ops/stokes.py, ops/dgnavierstokes.py) with their block
-preconditioners (solvers/stokes.py). See ROADMAP.md for what remains.
+preconditioners (solvers/stokes.py), and the algebraic solvers: simplex
+meshes with PkFEM volume assembly, smoothed-aggregation AMG
+(linalg/amg.py, SEQ_CG_AMG, DGTwoLevel(coarse="amg")), the sparse direct
+backends (solvers/direct.py), LOBPCG (linalg/eigen.py) and GenEO
+(linalg/geneo.py). See ROADMAP.md for what remains.
 
 Entry points put their tensors on `default_device()`, the card, unless the
 caller names a device or calls `set_default_device` (the CPU tests do).
@@ -28,8 +32,8 @@ caller names a device or calls `set_default_device` (the CPU tests do).
 
 __version__ = "0.1.0"
 
-from dune_pdelab_tpu_torch.mesh import StructuredMesh
-from dune_pdelab_tpu_torch.fe import QkDGFEM, QkFEM, gauss_legendre, quadrature_rule
+from dune_pdelab_tpu_torch.mesh import SimplexMesh, StructuredMesh
+from dune_pdelab_tpu_torch.fe import PkFEM, QkDGFEM, QkFEM, gauss_legendre, quadrature_rule
 from dune_pdelab_tpu_torch.space import (
     CompositeSpace, FunctionSpace, PermutedSpace, PowerSpace, entity_blocked,
 )
@@ -45,6 +49,7 @@ from dune_pdelab_tpu_torch.solvers.linear import (
     LinearSolverBackend, SEQ_CG_Jacobi, SEQ_BCGS_Jacobi, SEQ_GMRES_Jacobi,
     MatrixFree_CG_Richardson, SEQ_CG_ILU0, SEQ_BCGS_ILU0, SEQ_CG_ILUn,
     SEQ_BCGS_ILUn, SEQ_CG_BlockJacobi, SEQ_CG_SSOR, SEQ_BCGS_SSOR,
+    SEQ_CG_AMG, SEQ_BCGS_AMG,
 )
 from dune_pdelab_tpu_torch.linalg.dgmultigrid import DGTwoLevel
 from dune_pdelab_tpu_torch.utils.common import default_device, set_default_device

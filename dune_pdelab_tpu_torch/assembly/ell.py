@@ -107,8 +107,11 @@ class EllMatrix:
 
 
 def _lattice_space(space):
-    """Single-leaf C0 tensor Lagrange space on a non-periodic mesh."""
-    return (getattr(space, "is_leaf", False) and space.fem.continuity == "C0"
+    """Single-leaf C0 tensor Lagrange space on a non-periodic structured
+    cube mesh (a simplex mesh declines: it has no DOF lattice)."""
+    return (getattr(space, "is_leaf", False)
+            and space.mesh.geometry_type == "cube"
+            and space.fem.continuity == "C0"
             and hasattr(space.fem, "_mi") and not any(space.mesh.periodic))
 
 

@@ -1,7 +1,8 @@
 """GridOperator: global residual / Jacobian-apply as batched kernels.
 
 PyTorch port of dune_pdelab_tpu/assembly/gridoperator.py for leaf and
-composite spaces on a uniform non-periodic structured mesh (reference:
+composite spaces on a uniform non-periodic structured mesh, and for
+volume-only operators on a simplex mesh (reference:
 dune/pdelab/gridoperator/gridoperator.hh:35-240 facade,
 gridoperator/default/assembler.hh:84-279 element and intersection sweep):
 
@@ -16,9 +17,16 @@ gridoperator/default/assembler.hh:84-279 element and intersection sweep):
   * constrained rows are zeroed in the residual and act as identity in J.
 
 `element_jacobians`, `element_diagonal_blocks`, the assembled `jacobian` (a
-sparse COO tensor) and `jacobian_diagonal` probe the kernels with jvps, as
-the reference does, in the concatenated local layout of the leaves.
-Mapped-mesh and simplex face groups wait for ROADMAP slice 11.
+sparse COO tensor; `jacobian_csr` hands it to host scipy) and
+`jacobian_diagonal` probe the kernels with jvps, as the reference does, in
+the concatenated local layout of the leaves.
+
+On a simplex mesh the volume context carries per-element geometry:
+`jac_inv_T` (E, nqp, d, d), physical gradients (E, nqp, nb, d) and the
+physical quadrature points `qp_phys`. Mapped-mesh and simplex face groups
+wait for ROADMAP slice 11: a simplex operator with boundary or skeleton
+kernels raises, unless a pure-Dirichlet problem drops its boundary terms
+with skip_boundary=True (the reference's shortcut).
 
 There is no jit: PyTorch runs eagerly. Context tensors (tabulations,
 factors, quadrature points) are built once per (dtype, device) and cached.
@@ -114,13 +122,20 @@ class GridOperator:
         self.qorder = quad_order if quad_order is not None else lop.quad_order(degree)
         qp, w = quadrature_rule(self.mesh.geometry_type, self.mesh.dim, self.qorder)
         self.vol_geo = VolumeGeometry(self.mesh, qp, w)
-        self._vol_tabs = self._make_tabs(qp)
+        self._vol_tabs = self._make_tabs(qp, self.vol_geo)
 
         self.has = {name: hasattr(lop, name) for name in _KERNELS}
         if skip_boundary:
             # pure-Dirichlet shortcut: the boundary terms vanish
             self.has["alpha_boundary"] = False
             self.has["lambda_boundary"] = False
+        needs_faces = (self.has["alpha_boundary"] or self.has["lambda_boundary"]
+                       or self.has["alpha_skeleton"])
+        if needs_faces and self.mesh.geometry_type != "cube":
+            raise NotImplementedError(
+                f"face integrals on a {self.mesh.geometry_type} mesh are not "
+                "ported yet (ROADMAP slice 11); for a pure-Dirichlet problem "
+                "pass skip_boundary=True")
         if hasattr(lop, "skip_entity") or hasattr(lop, "skip_intersection"):
             raise NotImplementedError(
                 "selective assembly (skip_entity/skip_intersection) is not "
@@ -136,14 +151,16 @@ class GridOperator:
     # ------------------------------------------------------------------
     # setup of face groups (uniform structured mesh)
     # ------------------------------------------------------------------
-    def _make_tabs(self, pts_ref):
+    def _make_tabs(self, pts_ref, geo=None):
         """Per leaf: (values, physical gradients, reference gradients,
-        degree) at reference points (uniform geometry: one shared gradient
-        transform)."""
+        degree) at reference points: one shared gradient transform on a
+        uniform mesh, the per-element one of `geo` else."""
         out = []
         for lf in self.leaves:
             vals, grads = lf.fem.tabulate(pts_ref)
-            out.append((vals, (grads / self.mesh.h)[None], grads, lf.fem.degree))
+            gphys = (geo.transform_grad(grads) if geo is not None
+                     else (grads / self.mesh.h)[None])
+            out.append((vals, gphys, grads, lf.fem.degree))
         return out
 
     # ------------------------------------------------------------------
@@ -270,9 +287,8 @@ class GridOperator:
             def t(a):
                 return torch.as_tensor(a, dtype=dtype, device=device)
 
-            x = (vg.origins_tensor(dtype, device)[:, None, :]
-                 + t(vg.qp_phys_offset)[None])
-            return dict(weights=t(vg.weights), x=x, factor=t(vg.factor),
+            return dict(weights=t(vg.weights), x=vg.x_tensor(dtype, device),
+                        factor=t(vg.factor),
                         tabs=self._leaf_tab(self._vol_tabs, t),
                         jac_inv_T=t(vg.jac_inv_T), cell_volume=t(vg.cell_volume))
         return VolumeContext(time=time, **self._cached(("vol",), build, dtype, device))
@@ -540,6 +556,12 @@ class GridOperator:
             return torch.sparse_coo_tensor(torch.stack([rows, cols]), data,
                                            (n, n)).coalesce()
 
+    def jacobian_csr(self, x, time=0.0):
+        """The assembled Jacobian as a host scipy CSR matrix (values in
+        x's dtype; canonical: sorted indices, duplicates summed), as AMG,
+        GenEO and the direct solvers take it."""
+        return sparse_to_csr(self.jacobian(x, time))
+
     def jacobian_diagonal(self, x, time=0.0):
         """diag(J) including all integration domains; constrained rows -> 1.
 
@@ -580,3 +602,15 @@ class GridOperator:
         if self.cg is not None:
             d = torch.where(self.cg.mask_on(x.device), 1.0, d)
         return d
+
+
+def sparse_to_csr(A):
+    """A coalesced torch sparse COO matrix as a canonical host scipy CSR
+    matrix (coalesced indices are sorted row-major with duplicates summed,
+    which is the CSR order)."""
+    import scipy.sparse as sp
+
+    A = A.coalesce()
+    ind = A.indices().cpu().numpy()
+    return sp.csr_matrix((A.values().cpu().numpy(), (ind[0], ind[1])),
+                         shape=tuple(A.shape))

@@ -156,6 +156,8 @@ def compile_stencil(go, x_lin=None, time=0.0, check=True, dtype=None,
         return None
     fem = space.fem
     mesh = space.mesh
+    if mesh.geometry_type != "cube":
+        return None          # a simplex mesh has no lattice stencil
     if (fem.continuity != "C0" or not hasattr(fem, "_mi")
             or not mesh.uniform or any(mesh.periodic)):
         return None

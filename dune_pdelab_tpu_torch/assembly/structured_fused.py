@@ -45,6 +45,8 @@ def _qualifies(go, include_lambda):
     if not getattr(space, "is_leaf", False):
         return False
     fem, mesh = space.fem, space.mesh
+    if mesh.geometry_type != "cube":
+        return False         # a simplex mesh has no lattice to fuse over
     if (fem.continuity != "C0" or not hasattr(fem, "_mi")
             or fem.degree != 1 or mesh.dim != 3
             or mesh.geometry_type != "cube" or not mesh.uniform

@@ -1,8 +1,9 @@
 """Finite element bases tabulated as dense numpy arrays.
 
-PyTorch port of dune_pdelab_tpu/fe/basis.py, limited to the tensor
-Lagrange elements: continuous QkFEM and discontinuous QkDGFEM (the other
-families wait for later ROADMAP slices). A basis is its tabulation: `tabulate(points)` returns dense
+PyTorch port of dune_pdelab_tpu/fe/basis.py, limited to the Lagrange
+elements: continuous QkFEM and discontinuous QkDGFEM on the cube and
+continuous PkFEM on the simplex (PkDGFEM waits for ROADMAP slice 11, the
+other families for slice 13). A basis is its tabulation: `tabulate(points)` returns dense
 (nqp, nb) / (nqp, nb, dim) float64 arrays that the assembler turns into
 tensors. All polynomial manipulation happens in float64 numpy at setup.
 """
@@ -42,7 +43,7 @@ class FiniteElement:
     """A scalar finite element on a reference domain.
 
     Attributes:
-      geometry:   'cube'
+      geometry:   'cube' or 'simplex'
       dim:        reference dimension
       degree:     polynomial degree (quadrature-order heuristic input)
       nbasis:     number of basis functions
@@ -143,7 +144,72 @@ class QkDGFEM(_TensorLagrange):
         super().__init__(k, dim, "DG")
 
 
+class PkFEM(FiniteElement):
+    """Continuous Lagrange Pk on the simplex (reference:
+    dune/pdelab/finiteelementmap/pkfem.hh): lattice-point nodal basis via a
+    monomial Vandermonde, any k, any dimension."""
+
+    geometry = "simplex"
+
+    def __init__(self, k: int, dim: int):
+        if k < 1:
+            raise ValueError("PkFEM needs k >= 1 (P0 and PkDGFEM: ROADMAP "
+                             "slices 13 and 11)")
+        self.dim = dim
+        self.degree = k
+        self.k = k
+        self.continuity = "C0"
+        pts, exps = [], []
+        for mi in itertools.product(range(k + 1), repeat=dim):
+            if sum(mi) <= k:
+                pts.append([m / k for m in mi])
+                exps.append(mi)
+        self.nodes = np.array(pts)
+        self._exps = np.array(exps, dtype=int)
+        self.nbasis = len(self.nodes)
+        V = self._monomials(self.nodes)[0]
+        self._C = np.linalg.inv(V)  # vals = M(x) @ C
+
+    def _monomials(self, points: np.ndarray):
+        points = np.atleast_2d(points)
+        npts = points.shape[0]
+        nb = len(self._exps)
+        vals = np.ones((npts, nb))
+        for d in range(self.dim):
+            vals *= points[:, d:d + 1] ** self._exps[:, d]
+        grads = np.empty((npts, nb, self.dim))
+        for g in range(self.dim):
+            gg = np.ones((npts, nb))
+            for d in range(self.dim):
+                e = self._exps[:, d]
+                if d == g:
+                    with np.errstate(divide="ignore", invalid="ignore"):
+                        gg *= np.where(
+                            e == 0, 0.0,
+                            e * points[:, d:d + 1] ** np.maximum(e - 1, 0))
+                else:
+                    gg *= points[:, d:d + 1] ** e
+            grads[:, :, g] = gg
+        return vals, grads
+
+    def tabulate(self, points: np.ndarray):
+        V, dV = self._monomials(points)
+        return V @ self._C, np.einsum("pmd,mb->pbd", dV, self._C)
+
+
 @functools.lru_cache(maxsize=None)
 def q1_geometry(dim: int) -> QkFEM:
     """The Q1 element that maps reference points into cube elements."""
     return QkFEM(1, dim)
+
+
+@functools.lru_cache(maxsize=None)
+def p1_geometry(dim: int) -> PkFEM:
+    """The P1 element that maps reference points into simplex elements."""
+    return PkFEM(1, dim)
+
+
+def geometry_element(geometry: str, dim: int) -> FiniteElement:
+    """The first-order element of a mesh's corner map: Q1 on cubes, P1 on
+    simplices."""
+    return q1_geometry(dim) if geometry == "cube" else p1_geometry(dim)

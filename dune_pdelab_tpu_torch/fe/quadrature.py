@@ -1,9 +1,9 @@
 """Quadrature rules on reference cubes.
 
-PyTorch port of dune_pdelab_tpu/fe/quadrature.py (cube rules only; the
-simplex rules wait for ROADMAP slice 11). Rules are float64 numpy arrays
-computed once at setup, exactly as in the reference.
-Reference domain: cube = [0,1]^d.
+PyTorch port of dune_pdelab_tpu/fe/quadrature.py: tensor Gauss rules on
+the cube and collapsed (Duffy) Gauss-Jacobi rules on the simplex. Rules are
+float64 numpy arrays computed once at setup, exactly as in the reference.
+Reference domains: cube = [0,1]^d, simplex = {x : x_i >= 0, sum x_i <= 1}.
 """
 from __future__ import annotations
 
@@ -24,6 +24,17 @@ def gauss_legendre(order: int):
     return (x + 1.0) / 2.0, w / 2.0
 
 
+@functools.lru_cache(maxsize=None)
+def gauss_jacobi_alpha(order: int, alpha: int):
+    """Gauss-Jacobi rule on [0,1] with weight (1-x)^alpha, degree-`order` exact."""
+    from scipy.special import roots_jacobi
+
+    n = order // 2 + 1
+    x, w = roots_jacobi(n, alpha, 0.0)  # weight (1-x)^a on [-1,1]
+    # map to [0,1]: x' = (x+1)/2, weight (1-x)^a dx = (2(1-x'))^a 2 dx'
+    return (x + 1.0) / 2.0, w / 2.0 ** (alpha + 1)
+
+
 def cube_rule(dim: int, order: int):
     """Tensor-product Gauss rule on [0,1]^dim. Returns (points (nqp,dim), weights (nqp,))."""
     if dim == 0:
@@ -34,12 +45,45 @@ def cube_rule(dim: int, order: int):
     return np.ascontiguousarray(pts), wts
 
 
+def simplex_rule(dim: int, order: int):
+    """Collapsed (Duffy) Gauss rule on the reference simplex.
+
+    Gauss-Jacobi weights in the collapsed directions integrate the Jacobian
+    powers of the Duffy map exactly; total degree `order`.
+    """
+    if dim == 1:
+        x, w = gauss_legendre(order)
+        return x[:, None], w
+    if dim == 2:
+        xa, wa = gauss_legendre(order)
+        xb, wb = gauss_jacobi_alpha(order + 1, 1)
+        pts, wts = [], []
+        for b, vb in zip(xb, wb):
+            for a, va in zip(xa, wa):
+                # Duffy: (a,b) in [0,1]^2 -> (x,y) = (a(1-b), b); |J| = (1-b)
+                pts.append((a * (1.0 - b), b))
+                wts.append(va * vb)  # (1-b) absorbed by the Jacobi weight
+        return np.array(pts), np.array(wts)
+    if dim == 3:
+        xa, wa = gauss_legendre(order)
+        xb, wb = gauss_jacobi_alpha(order + 1, 1)
+        xc, wc = gauss_jacobi_alpha(order + 2, 2)
+        pts, wts = [], []
+        for c, vc in zip(xc, wc):
+            for b, vb in zip(xb, wb):
+                for a, va in zip(xa, wa):
+                    # x = a(1-b)(1-c), y = b(1-c), z = c; |J| = (1-b)(1-c)^2
+                    pts.append((a * (1 - b) * (1 - c), b * (1 - c), c))
+                    wts.append(va * vb * vc)
+        return np.array(pts), np.array(wts)
+    raise NotImplementedError(f"simplex quadrature for dim={dim}")
+
+
 def quadrature_rule(geometry: str, dim: int, order: int):
     """Rule on a reference domain; analog of `quadratureRule(geo, order)`
     (dune/pdelab/common/quadraturerules.hh:111)."""
     if geometry == "cube":
         return cube_rule(dim, order)
     if geometry == "simplex":
-        raise NotImplementedError(
-            "simplex quadrature is not ported yet (ROADMAP slice 11)")
+        return simplex_rule(dim, order)
     raise ValueError(f"unknown reference geometry {geometry!r}")

@@ -2,8 +2,9 @@
 
 Takes plain numpy data (e.g. `st.dims`, `st.k`, `st.weights`, `st.offsets`
 and `np.asarray(st.mask)` of a JAX StencilOperator, the level state of a
-JAX LatticeGMG or GeometricMultigrid, or `np.asarray(x)` of a JAX DOF
-vector) and builds the port's objects from it. Never imports jax, so it
+JAX LatticeGMG, GeometricMultigrid or AlgebraicMultigrid, a simplex mesh's
+arrays, or `np.asarray(x)` of a JAX DOF vector) and builds the port's
+objects from it. Never imports jax, so it
 runs where jax is absent.
 Tensors land on `device`, default utils/common.default_device().
 """
@@ -128,3 +129,32 @@ def block_stencil_from_numpy(cells, nb, W_taps, offsets, dD_sides, dtype=None):
 
     return BlockStencilOperator(tuple(int(c) for c in cells), int(nb), held(W_taps),
                                 np.asarray(offsets), held(dD_sides))
+
+
+def simplex_mesh_from_numpy(vertices, cells, boundary_vertices=None):
+    """Port SimplexMesh from a mesh's arrays (`m.vertices`, `m.cells`,
+    `m.boundary_vertex_mask()` of a JAX SimplexMesh)."""
+    from dune_pdelab_tpu_torch.mesh.simplex import SimplexMesh
+
+    bv = None if boundary_vertices is None else np.asarray(boundary_vertices, bool)
+    return SimplexMesh(np.asarray(vertices, np.float64), np.asarray(cells, np.int64),
+                       boundary_vertices=bv)
+
+
+def amg_from_host_levels(host_levels, host_coarse, *, device=None, **amg_kw):
+    """Port AlgebraicMultigrid V-cycle from the JAX package's hierarchy kept
+    with `setup_from_csr(A, keep_host=True)`: `amg.host_levels`, per level
+    (A, P, R, diag, rho) as scipy CSRs and numpy arrays, and the dense
+    coarse matrix `amg.host_coarse`. No set-up runs; the cycle's options
+    (smoother, presmooth, ...) are `amg_kw`. Holds the port's cycle against
+    the reference's even where a set-up detail differs."""
+    import scipy.sparse as sp
+
+    from dune_pdelab_tpu_torch.linalg.amg import AlgebraicMultigrid
+
+    amg = AlgebraicMultigrid(**amg_kw)
+    host = [(sp.csr_matrix(A, dtype=np.float64), sp.csr_matrix(P, dtype=np.float64),
+             sp.csr_matrix(R, dtype=np.float64), np.asarray(d, np.float64), float(rho))
+            for A, P, R, d, rho in host_levels]
+    coarse = np.asarray(host_coarse, np.float64)
+    return amg._install(host, coarse, np.count_nonzero(coarse), resolve_device(device))

@@ -3,11 +3,14 @@
 PyTorch port of dune_pdelab_tpu/linalg/dgmultigrid.py (reference:
 dune/pdelab/backend/istl/seq_amg_dg_backend.hh:146 — DG matrix + assembled
 CG subspace prolongation + AMG on the CG space; cg_to_dg_prolongation.hh).
-The coarse solve is one LatticeGMG V-cycle on the Q1 CG subspace (every
-3D level on the stencil27 kernel); where LatticeGMG does not apply (a CG
-subspace not Dirichlet on the whole boundary, a coarse operator that is
-not a lattice stencil) or `gmg_kwargs` tune the coarse solve, one
-GeometricMultigrid cycle (linalg/multigrid.py). The DG smoother is colored symmetric
+The coarse solve (coarse='gmg', the default on a structured mesh) is one
+LatticeGMG V-cycle on the Q1 CG subspace (every 3D level on the stencil27
+kernel); where LatticeGMG does not apply (a CG subspace not Dirichlet on
+the whole boundary, a coarse operator that is not a lattice stencil) or
+`gmg_kwargs` tune the coarse solve, one GeometricMultigrid cycle
+(linalg/multigrid.py). coarse='amg' takes one AlgebraicMultigrid V-cycle
+on the assembled Q1 operator instead (the literal seq_amg_dg_backend.hh
+composition), with the flat cycle below. The DG smoother is colored symmetric
 block Gauss-Seidel (face-parity two-coloring: DG blocks couple only through
 faces) with the element block inverses taken from the block stencil's
 3^dim boundary classes, and the CG->DG prolongation is the per-element L2
@@ -23,8 +26,8 @@ Two cycles compute the same preconditioner:
     corner slice adds; flat layout only at entry and exit.
 The mode-major cycle runs with the LatticeGMG coarse solve, as in the
 reference. The reference's three-jit split of that cycle (a workaround for
-its remote compiler) has no counterpart. Other coarse spaces raise: AMG
-waits for ROADMAP slice 10, simplex meshes for slice 11.
+its remote compiler) has no counterpart. DG on simplex meshes (PkDGFEM)
+waits for ROADMAP slice 11.
 
 Usable directly as the `precond` callable of LinearSolverBackend.
 """
@@ -54,7 +57,9 @@ class DGTwoLevel:
     bctype:  Dirichlet bctype for the CG subspace (strong constraints)
     gmg_kwargs: options of the GeometricMultigrid coarse solve (given:
              GeometricMultigrid even where LatticeGMG would apply)
-    coarse:  'gmg' or 'auto' (the same here)
+    coarse:  'gmg' (structured lattices), 'amg' (AlgebraicMultigrid on the
+             assembled CG operator, options `amg_kwargs`) or 'auto' (gmg on
+             the structured meshes the port's DG spaces live on)
     device:  where the coarse hierarchy lives (default: the default device)
     """
 
@@ -68,16 +73,14 @@ class DGTwoLevel:
         if not (space.is_leaf and space.fem.continuity == "DG"):
             raise ValueError("DGTwoLevel needs a single-leaf DG space")
         mesh = space.mesh
-        if coarse == "amg" or amg_kwargs:
-            raise NotImplementedError(
-                "DGTwoLevel coarse='amg' is not ported yet (AlgebraicMultigrid: "
-                "ROADMAP slice 10)")
-        if coarse not in ("auto", "gmg"):
+        if coarse == "auto":
+            coarse = "gmg"       # DG spaces of the port live on structured meshes
+        if coarse not in ("gmg", "amg"):
             raise ValueError(f"coarse={coarse!r}")
         self.go_dg = go_dg
         self.pre = pre_smooth
         self.post = post_smooth
-        self.coarse_kind = "gmg"
+        self.coarse_kind = coarse
         self.device = resolve_device(device)
         dim = mesh.dim
 
@@ -88,15 +91,23 @@ class DGTwoLevel:
         self.V_cg = FunctionSpace(mesh, cg_fem)
         self.cg_cg = make_constraints(bctype, self.V_cg, device=self.device)
         self.gmg_lattice = None
-        bmask = _leaf_boundary_dof_mask(self.V_cg)
-        if not gmg_kwargs and bool(np.all(self.cg_cg.mask_np[np.nonzero(bmask)[0]])):
-            try:
-                self.gmg_lattice = LatticeGMG(self.V_cg, cg_lop, device=self.device)
-            except (ValueError, NotImplementedError):
-                self.gmg_lattice = None
-        self.gmg = None if self.gmg_lattice is not None else GeometricMultigrid(
-            cg_lop, mesh, cg_fem, bctype=bctype, device=self.device,
-            **(gmg_kwargs or {}))
+        self.gmg = None
+        self.amg = None
+        if coarse == "amg":
+            from dune_pdelab_tpu_torch.assembly.gridoperator import GridOperator
+            from dune_pdelab_tpu_torch.linalg.amg import AlgebraicMultigrid
+            self._go_cg = GridOperator(self.V_cg, cg_lop, constraints=self.cg_cg)
+            self.amg = AlgebraicMultigrid(**(amg_kwargs or {}))
+        else:
+            bmask = _leaf_boundary_dof_mask(self.V_cg)
+            if not gmg_kwargs and bool(np.all(self.cg_cg.mask_np[np.nonzero(bmask)[0]])):
+                try:
+                    self.gmg_lattice = LatticeGMG(self.V_cg, cg_lop, device=self.device)
+                except (ValueError, NotImplementedError):
+                    self.gmg_lattice = None
+            if self.gmg_lattice is None:
+                self.gmg = GeometricMultigrid(cg_lop, mesh, cg_fem, bctype=bctype,
+                                              device=self.device, **(gmg_kwargs or {}))
         self._cg_map = make_leaf_dof_map(self.V_cg, None, offset=0)
 
         # CG -> DG embedding weights W[j, c]: the element-local corner hat
@@ -173,7 +184,11 @@ class DGTwoLevel:
                                    device=x_lin.device)
 
         gl = self.gmg_lattice
-        if gl is not None:
+        if self.amg is not None:
+            if self.amg._levels is None:
+                self.amg.setup_from_grid_operator(self._go_cg)
+            gmg_apply = self.amg.apply
+        elif gl is not None:
             lmask = gl.stencils[0].mask
 
             def gmg_apply(rc):

@@ -68,6 +68,12 @@ class StructuredMesh:
             dtype=np.int64,
         )
 
+    def element_vertex_indices(self) -> np.ndarray:
+        """(E, 2^dim) global vertex ids per element, corners in bit order."""
+        g = self.element_multi_index()[:, None, :] + self.corner_offsets()[None]
+        strides = np.cumprod((1,) + self.vdims[:-1]).astype(np.int64)
+        return g @ strides
+
     def vertex_coords(self) -> np.ndarray:
         """(NV, dim) vertex coordinates, dimension 0 fastest."""
         v = np.arange(self.nvertices, dtype=np.int64)

@@ -13,3 +13,6 @@ from dune_pdelab_tpu_torch.solvers.newton import (  # noqa: F401
 from dune_pdelab_tpu_torch.solvers.utilities import (  # noqa: F401
     GridOperatorPreconditioner, SolverStatistics, check_lop_interface, dense_jacobian,
 )
+from dune_pdelab_tpu_torch.solvers.direct import (  # noqa: F401
+    DirectSolverBackend, SEQ_SuperLU, SEQ_UMFPack, SparseLU,
+)

@@ -9,8 +9,10 @@ Gauss-Seidel or a callable. The operator tiers, in the reference's order
 of choice:
 
   * a callable `precond(go, x_lin, time) -> M` (a LatticeGMG, an ILU)
-    always runs on the general-jvp tier, even with matrix_free=False
-    (reference :302-312);
+    runs on the general-jvp tier, even with matrix_free=False (reference
+    :302-312), unless it sets `krylov_fast_tiers` (AlgebraicMultigrid):
+    then the Krylov operator takes the tiers below, as with a built-in
+    preconditioner (on a lattice space, the compiled stencil);
   * matrix_free=False: the assembled lattice-ELL matrix (assemble_ell; its
     apply is the ell27 kernel for a k = 1 3D operator on a CUDA tensor);
     where the space does not qualify, or use_ell=False, the sparse COO
@@ -220,7 +222,8 @@ class LinearSolverBackend:
 
     def _operator(self, go, x_lin, b, time, reuse=False):
         """(A, the stencil Jacobi reads its diagonal from or None, path)."""
-        if callable(self.precond):
+        if callable(self.precond) and not getattr(self.precond, "krylov_fast_tiers",
+                                                  False):
             return (lambda z: go.jacobian_apply(x_lin, z, time), None,
                     "general-jvp (matrix-free) + custom preconditioner "
                     f"{type(self.precond).__name__}")
@@ -263,6 +266,8 @@ class LinearSolverBackend:
         run = krylov.SOLVERS[self.solver]
         if callable(self.precond):
             M = self.precond(go, x_lin, time)
+            if getattr(self.precond, "krylov_fast_tiers", False):
+                path += f" + preconditioner {type(self.precond).__name__}"
         else:
             setup = self._precond_setup(go, op, x_lin, b, time, reuse)
             if isinstance(A, MMBlockStencil) and self.precond in _MM_PRECONDS:
@@ -356,13 +361,22 @@ def MatrixFree_CG_Richardson(**kw):
     return LinearSolverBackend(solver="cg", precond="richardson", **kw)
 
 
-def _not_ported(name, what, slice_):
-    def make(*args, **kw):
-        raise NotImplementedError(f"{name}: {what} is not ported yet "
-                                  f"(ROADMAP slice {slice_})")
-    make.__name__ = name
-    return make
+def SEQ_CG_AMG(**amg_kw):
+    """ISTLBackend_SEQ_CG_AMG_* analog (seqistlsolverbackend.hh:829-1060):
+    CG preconditioned by smoothed-aggregation AMG on the assembled operator
+    (linalg/amg.py), on any mesh and space. The keyword arguments split
+    into AMG knobs (theta, max_coarse, smoother, ...) and backend knobs."""
+    import inspect
+
+    from dune_pdelab_tpu_torch.linalg.amg import AlgebraicMultigrid
+    names = set(inspect.signature(AlgebraicMultigrid.__init__).parameters) - {"self"}
+    akw = {k: v for k, v in amg_kw.items() if k in names}
+    bkw = {k: v for k, v in amg_kw.items() if k not in names}
+    return LinearSolverBackend(solver="cg", precond=AlgebraicMultigrid(**akw), **bkw)
 
 
-SEQ_CG_AMG = _not_ported("SEQ_CG_AMG", "linalg/amg.py", 10)
-SEQ_BCGS_AMG = _not_ported("SEQ_BCGS_AMG", "linalg/amg.py", 10)
+def SEQ_BCGS_AMG(**amg_kw):
+    """ISTLBackend_SEQ_BCGS_AMG_* analog."""
+    b = SEQ_CG_AMG(**amg_kw)
+    b.solver = "bicgstab"
+    return b

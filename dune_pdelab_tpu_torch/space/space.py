@@ -1,9 +1,11 @@
 """Discrete function spaces: DOF maps as lattice arithmetic.
 
-PyTorch port of dune_pdelab_tpu/space/space.py on a structured cube mesh.
-Leaves: continuous (C0) Qk on the DOF lattice and discontinuous (DG) Qk
+PyTorch port of dune_pdelab_tpu/space/space.py. Leaves: continuous (C0)
+Qk on the DOF lattice of a structured cube mesh, discontinuous (DG) Qk
 numbered element-major, DOF e*nb + j for local basis function j of element
-e. H(div) and H(curl) layouts wait for ROADMAP slice 13.
+e, and continuous Pk on a simplex mesh, numbered [vertices | edge
+interiors | face interiors | cell interiors] (`_build_simplex_c0_map`).
+H(div) and H(curl) layouts wait for ROADMAP slice 13.
 
 Composite spaces (reference: powergridfunctionspace.hh /
 compositegridfunctionspace.hh, e.g. Taylor-Hood = Composite(Power<dim>(Q2),
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from dune_pdelab_tpu_torch.fe.basis import (
-    FiniteElement, lagrange_nodes_1d, q1_geometry,
+    FiniteElement, geometry_element, lagrange_nodes_1d,
 )
 from dune_pdelab_tpu_torch.mesh.structured import StructuredMesh
 from dune_pdelab_tpu_torch.utils.common import default_float, device_key, resolve_device
@@ -63,6 +65,10 @@ class FunctionSpace:
         if fem.continuity == "DG":
             self._dof_grid_dims = None
             self.ndofs = mesh.nelements * fem.nbasis
+        elif mesh.geometry_type == "simplex":
+            self._element_dofs = self._build_simplex_c0_map()
+            self._dof_grid_dims = None
+            self.ndofs = int(self._element_dofs.max()) + 1
         else:
             self._dof_grid_dims = self._c0_dims()
             self.ndofs = int(np.prod(self._dof_grid_dims))
@@ -99,6 +105,86 @@ class FunctionSpace:
         g = k * emi[:, None, :] + fem._mi[None, :, :]  # (E, nloc, dim)
         return g @ strides, dims
 
+    def _build_simplex_c0_map(self):
+        """Conforming Pk DOF map on a simplex mesh, any k (reference:
+        dune/pdelab/finiteelementmap/pkfem.hh).
+
+        Each PkFEM lattice node is classified by its integer barycentric
+        coordinates n_i = k*lambda_i (sum n_i = k):
+          * one n_i = k          -> vertex DOF (mesh vertex id);
+          * two nonzero          -> edge DOF; the k-1 interior nodes of each
+            unique edge are ordered along the GLOBAL edge direction
+            (ascending global vertex id), so both adjacent elements agree;
+          * three nonzero in 3D  -> face DOF, indexed by its barycentric
+            weights w.r.t. the face's SORTED global vertex triple;
+          * all nonzero          -> cell-interior DOF (element-private).
+
+        Global numbering: [vertices | edge interiors | face interiors (3D) |
+        cell interiors]."""
+        mesh, fem = self.mesh, self.fem
+        k = fem.degree
+        dim = mesh.dim
+        cells = mesh.cells
+        E = mesh.nelements
+        nv = mesh.nvertices
+        # integer barycentrics of the Pk lattice nodes; geometry corner
+        # convention (PkFEM(1, dim).nodes): lambda_0 = 1 - sum x,
+        # lambda_j = x[dim - j] for j = 1..dim
+        bary = np.zeros((fem.nbasis, dim + 1))
+        bary[:, 0] = 1.0 - fem.nodes.sum(axis=1)
+        for j in range(1, dim + 1):
+            bary[:, j] = fem.nodes[:, dim - j]
+        n_int = np.rint(k * bary).astype(np.int64)        # (nb, dim+1)
+        assert np.all(n_int.sum(axis=1) == k)
+
+        ne_per = k - 1
+        edge_base = nv
+        face_base = edge_base
+        if ne_per:                       # P1 has no edge DOFs: skip the edge list
+            uniq_edges, cell_edges = mesh.edges()
+            pairs = mesh._edge_pairs
+            face_base += len(uniq_edges) * ne_per
+        nfi = (k - 1) * (k - 2) // 2 if dim == 3 else 0
+        if nfi:
+            uniq_faces, face_of, _ = mesh.faces()
+            # rank of an interior face node by (m0, m1), its barycentric
+            # weights w.r.t. the two smallest global vertex ids
+            franks = np.full((k, k), -1, np.int64)
+            c = 0
+            for m0 in range(1, k):
+                for m1 in range(1, k - m0):
+                    franks[m0, m1] = c
+                    c += 1
+            cell_base = face_base + len(uniq_faces) * nfi
+        else:
+            cell_base = face_base
+        n_cell = int(np.sum(np.all(n_int >= 1, axis=1)))  # interior per cell
+
+        cols = []
+        n_interior_seen = 0
+        for b in range(fem.nbasis):
+            n = n_int[b]
+            nz = np.nonzero(n)[0]
+            if len(nz) == 1:                              # vertex
+                cols.append(cells[:, nz[0]])
+            elif len(nz) == 2:                            # edge interior
+                a, bb = int(nz[0]), int(nz[1])            # a < bb
+                eloc = pairs.index((a, bb))
+                j = int(n[bb])                            # parameter from a
+                jg = np.where(cells[:, a] < cells[:, bb], j - 1, k - 1 - j)
+                cols.append(edge_base + cell_edges[:, eloc] * ne_per + jg)
+            elif dim == 3 and len(nz) == 3:               # face interior
+                opp = int(np.setdiff1d(np.arange(4), nz)[0])
+                order = np.argsort(cells[:, nz], axis=1)  # sorted positions
+                w = n[nz][order]                          # weights, sorted-global order
+                cols.append(face_base + face_of[:, opp] * nfi
+                            + franks[w[:, 0], w[:, 1]])
+            else:                                         # cell interior
+                cols.append(cell_base + np.arange(E, dtype=np.int64) * n_cell
+                            + n_interior_seen)
+                n_interior_seen += 1
+        return np.stack(cols, axis=1).astype(np.int64)
+
     def boundary_dof_mask(self) -> np.ndarray:
         """(ndofs,) bool mask of DOFs on the domain boundary."""
         return _leaf_boundary_dof_mask(self)
@@ -122,15 +208,20 @@ class FunctionSpace:
     # -- node coordinates & interpolation ------------------------------------
     def dof_coords(self) -> np.ndarray:
         """(ndofs, dim) nodal coordinates: lattice arithmetic for a C0
-        space, the element node positions for a DG one (element-major)."""
+        lattice space, else the element node positions scattered through
+        the DOF map (conforming elements agree on shared entities)."""
         if self._dof_grid_dims is not None:
             return self.dof_coords_at(np.arange(self.ndofs, dtype=np.int64))
         pts = self._geometry_at(np.atleast_2d(self.fem.interpolation_points))
-        return pts.reshape(-1, self.mesh.dim)
+        coords = np.empty((self.ndofs, self.mesh.dim))
+        coords[self.element_dofs.reshape(-1)] = pts.reshape(-1, self.mesh.dim)
+        return coords
 
     def dof_coords_at(self, idx: np.ndarray) -> np.ndarray:
         """(len(idx), dim) nodal coordinates of selected DOFs, by lattice
-        arithmetic (no per-element geometry sweep)."""
+        arithmetic on a C0 lattice space (no per-element geometry sweep)."""
+        if self._dof_grid_dims is None:
+            return self.dof_coords()[np.asarray(idx)]
         k = self.fem.degree
         nodes1d = lagrange_nodes_1d(k)
         dims = self._dof_grid_dims
@@ -146,7 +237,8 @@ class FunctionSpace:
     def _geometry_at(self, ref_points: np.ndarray) -> np.ndarray:
         """Map reference points into every element: (E, npts, dim)."""
         corners = self.mesh.element_corner_coords()    # (E, C, dim)
-        vals, _ = q1_geometry(self.mesh.dim).tabulate(ref_points)
+        vals, _ = geometry_element(self.mesh.geometry_type,
+                                   self.mesh.dim).tabulate(ref_points)
         return np.einsum("pc,ecd->epd", vals, corners)
 
     def interpolate(self, f, dtype=None, device=None):
@@ -404,6 +496,8 @@ def _leaf_boundary_dof_mask(space: FunctionSpace) -> np.ndarray:
     Face-slice writes on the nd view: O(surface) work, no O(N) index
     arithmetic.
     """
+    if space.mesh.geometry_type == "simplex" and space.fem.continuity == "C0":
+        return _simplex_boundary_dof_mask(space)
     dims = space._dof_grid_dims
     if dims is None:
         raise NotImplementedError(
@@ -419,3 +513,23 @@ def _leaf_boundary_dof_mask(space: FunctionSpace) -> np.ndarray:
         sl[ax] = dims[d] - 1
         mask[tuple(sl)] = True
     return mask.reshape(-1)
+
+
+def _simplex_boundary_dof_mask(space: FunctionSpace) -> np.ndarray:
+    """Boundary DOFs of a Pk simplex space: boundary vertices, the interior
+    nodes of boundary edges (k >= 2) and of boundary faces (3D, k >= 3), in
+    the numbering of `_build_simplex_c0_map`."""
+    mesh, k = space.mesh, space.fem.degree
+    mask = np.zeros(space.ndofs, dtype=bool)
+    nv = mesh.nvertices
+    mask[:nv] = mesh.boundary_vertex_mask()[:min(nv, space.ndofs)]
+    base = nv
+    if k >= 2 and space.ndofs > nv:
+        em = mesh.boundary_edge_mask()
+        mask[base:base + len(em) * (k - 1)] = np.repeat(em, k - 1)
+        base += len(em) * (k - 1)
+    if mesh.dim == 3 and k >= 3:
+        fm = mesh.boundary_face_mask()
+        nfi = (k - 1) * (k - 2) // 2
+        mask[base:base + len(fm) * nfi] = np.repeat(fm, nfi)
+    return mask

@@ -10,7 +10,8 @@
     forward sweep, not symmetric) on the backend's block-stencil tier, and
     CG with Chebyshev (the same lambda_max start vector as the JAX
     package) take the JAX package's iteration counts;
-  * the coarse space that is not ported (AMG) raises, naming its slice;
+  * coarse="amg" builds an AlgebraicMultigrid coarse solve and an unknown
+    coarse space raises (the cycle's parity: tests/test_torch_amg.py);
     gmg_kwargs build the GeometricMultigrid coarse solve.
 """
 import json
@@ -171,13 +172,18 @@ def test_chebyshev_cg_iterations_match_jax(sipg2d):
 
 
 def test_unported_coarse_spaces_raise():
-    """AMG still raises, naming its slice; gmg_kwargs, which raised before
-    GeometricMultigrid was ported, now build that coarse solve."""
+    """coarse="amg", which raised before AlgebraicMultigrid was ported,
+    now builds that coarse solve; an unknown coarse space raises; gmg_kwargs,
+    which raised before GeometricMultigrid was ported, build that one."""
+    from dune_pdelab_tpu_torch.linalg.amg import AlgebraicMultigrid
     from dune_pdelab_tpu_torch.linalg.multigrid import GeometricMultigrid
 
     _, tgo = _pair(2, (8, 8))
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        DGTwoLevel(tgo, TFEM(TSource()), coarse="amg")
+    ta = DGTwoLevel(tgo, TFEM(TSource()), coarse="amg", amg_kwargs={"max_coarse": 20})
+    assert isinstance(ta.amg, AlgebraicMultigrid) and ta.amg.max_coarse == 20
+    assert ta.gmg is None and ta.gmg_lattice is None and ta.coarse_kind == "amg"
+    with pytest.raises(ValueError, match="coarse"):
+        DGTwoLevel(tgo, TFEM(TSource()), coarse="ilu")
     tl = DGTwoLevel(tgo, TFEM(TSource()), gmg_kwargs={"pre_sweeps": 3})
     assert tl.gmg_lattice is None and isinstance(tl.gmg, GeometricMultigrid)
     assert tl.gmg.pre == 3

@@ -125,14 +125,17 @@ def test_backend_general_jvp_tier(chains):
     assert s.iterations == s_ref.iterations and _rel(z.numpy(), ref.numpy()) <= 1e-10
     # the block and polynomial preconditioners are ported (their parity
     # with the JAX package: tests/test_torch_dg.py); SSOR is a callable
-    # (parity: tests/test_torch_residue.py), AMG is not ported
+    # (parity: tests/test_torch_residue.py), and so is AMG (parity:
+    # tests/test_torch_amg.py)
     for p in ("chebyshev", "block_jacobi", "block_gs"):
         assert LinearSolverBackend(precond=p).precond == p
     with pytest.raises(ValueError, match="SEQ_CG_SSOR"):
         LinearSolverBackend(precond="ssor")
     assert callable(SEQ_CG_SSOR().precond)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        SEQ_CG_AMG()
+    from dune_pdelab_tpu_torch.linalg.amg import AlgebraicMultigrid
+    amg_backend = SEQ_CG_AMG(theta=0.05, maxiter=77)
+    assert isinstance(amg_backend.precond, AlgebraicMultigrid)
+    assert amg_backend.precond.theta == 0.05 and amg_backend.maxiter == 77
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|dune_pdelab_tpu)(\.|\s|$)", re.M)
