@@ -109,12 +109,39 @@ Phases (each passes or raises; there is no CPU path):
      smoother on blockstencil_mm); (f) SEQ_SuperLU on 2D Q2 at 128^2,
      lobpcg for the 4 smallest Dirichlet-Laplacian eigenpairs at 128^2 and
      GenEO (method="ilu", boxes (4, 4)) at 128^2 on the card and the CPU.
+ 12. adaptivity and mesh breadth, fp64 (no hand kernel applies: K1-K6
+     decline simplex, periodic, mapped and hanging-node operators; every
+     apply is the general torch.func.jvp, the mesh work host numpy): (a)
+     the config6_adaptive_lshape golden (models/configs.py:206-265); (b)
+     the config6 problem at full size: uniform L-shapes cut from 256^2,
+     512^2 and 1024^2 squares (N = 788,481) and the adaptive loop from the
+     64^2 L-shape (p1_edge_jump_indicator -> Doerfler 0.5 ->
+     adapt_local_simplex, SEQ_CG_AMG with Chebyshev smoothing to 1e-10)
+     until N >= 10^6 or 25 cycles, with the per-cycle split of host and
+     device seconds, held to: N rising, L2 falling, <= 25 iterations, true
+     defect <= 1e-9, slope of log L2 on log N (N >= 1e4) below -0.75, an
+     iterate below the uniform 1024^2 error at no more DOFs, a conforming
+     final mesh; (c) 3D Traxler bisection on the Fichera problem: uniform
+     16^3 and 32^3 Kuhn meshes and the adaptive loop to N >= 2e5 beating
+     the uniform 32^3 error at no more DOFs; (d) the hanging-node
+     AdaptiveMesh Q1 loop (volume_residual_indicator, Doerfler 0.7,
+     Jacobi-CG) to N >= 5e4 against a uniform 256^2 run, the host loops
+     timed at ~1e5 leaves, and jacobian_apply against the assembled
+     P^T J P; (e) periodic 3D Poisson at 32^3/64^3 (L2 ratio 3-5), the
+     fully periodic heat run at 256^2, and the stencil, ELL and K3 tiers'
+     declines; (f) curved Dirichlet, Neumann-arc and periodic full-annulus
+     Poisson at 256^2/512^2 and curved SIPG at 128^2/256^2 (L2 ratios 3-5),
+     the identity map against the uniform operator; (g) SIPG PkDGFEM(1, 2)
+     on triangles at 128^2/256^2 with DGTwoLevel (AMG coarse), iterations
+     flat, and at 32^2 the residual, J.v, dg_jump_indicator,
+     MinmodSlopeLimiter and dwr_indicators on the card against the CPU,
+     the face-group residual twice bit-equal.
 
-Launch counts are set to 0 before each of phases 3 to 11 and read after
+Launch counts are set to 0 before each of phases 3 to 12 and read after
 it; a kernel of that path that was never launched fails the run (the
 comparison launches of phases 6a, 6c, 7a, 9a and 9c are not counted).
 Prints phase results and times, the card's name and power limit, one JSON
-line {"kernels": [...]} with each kernel's launches over phases 3-11,
+line {"kernels": [...]} with each kernel's launches over phases 3-12,
 error, times and bound, and as its last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -217,6 +244,26 @@ DGMG_GMG_ITS = 6          # phase 7c's gmg-coarse iterations at 64^3 (PERF.md)
 DIRECT_CELLS = 128        # phase 11f: SEQ_SuperLU on 2D Q2 Poisson
 EIGEN_CELLS = 128         # phase 11f: lobpcg on the 2D Q1 Dirichlet Laplacian with mass
 GENEO_CELLS = 128         # phase 11f: GenEO (method="ilu"), boxes (4, 4)
+ADAPT_UNIFORM = (256, 512, 1024)   # phase 12b: uniform L-shapes, N up to 788,481
+ADAPT_START = 64          # phase 12b: the adaptive loop's initial L-shape (64^2 square)
+ADAPT_TARGET = 10 ** 6    # phase 12b: run until N >= this
+ADAPT_MAX_CYCLES = 25     # phase 12b: or this many cycles
+ADAPT_ITS_MAX = 25        # phase 12b: AMG-CG iterations per cycle
+ADAPT_SLOPE_NMIN = 10 ** 4   # phase 12b: the slope is fitted over cycles with N >= this
+ADAPT_AMG = {"smoother": "chebyshev"}   # phase 12: the AMG smoother (with Jacobi
+# smoothing AMG-CG drifts to 29 iterations on 12b's graded meshes by 7e4 DOFs, and
+# the DGTwoLevel coarse solve of 12f to 29 iterations at 64^2; CPU runs)
+FICHERA_UNIFORM = (16, 32)   # phase 12c: uniform Kuhn Fichera meshes
+FICHERA_TARGET = 2 * 10 ** 5   # phase 12c: adaptive loop until N >= this
+FICHERA_MAX_CYCLES = 30   # Doerfler 0.6 grows N ~1.5x a cycle: 2e5 at cycle 26
+HANG_UNIFORM = 256        # phase 12d: uniform Q1 run, N = 66,049
+HANG_TARGET = 5 * 10 ** 4  # phase 12d: AdaptiveMesh loop until N >= this
+HANG_MAX_CYCLES = 40
+PERIODIC_CELLS = (32, 64)   # phase 12e: periodic 3D Poisson
+HEAT_PERIODIC_CELLS = 256   # phase 12e: fully periodic 2D heat
+MAPPED_CELLS = (256, 512)   # phase 12f: curved Poisson on the annulus
+MAPPED_DG_CELLS = (128, 256)   # phase 12f: SIPG on the curved mesh
+SIMPLEX_DG_CELLS = (128, 256)  # phase 12g: SIPG PkDGFEM(1, 2) on triangles
 CARD = "card not read yet"   # nvidia-smi name and power limit, set by main()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -2916,6 +2963,682 @@ def phase_algebraic(torch, pt, dev):
     direct_eigen_geneo(torch, pt, dev)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: adaptivity and mesh breadth (newest-vertex bisection and the
+# config6 loop, hanging nodes, periodic and mapped meshes, simplex faces
+# and PkDGFEM); no hand kernel applies to these operators
+# ---------------------------------------------------------------------------
+
+def _lshape_exact(torch, p):
+    """u = r^(2/3) sin(2 theta / 3), theta in [0, 2 pi) (config6)."""
+    r = torch.hypot(p[..., 0], p[..., 1])
+    th = torch.remainder(torch.atan2(p[..., 1], p[..., 0]), 2 * math.pi)
+    return torch.where(r == 0, torch.zeros_like(r), r ** (2 / 3) * torch.sin(2 * th / 3))
+
+
+def lshape_problem():
+    import torch
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+
+    class Corner(ConvectionDiffusionProblem):
+        def exact(self, p):
+            return _lshape_exact(torch, p)
+
+        def f(self, x):
+            return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+        def g(self, x):
+            return _lshape_exact(torch, x)
+    return Corner()
+
+
+def lshape_mesh(pt, n):
+    """The L-shape [-1, 1]^2 minus the lower-right quadrant, cut from a
+    triangulated n^2 square and oriented for bisection (config6)."""
+    sq = pt.SimplexMesh.from_structured(pt.StructuredMesh([-1, -1], [1, 1], (n, n)))
+    c = sq.element_centers()
+    return sq.submesh(~((c[:, 0] > 0) & (c[:, 1] < 0))).oriented_for_bisection()
+
+
+def adapt_solve(torch, pt, V, problem, dev, solver="amg", reduction=1e-10):
+    """One solve of the adaptive loop on `dev` in fp64: constraints, the
+    GridOperator (boundary face groups built), AMG setup (or none for
+    Jacobi), CG. Returns (x, iterations, true relative defect, seconds of
+    {constraints, operator+setup, solve})."""
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
+
+    t = {}
+    t0 = time.perf_counter()
+    cgm = pt.constraints(problem.dirichlet_bctype(), V, device=dev)
+    x0 = pt.interpolate_dirichlet(problem.g, V, cgm, V.zero(torch.float64, dev))
+    torch.cuda.synchronize()
+    t["constraints"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    go = pt.GridOperator(V, ConvectionDiffusionFEM(problem), constraints=cgm)
+    ls = pt.SEQ_CG_AMG(**ADAPT_AMG) if solver == "amg" else pt.SEQ_CG_Jacobi(maxiter=20000)
+    if solver == "amg":
+        ls.precond(go, x0, 0.0)
+    torch.cuda.synchronize()
+    t["operator+setup"] = time.perf_counter() - t0
+    slp = pt.StationaryLinearProblemSolver(go, ls, reduction=reduction, verbose=0)
+    x, t["solve"] = timed(torch, lambda: slp.apply(x0))
+    r0 = float(torch.linalg.norm(go.residual(x0)))
+    true_rel = float(torch.linalg.norm(go.residual(x))) / r0 if r0 > 0 else 0.0
+    if not (slp.result.converged and bool(torch.isfinite(x).all())):
+        raise AssertionError(f"phase 12: solve on N = {V.ndofs} did not converge")
+    return x, slp.result.linear_solver_iterations, true_rel, t, go
+
+
+def adapt_config6(torch, pt, dev):
+    """Phase 12a: config6_adaptive_lshape (models/configs.py:206-265) on the
+    card in fp64: P1 on the L-shape of an 8^2 square, Doerfler 0.5 on the
+    edge-jump indicator, four bisection cycles, Jacobi-CG to 1e-12, held
+    against tests/golden_parity.json."""
+    from dune_pdelab_tpu_torch.adaptivity import (
+        adapt_local_simplex, error_fraction, mark_elements, p1_edge_jump_indicator,
+    )
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    want = json.loads((ROOT / "tests" / "golden_parity.json").read_text())[
+        "config6_adaptive_lshape"]
+    p = lshape_problem()
+    V = pt.FunctionSpace(lshape_mesh(pt, 8), pt.PkFEM(1, 2))
+    x, its, _, _, _ = adapt_solve(torch, pt, V, p, dev, "jacobi", 1e-12)
+    got = {}
+    for cyc in range(4):
+        got[f"ndofs_cycle{cyc}"] = V.ndofs
+        got[f"l2_cycle{cyc}"] = float(l2_difference(V, x, p.exact))
+        eta2 = p1_edge_jump_indicator(V, x)
+        marks, _ = mark_elements(eta2, error_fraction(eta2, 0.5))
+        V, x = adapt_local_simplex(V, x, marks)
+        x, its, _, _, _ = adapt_solve(torch, pt, V, p, dev, "jacobi", 1e-12)
+    got["ndofs"] = V.ndofs
+    got["l2_error"] = float(l2_difference(V, x, p.exact))
+    got["iterations"] = its
+    log(f"[phase 12a] config6 on the card: {got} (golden {want}); {CARD}")
+    bad = [k for k in want if (abs(got[k] / want[k] - 1) > 1e-10 if k.startswith("l2")
+                               else got[k] != want[k])]
+    if bad:
+        raise AssertionError(f"config6 golden not reproduced in {bad}: {got} vs {want}")
+
+
+def _conforming(mesh):
+    return int(mesh.faces()[2].max()) <= 2
+
+
+def _slope(ns, errs, nmin):
+    """Least-squares slope of log L2 against log N over the points N >= nmin."""
+    import numpy as np
+
+    sel = [i for i, n in enumerate(ns) if n >= nmin]
+    return float(np.polyfit(np.log(np.asarray(ns)[sel]), np.log(np.asarray(errs)[sel]), 1)[0])
+
+
+def adapt_loop(torch, pt, V, problem, dev, tag, target, max_cycles, fraction, f=None):
+    """The simplex adaptive loop: solve (AMG-CG) -> p1_edge_jump_indicator
+    -> mark_elements(error_fraction) -> adapt_local_simplex, until N >=
+    target or max_cycles. Prints the per-cycle split; returns the list of
+    (N, L2, iterations, true defect) and the final space."""
+    from dune_pdelab_tpu_torch.adaptivity import (
+        adapt_local_simplex, error_fraction, mark_elements, p1_edge_jump_indicator,
+    )
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    rows = []
+    x = None
+    for cyc in range(max_cycles + 1):
+        split = {}
+        if x is None:
+            x, its, rel, ts, _ = adapt_solve(torch, pt, V, problem, dev)
+        else:
+            t0 = time.perf_counter()
+            eta2 = p1_edge_jump_indicator(V, x, f)
+            split["indicator"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            marks, _ = mark_elements(eta2, error_fraction(eta2, fraction))
+            split["marking"] = time.perf_counter() - t0
+            V, x = adapt_local_simplex(V, x, marks, timings=split)
+            x, its, rel, ts, _ = adapt_solve(torch, pt, V, problem, dev)
+        split["space+constraints"] = split.pop("space", 0.0) + ts["constraints"]
+        split.update({"operator+AMG setup": ts["operator+setup"], "solve": ts["solve"]})
+        l2 = float(l2_difference(V, x, problem.exact))
+        rows.append((V.ndofs, l2, its, rel))
+        log(f"[{tag}] cycle {cyc}: N = {V.ndofs}, {V.mesh.nelements} cells, L2 {l2:.6e}, "
+            f"AMG-CG {its} iterations, true rel defect {rel:.3e}; s: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+        if V.ndofs >= target:
+            break
+    return rows, V
+
+
+def adapt_lshape_full(torch, pt, dev):
+    """Phase 12b: the slice's path at full size on the config6 problem:
+    uniform baselines (L-shapes of triangulated ADAPT_UNIFORM^2 squares,
+    SEQ_CG_AMG with a Chebyshev smoother to 1e-10) and the adaptive loop
+    from an ADAPT_START^2 L-shape (Doerfler 0.5) to N >= ADAPT_TARGET."""
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    p = lshape_problem()
+    uni = []
+    for n in ADAPT_UNIFORM:
+        V = pt.FunctionSpace(lshape_mesh(pt, n), pt.PkFEM(1, 2))
+        (x, its, rel, ts, _), wall = timed(torch, lambda: adapt_solve(torch, pt, V, p, dev))
+        uni.append((V.ndofs, float(l2_difference(V, x, p.exact))))
+        log(f"[phase 12b] uniform {n}^2 L-shape: N = {V.ndofs}, L2 {uni[-1][1]:.6e}, "
+            f"AMG-CG {its} iterations, true rel defect {rel:.3e}, {wall:.3f} s ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in ts.items()) + ")")
+    uni_slope = _slope([n for n, _ in uni], [e for _, e in uni], 0)
+    t0 = time.perf_counter()
+    V = pt.FunctionSpace(lshape_mesh(pt, ADAPT_START), pt.PkFEM(1, 2))
+    rows, V = adapt_loop(torch, pt, V, p, dev, "phase 12b", ADAPT_TARGET, ADAPT_MAX_CYCLES, 0.5)
+    loop_s = time.perf_counter() - t0
+    ns, errs = [r[0] for r in rows], [r[1] for r in rows]
+    slope = _slope(ns, errs, ADAPT_SLOPE_NMIN)
+    n_big, e_big = uni[-1]
+    better = [(n, e) for n, e in zip(ns, errs) if n <= n_big and e < e_big]
+    log(f"[phase 12b] adaptive loop {loop_s:.2f} s over {len(rows) - 1} cycles, final N = "
+        f"{ns[-1]}; slope of log L2 on log N (N >= {ADAPT_SLOPE_NMIN}) {slope:.4f}, uniform "
+        f"{uni_slope:.4f}; "
+        f"first adaptive iterate below the uniform {ADAPT_UNIFORM[-1]}^2 error "
+        f"{e_big:.6e}: {better[:1]}; {CARD}")
+    checks = {
+        "N rises": all(b > a for a, b in zip(ns, ns[1:])),
+        "L2 falls": all(b < a for a, b in zip(errs, errs[1:])),
+        "iterations": all(r[2] <= ADAPT_ITS_MAX for r in rows),
+        "true defect": all(r[3] <= 1e-9 for r in rows),
+        "slope": slope < -0.75,
+        "beats uniform": bool(better),
+        "conforming": _conforming(V.mesh),
+        # Doerfler 0.5 grows N ~1.2x a cycle: the cycle cap may end the loop first
+        "end": ns[-1] >= ADAPT_TARGET or len(rows) == ADAPT_MAX_CYCLES + 1,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 12b holds failed: {checks}")
+
+
+def fichera_problem():
+    import torch
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+
+    a = 0.3
+
+    class Fichera(ConvectionDiffusionProblem):
+        def exact(self, p):
+            return torch.linalg.norm(p, dim=-1) ** a
+
+        def f(self, x):
+            r = torch.sqrt(torch.sum(x * x, dim=-1) + 1e-30)
+            return -a * (a + 1.0) * r ** (a - 2.0)
+
+        def g(self, x):
+            return torch.linalg.norm(x, dim=-1) ** a
+    return Fichera()
+
+
+def fichera_mesh(pt, n, orient=True):
+    """[-1, 1]^3 minus [0, 1]^3 cut from n^3 Kuhn-triangulated cubes
+    (tests/test_simplex_adapt3d.py:164)."""
+    import numpy as np
+
+    m = pt.SimplexMesh.from_structured(pt.StructuredMesh([-1] * 3, [1] * 3, (n,) * 3))
+    m = m.submesh(~np.all(m.element_centers() > 0.0, axis=1))
+    return m.oriented_for_bisection() if orient else m
+
+
+def adapt_fichera(torch, pt, dev):
+    """Phase 12c: 3D Traxler bisection on the Fichera problem
+    (tests/test_simplex_adapt3d.py:123-200): uniform Kuhn meshes at
+    FICHERA_UNIFORM^3 and the adaptive loop (Doerfler 0.6 on the facet-jump
+    + source indicator) to N >= FICHERA_TARGET, AMG-CG."""
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    p = fichera_problem()
+    uni = []
+    for n in FICHERA_UNIFORM:
+        V = pt.FunctionSpace(fichera_mesh(pt, n, orient=False), pt.PkFEM(1, 3))
+        x, its, rel, ts, _ = adapt_solve(torch, pt, V, p, dev)
+        uni.append((V.ndofs, float(l2_difference(V, x, p.exact))))
+        log(f"[phase 12c] uniform Fichera {n}^3: N = {V.ndofs}, L2 {uni[-1][1]:.6e}, AMG-CG "
+            f"{its} iterations, true rel defect {rel:.3e}; s: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in ts.items()))
+    V = pt.FunctionSpace(fichera_mesh(pt, 2), pt.PkFEM(1, 3))
+
+    def src(c):
+        return p.f(torch.as_tensor(c)).numpy()
+
+    rows, V = adapt_loop(torch, pt, V, p, dev, "phase 12c", FICHERA_TARGET, FICHERA_MAX_CYCLES,
+                         0.6, f=src)
+    n32, e32 = uni[-1]
+    better = [(r[0], r[1]) for r in rows if r[0] <= n32 and r[1] < e32]
+    log(f"[phase 12c] final N = {rows[-1][0]}; first adaptive iterate below the uniform "
+        f"{FICHERA_UNIFORM[-1]}^3 error {e32:.6e} (N = {n32}): {better[:1]}; {CARD}")
+    if not (better and _conforming(V.mesh) and all(r[3] <= 1e-9 for r in rows)
+            and (rows[-1][0] >= FICHERA_TARGET or len(rows) == FICHERA_MAX_CYCLES + 1)):
+        raise AssertionError(f"phase 12c holds failed: {rows}, uniform {uni}")
+
+
+def corner_q1_problem():
+    """tests/test_adaptive.py:208 CornerSingularity: u = r^0.6, f = -lap u."""
+    import torch
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+
+    lam = 0.6
+
+    class CornerQ1(ConvectionDiffusionProblem):
+        def _r(self, x):
+            return torch.sqrt(x[..., 0] ** 2 + x[..., 1] ** 2 + 1e-30)
+
+        def exact(self, p):
+            return (torch.sqrt(p[:, 0] ** 2 + p[:, 1] ** 2) + 1e-30) ** lam
+
+        def f(self, x):
+            return -lam ** 2 * self._r(x) ** (lam - 2.0)
+
+        def g(self, x):
+            return self._r(x) ** lam
+    return CornerQ1()
+
+
+def adapt_hanging(torch, pt, dev):
+    """Phase 12d: the hanging-node AdaptiveMesh Q1 loop of
+    tests/test_adaptive.py:232-257 (volume_residual_indicator, Doerfler
+    0.7, Jacobi-CG to 1e-10) grown to N >= HANG_TARGET against a uniform
+    HANG_UNIFORM^2 run; on the final mesh jacobian_apply against the
+    assembled jacobian (_affine_expand)."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.adaptivity import (
+        adapt_local, error_fraction, volume_residual_indicator,
+    )
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    p = corner_q1_problem()
+
+    def solve(mesh):
+        V = pt.FunctionSpace(mesh, pt.QkFEM(1, 2))
+        cgm = pt.constraints(True, V, device=dev)
+        go = pt.GridOperator(V, ConvectionDiffusionFEM(p), constraints=cgm, skip_boundary=True)
+        x0 = pt.interpolate_dirichlet(p.g, V, cgm, V.zero(torch.float64, dev))
+        slp = pt.StationaryLinearProblemSolver(go, pt.SEQ_CG_Jacobi(maxiter=20000),
+                                               reduction=1e-10, verbose=0)
+        x, s = timed(torch, lambda: slp.apply(x0))
+        return V, go, x, slp.result.linear_solver_iterations, s
+
+    Vu, _, xu, its_u, s_u = solve(pt.StructuredMesh([0, 0], [1, 1], (HANG_UNIFORM,) * 2))
+    e_u = float(l2_difference(Vu, xu, p.exact))
+    log(f"[phase 12d] uniform {HANG_UNIFORM}^2 Q1: N = {Vu.ndofs}, L2 {e_u:.6e}, Jacobi-CG "
+        f"{its_u} iterations, {s_u:.3f} s")
+    V, go, x, its, s = solve(pt.AdaptiveMesh([0, 0], [1, 1], (8, 8)))
+    rows = []
+    for cyc in range(HANG_MAX_CYCLES):
+        e = float(l2_difference(V, x, p.exact))
+        rows.append((V.ndofs, e))
+        if V.ndofs >= HANG_TARGET:
+            break
+        t0 = time.perf_counter()
+        eta2 = volume_residual_indicator(go, p, x)
+        marks = eta2.cpu().numpy() >= error_fraction(eta2, 0.7)
+        split = {"indicator+marking": time.perf_counter() - t0}
+        V, x = adapt_local(V, x, marks, timings=split)
+        t0 = time.perf_counter()
+        nh = len(V.mesh.hanging_constraints()[0])      # kept on the mesh for constraints()
+        split["hanging_constraints"] = time.perf_counter() - t0
+        V, go, x, its, s = solve(V.mesh)
+        log(f"[phase 12d] cycle {cyc}: N = {V.ndofs}, {V.mesh.nelements} leaves, "
+            f"{nh} hanging rows, L2 {e:.6e} (before refining), Jacobi-CG {its} iterations "
+            f"{s:.3f} s; s: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    # the host loops at 10^5 leaves: one more Doerfler refinement of the
+    # final mesh, its vertex numbering and hanging rows (no solve)
+    eta2 = volume_residual_indicator(go, p, x)
+    big, refine_s = timed(torch, lambda: V.mesh.refine(eta2.cpu().numpy()
+                                                       >= error_fraction(eta2, 0.7)))
+    _, vert_s = timed(torch, big.vertices)
+    rows_big, hang_s = timed(torch, big.hanging_constraints)
+    log(f"[phase 12d] host loops at {big.nelements} leaves, {big.nvertices} vertices: refine "
+        f"{refine_s:.3f} s, vertices {vert_s:.3f} s, hanging_constraints {hang_s:.3f} s "
+        f"({len(rows_big[0])} rows)")
+    rng = np.random.default_rng(12)
+    xr = torch.as_tensor(rng.standard_normal(V.ndofs), device=dev)
+    z = torch.as_tensor(rng.standard_normal(V.ndofs), device=dev)
+    y = go.jacobian_apply(xr, z)
+    A = go.jacobian(xr)
+    gap = float((torch.sparse.mm(A, z[:, None])[:, 0] - y).abs().max() / y.abs().max())
+    better = [(n, e_) for n, e_ in rows if n <= Vu.ndofs and e_ < e_u]
+    log(f"[phase 12d] final N = {rows[-1][0]}; first adaptive iterate below the uniform error: "
+        f"{better[:1]}; assembled P^T J P vs jacobian_apply {gap:.3e} of max|y|; {CARD}")
+    if not (better and rows[-1][0] >= HANG_TARGET and gap <= 1e-12):
+        raise AssertionError(f"phase 12d holds failed: {rows}, gap {gap}")
+
+
+def periodic_problem3():
+    """tests/test_periodic.py:55-83: periodic in x and y, Dirichlet-0 in z."""
+    import torch
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+
+    pi = math.pi
+
+    class P3(ConvectionDiffusionProblem):
+        def exact(self, q):
+            return (torch.sin(2 * pi * q[:, 0]) * torch.sin(2 * pi * q[:, 1])
+                    * torch.sin(pi * q[:, 2]))
+
+        def f(self, x):
+            return 9 * pi ** 2 * (torch.sin(2 * pi * x[..., 0]) * torch.sin(2 * pi * x[..., 1])
+                                  * torch.sin(pi * x[..., 2]))
+
+        def g(self, x):
+            return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    return P3()
+
+
+def periodic_solves(torch, pt, dev):
+    """Phase 12e: the periodic 3D Poisson of tests/test_periodic.py:55-83 at
+    PERIODIC_CELLS^3 with its solver (Jacobi-CG, 1e-11), the fully periodic
+    heat run (:85-114) at HEAT_PERIODIC_CELLS^2, and the fast tiers'
+    declines."""
+    from dune_pdelab_tpu_torch.assembly.structured_fused import (
+        make_fused_japply, make_fused_residual,
+    )
+    from dune_pdelab_tpu_torch.instationary import OneStepMethod, crank_nicolson
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM, ConvectionDiffusionProblem
+    from dune_pdelab_tpu_torch.ops.l2 import L2
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    p = periodic_problem3()
+    errs, its = [], []
+    for n in PERIODIC_CELLS:
+        mesh = pt.StructuredMesh([0, 0, 0], [1, 1, 1], (n,) * 3, periodic=(True, True, False))
+        V = pt.FunctionSpace(mesh, pt.QkFEM(1, 3))
+        cgm = pt.constraints(True, V, device=dev)
+        go = pt.GridOperator(V, ConvectionDiffusionFEM(p), constraints=cgm, skip_boundary=True)
+        ls = pt.SEQ_CG_Jacobi(maxiter=5000)
+        slp = pt.StationaryLinearProblemSolver(go, ls, reduction=1e-11, verbose=0)
+        x, s = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
+        errs.append(float(l2_difference(V, x, p.exact)))
+        its.append(slp.result.linear_solver_iterations)
+        log(f"[phase 12e] periodic 3D {n}^3: N = {V.ndofs}, L2 {errs[-1]:.6e}, Jacobi-CG "
+            f"{its[-1]} iterations, converged {slp.result.converged}, {s:.3f} s")
+        if not slp.result.converged:
+            raise AssertionError("12e: periodic solve did not converge")
+        tiers = ls.report().strip().splitlines()
+        ell = pt.SEQ_CG_Jacobi(matrix_free=False, maxiter=1)
+        ell.solve(go, V.zero(torch.float64, dev), go.residual(V.zero(torch.float64, dev)), 1e-1)
+        k3 = make_fused_residual(go) is None and make_fused_japply(go) is None
+        declined = [ln.strip() for ln in tiers + ell.report().strip().splitlines()
+                    if "declined" in ln]
+        log(f"[phase 12e] tiers at {n}^3: {declined}; K3 declined: {k3}")
+        if not (k3 and any("compile_stencil declined" in ln for ln in declined)
+                and any("assemble_ell declined" in ln for ln in declined)):
+            raise AssertionError(f"12e: a fast tier did not decline: {declined}, K3 {k3}")
+    ratio = errs[0] / errs[1]
+    log(f"[phase 12e] L2 ratio {ratio:.4f}, iterations {its}")
+    if not (3.0 <= ratio <= 5.0 and max(its) <= 5000 and errs[0] < 0.06):
+        raise AssertionError(f"12e: ratio {ratio}, iterations {its}")
+
+    decay = 8 * math.pi ** 2
+
+    class Heat(ConvectionDiffusionProblem):
+        def f(self, x):
+            return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+    def u0(q):
+        return torch.sin(2 * math.pi * q[:, 0]) * torch.sin(2 * math.pi * q[:, 1])
+
+    n = HEAT_PERIODIC_CELLS
+    V = pt.FunctionSpace(pt.StructuredMesh([0, 0], [1, 1], (n, n), periodic=(True, True)),
+                         pt.QkFEM(1, 2))
+    osm = OneStepMethod(crank_nicolson(),
+                        pt.GridOperator(V, ConvectionDiffusionFEM(Heat()), skip_boundary=True),
+                        pt.GridOperator(V, L2(), skip_boundary=True), pt.SEQ_CG_Jacobi(),
+                        pdesolver="linear", reduction=1e-12)
+    x = V.interpolate(u0, dtype=torch.float64, device=dev)
+    t, dt, T = 0.0, 5e-4, 0.01
+    t0 = time.perf_counter()
+    while t < T - 1e-12:
+        x = osm.apply(t, dt, x)
+        t += dt
+    torch.cuda.synchronize()
+    err = float(l2_difference(V, x, lambda q: math.exp(-decay * t) * u0(q)))
+    amp = float(x.abs().max()) / math.exp(-decay * t)
+    log(f"[phase 12e] fully periodic heat {n}^2 CN, 20 steps: {time.perf_counter() - t0:.3f} s, "
+        f"L2 {err:.3e}, decay ratio {amp:.6f}; {CARD}")
+    if not (err < 5e-3 and 0.9 < amp < 1.1):
+        raise AssertionError(f"12e heat: L2 {err}, ratio {amp}")
+
+
+def annulus_mesh(pt, n, full=False):
+    """The quarter annulus 1 <= r <= 2 (tests/test_mapped.py:31), or the full
+    annulus with theta periodic (:178), as a mapped n^2 quad mesh."""
+    import numpy as np
+
+    idx = np.arange((n + 1) * (n + 1))
+    r = 1.0 + (idx % (n + 1)) / n
+    th = (2.0 if full else 0.5) * np.pi * (idx // (n + 1)) / n
+    coords = np.stack([r * np.cos(th), r * np.sin(th)], axis=-1)
+    return pt.StructuredMesh([0, 0], [1, 1], (n, n), coords=coords,
+                             periodic=(False, True) if full else None)
+
+
+def harmonic_problem(neumann=False):
+    """tests/test_mapped.py:56 Harmonic (u = x^2 - y^2), with the Neumann
+    flux on the outer arc (:148) when `neumann`."""
+    import torch
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+    from dune_pdelab_tpu_torch.ops.convectiondiffusion import BCType
+
+    class Harmonic(ConvectionDiffusionProblem):
+        def exact(self, p):
+            return p[:, 0] ** 2 - p[:, 1] ** 2
+
+        def f(self, x):
+            return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+        def g(self, x):
+            return x[..., 0] ** 2 - x[..., 1] ** 2
+
+        def bctype(self, x):
+            x = torch.as_tensor(x)
+            if not neumann:
+                return torch.full(x.shape[:-1], BCType.DIRICHLET, device=x.device)
+            # the outer arc: the test's r^2 > 3.9 band also takes in the
+            # straight sides' last faces once h < 0.025 (n > 40), so the
+            # sides (x = 0, y = 0) are excluded by position
+            r2 = x[..., 0] ** 2 + x[..., 1] ** 2
+            side = torch.minimum(x[..., 0].abs(), x[..., 1].abs()) < 1e-9
+            return torch.where((r2 > 2.25) & ~side, BCType.NEUMANN, BCType.DIRICHLET)
+
+        def j(self, x):
+            r = torch.sqrt(x[..., 0] ** 2 + x[..., 1] ** 2)
+            return -(2 * x[..., 0] ** 2 - 2 * x[..., 1] ** 2) / r
+    return Harmonic()
+
+
+def mapped_solves(torch, pt, dev):
+    """Phase 12f: the curved Dirichlet and Neumann-arc Poisson problems of
+    tests/test_mapped.py:121-175 at MAPPED_CELLS^2 (AMG-CG to 1e-12), the
+    mapped-periodic full annulus (:222-262), SIPG on the curved mesh
+    (tests/test_mapped_skeleton.py) at MAPPED_DG_CELLS^2, and the mapped
+    operator against the uniform one on the identity map."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
+    from dune_pdelab_tpu_torch.ops.convectiondiffusiondg import ConvectionDiffusionDG
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    for name, full, neumann in (("Dirichlet", False, False), ("Neumann arc", False, True),
+                                ("periodic full annulus", True, False)):
+        p = harmonic_problem(neumann)
+        errs = []
+        for n in MAPPED_CELLS:
+            V = pt.FunctionSpace(annulus_mesh(pt, n, full), pt.QkFEM(1, 2))
+            cgm = pt.constraints(p.dirichlet_bctype(), V, device=dev)
+            go = pt.GridOperator(V, ConvectionDiffusionFEM(p), constraints=cgm)
+            x0 = pt.interpolate_dirichlet(p.g, V, cgm, V.zero(torch.float64, dev))
+            slp = pt.StationaryLinearProblemSolver(go, pt.SEQ_CG_AMG(**ADAPT_AMG),
+                                                   reduction=1e-12, verbose=0)
+            x, s = timed(torch, lambda: slp.apply(x0))
+            errs.append(float(l2_difference(V, x, p.exact)))
+            log(f"[phase 12f] {name} {n}^2 Q1: N = {V.ndofs}, L2 {errs[-1]:.6e}, AMG-CG "
+                f"{slp.result.linear_solver_iterations} iterations, {s:.3f} s")
+            if not slp.result.converged:
+                raise AssertionError(f"12f {name}: no convergence")
+        ratio = errs[0] / errs[1]
+        log(f"[phase 12f] {name}: L2 ratio {ratio:.4f}")
+        if not 3.0 <= ratio <= 5.0:
+            raise AssertionError(f"12f {name}: L2 ratio {ratio}")
+    m = annulus_mesh(pt, 8, True)
+    gf, gc = m.refine().coords.reshape(17, 17, 2), m.coords.reshape(9, 9, 2)
+    if not (m.nvertices == 72 and np.allclose(gf[::2, ::2], gc) and np.allclose(gf[0], gf[-1])):
+        raise AssertionError("12f: mapped periodic closure broken")
+
+    p = harmonic_problem()
+    errs = []
+    for n in MAPPED_DG_CELLS:
+        V = pt.FunctionSpace(annulus_mesh(pt, n), pt.QkDGFEM(1, 2))
+        go = pt.GridOperator(V, ConvectionDiffusionDG(p))
+        slp = pt.StationaryLinearProblemSolver(
+            go, pt.LinearSolverBackend(solver="cg", precond=pt.DGTwoLevel(
+                go, ConvectionDiffusionFEM(p), coarse="amg", amg_kwargs=ADAPT_AMG,
+                device=dev)), reduction=1e-10, verbose=0)
+        x, s = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
+        errs.append(float(l2_difference(V, x, p.exact)))
+        log(f"[phase 12f] SIPG Q1 on the curved mesh {n}^2: N = {V.ndofs}, L2 "
+            f"{errs[-1]:.6e}, DGTwoLevel(amg)-CG {slp.result.linear_solver_iterations} "
+            f"iterations, {s:.3f} s")
+    ratio = errs[0] / errs[1]
+    if not 3.0 <= ratio <= 5.0:
+        raise AssertionError(f"12f SIPG: L2 ratio {ratio}")
+
+    n = 64
+    uni = pt.StructuredMesh([0, 0], [1, 1], (n, n))
+    ident = pt.StructuredMesh([0, 0], [1, 1], (n, n), coords=uni.vertex_coords().copy())
+    g = torch.Generator(dev).manual_seed(12)
+    outs = []
+    for mesh in (uni, ident):
+        V = pt.FunctionSpace(mesh, pt.QkFEM(1, 2))
+        go = pt.GridOperator(V, ConvectionDiffusionFEM(harmonic_problem(True)),
+                             constraints=pt.constraints(True, V, device=dev))
+        xr = torch.randn(V.ndofs, dtype=torch.float64, device=dev, generator=g)
+        outs.append((go.residual(xr), go.jacobian_apply(xr, xr)))
+        g.manual_seed(12)
+    gap = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(*outs))
+    log(f"[phase 12f] identity map vs uniform at {n}^2: residual and J.v gap {gap:.3e} of "
+        f"max|y|; {CARD}")
+    if gap > 1e-12:
+        raise AssertionError(f"12f identity map: {gap}")
+
+
+def sincos_problem():
+    import torch
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+
+    pi = math.pi
+
+    class SinSin(ConvectionDiffusionProblem):
+        def exact(self, p):
+            return torch.sin(pi * p[:, 0]) * torch.sin(pi * p[:, 1]) + p[:, 0]
+
+        def f(self, x):
+            return 2 * pi ** 2 * torch.sin(pi * x[..., 0]) * torch.sin(pi * x[..., 1])
+
+        def g(self, x):
+            return torch.sin(pi * x[..., 0]) * torch.sin(pi * x[..., 1]) + x[..., 0]
+    return SinSin()
+
+
+def simplex_dg(torch, pt, dev):
+    """Phase 12g: SIPG PkDGFEM(1, 2) on 2D simplices at SIMPLEX_DG_CELLS^2
+    with CG + DGTwoLevel (P1 subspace, AMG coarse); at 32^2 the residual and
+    J.v on the card against the CPU and the interior-face residual twice
+    bit-equal; dwr_indicators, dg_jump_indicator and MinmodSlopeLimiter at
+    the sizes of their JAX tests, card against CPU."""
+    from dune_pdelab_tpu_torch.adaptivity import (
+        MinmodSlopeLimiter, dg_jump_indicator, dwr_indicators,
+    )
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
+    from dune_pdelab_tpu_torch.ops.convectiondiffusiondg import ConvectionDiffusionDG
+    from dune_pdelab_tpu_torch.ops.l2 import L2
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    cpu = torch.device("cpu")
+    p = sincos_problem()
+    errs, its = [], []
+    for n in SIMPLEX_DG_CELLS:
+        V = pt.FunctionSpace(pt.SimplexMesh.from_structured(
+            pt.StructuredMesh([0, 0], [1, 1], (n, n))), pt.PkDGFEM(1, 2))
+        go = pt.GridOperator(V, ConvectionDiffusionDG(p))
+        tl = pt.DGTwoLevel(go, ConvectionDiffusionFEM(p), amg_kwargs=ADAPT_AMG, device=dev)
+        x0 = V.zero(torch.float64, dev)
+        _, setup_s = timed(torch, lambda: tl.setup(x0))
+        slp = pt.StationaryLinearProblemSolver(
+            go, pt.LinearSolverBackend(solver="cg", precond=tl), reduction=1e-10, verbose=0)
+        x, s = timed(torch, lambda: slp.apply(x0))
+        errs.append(float(l2_difference(V, x, p.exact)))
+        its.append(slp.result.linear_solver_iterations)
+        log(f"[phase 12g] SIPG P1 simplex {n}^2: N = {V.ndofs}, {len(go.skel_groups)} skeleton "
+            f"+ {len(go.bnd_groups)} boundary groups, L2 {errs[-1]:.6e}, DGTwoLevel(amg)-CG "
+            f"{its[-1]} iterations, setup {setup_s:.3f} s, solve {s:.3f} s")
+        if not slp.result.converged:
+            raise AssertionError("12g: SIPG solve did not converge")
+    ratio = errs[0] / errs[1]
+    log(f"[phase 12g] L2 ratio {ratio:.4f}, iterations {its}")
+    if not (3.0 <= ratio <= 5.0 and max(its) - min(its) <= 3 and max(its) <= 50):
+        raise AssertionError(f"12g: ratio {ratio}, iterations {its}")
+
+    def both(build):
+        """build(device) -> tensor on that device, for the card and the CPU."""
+        a, b = build(dev), build(cpu)
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    V = pt.FunctionSpace(pt.SimplexMesh.from_structured(
+        pt.StructuredMesh([0, 0], [1, 1], (32, 32))), pt.PkDGFEM(1, 2))
+    go = pt.GridOperator(V, ConvectionDiffusionDG(p))
+    xs = torch.randn(V.ndofs, dtype=torch.float64, generator=torch.Generator().manual_seed(7))
+    gaps = {"residual": both(lambda d: go.residual(xs.to(d))),
+            "J.v": both(lambda d: go.jacobian_apply(xs.to(d), xs.to(d).flip(0)))}
+    r1 = go.residual_unconstrained(xs.to(dev))
+    r2 = go.residual_unconstrained(xs.to(dev))
+    gaps["dg_jump_indicator"] = both(lambda d: dg_jump_indicator(go, xs.to(d)))
+
+    Vq = pt.FunctionSpace(pt.StructuredMesh([0, 0], [1, 1], (16, 16)), pt.QkDGFEM(1, 2))
+    xq = torch.randn(Vq.ndofs, dtype=torch.float64, generator=torch.Generator().manual_seed(8))
+    gaps["MinmodSlopeLimiter"] = both(lambda d: MinmodSlopeLimiter(Vq)(xq.to(d)))
+
+    def dwr(d):
+        mesh = pt.StructuredMesh([0, 0], [1, 1], (12, 12))
+        Vl, Vr = pt.FunctionSpace(mesh, pt.QkFEM(1, 2)), pt.FunctionSpace(mesh, pt.QkFEM(2, 2))
+        gol = pt.GridOperator(Vl, ConvectionDiffusionFEM(p),
+                              constraints=pt.constraints(True, Vl, device=d))
+        gor = pt.GridOperator(Vr, ConvectionDiffusionFEM(p),
+                              constraints=pt.constraints(True, Vr, device=d))
+        q = pt.GridOperator(Vr, L2()).jacobian_apply(
+            Vr.zero(torch.float64, d), torch.ones(Vr.ndofs, dtype=torch.float64, device=d))
+        xl = torch.linspace(0, 1, Vl.ndofs, dtype=torch.float64, device=d)
+        return dwr_indicators(gol, gor, xl, lambda u: torch.dot(q, u))[0]
+
+    gaps["dwr_indicators"] = both(dwr)
+    log(f"[phase 12g] card vs CPU (of max|y|): {gaps}; interior-face residual twice "
+        f"bit-equal: {bool(torch.equal(r1, r2))}; {CARD}")
+    if not (torch.equal(r1, r2) and all(v <= 1e-12 for k, v in gaps.items()
+                                        if k != "dwr_indicators")
+            and gaps["dwr_indicators"] <= 1e-9):
+        raise AssertionError(f"12g card vs CPU: {gaps}")
+
+
+def phase_adaptivity(torch, pt, dev):
+    """Phase 12: adaptivity and mesh breadth, fp64. No hand kernel applies
+    (K1-K6 decline simplex, periodic, mapped and hanging-node operators);
+    every apply is the general torch.func.jvp, the AMG cycle plain torch,
+    the mesh work host numpy."""
+    for name, run in (("12a", adapt_config6), ("12b", adapt_lshape_full),
+                      ("12c", adapt_fichera), ("12d", adapt_hanging), ("12e", periodic_solves),
+                      ("12f", mapped_solves), ("12g", simplex_dg)):
+        t0 = time.perf_counter()
+        run(torch, pt, dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"[phase {name}] {time.perf_counter() - t0:.2f} s")
+
+
 def main():
     if not (ROOT / "dune_pdelab_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -2980,6 +3703,7 @@ def main():
         ("phase 10 (composite spaces, Stokes)", lambda: phase_stokes(torch, pt, dev), ()),
         ("phase 11 (algebraic solvers)", lambda: phase_algebraic(torch, pt, dev),
          ("stencil27", "blockstencil_mm")),
+        ("phase 12 (adaptivity, mesh breadth)", lambda: phase_adaptivity(torch, pt, dev), ()),
     ]
     totals = dict.fromkeys(counters, 0)
     for name, run, needed in paths:
@@ -2994,7 +3718,7 @@ def main():
             raise AssertionError(f"{name} never launched {missing}: {counts}")
         for k in totals:
             totals[k] += counts[k]
-    log(f"launch counts over phases 3-11: {totals}")
+    log(f"launch counts over phases 3-12: {totals}")
 
     meta = {
         "stencil27": ("dune_pdelab_tpu_torch/csrc/stencil27.cu",

@@ -24,7 +24,11 @@ preconditioners (solvers/stokes.py), and the algebraic solvers: simplex
 meshes with PkFEM volume assembly, smoothed-aggregation AMG
 (linalg/amg.py, SEQ_CG_AMG, DGTwoLevel(coarse="amg")), the sparse direct
 backends (solvers/direct.py), LOBPCG (linalg/eigen.py) and GenEO
-(linalg/geneo.py). See ROADMAP.md for what remains.
+(linalg/geneo.py), and mesh breadth with adaptivity: periodic and mapped
+structured meshes, the hanging-node AdaptiveMesh with affine constraints,
+simplex and mapped face integrals, PkDGFEM, newest-vertex bisection
+(SimplexMesh.refine_bisection), gmsh input and the estimators, marking and
+transfers of adaptivity/. See ROADMAP.md for what remains.
 
 Entry points put their tensors on `default_device()`, the card, unless the
 caller names a device or calls `set_default_device` (the CPU tests do).
@@ -32,8 +36,10 @@ caller names a device or calls `set_default_device` (the CPU tests do).
 
 __version__ = "0.1.0"
 
-from dune_pdelab_tpu_torch.mesh import SimplexMesh, StructuredMesh
-from dune_pdelab_tpu_torch.fe import PkFEM, QkDGFEM, QkFEM, gauss_legendre, quadrature_rule
+from dune_pdelab_tpu_torch.mesh import AdaptiveMesh, SimplexMesh, StructuredMesh
+from dune_pdelab_tpu_torch.fe import (
+    PkDGFEM, PkFEM, QkDGFEM, QkFEM, gauss_legendre, quadrature_rule,
+)
 from dune_pdelab_tpu_torch.space import (
     CompositeSpace, FunctionSpace, PermutedSpace, PowerSpace, entity_blocked,
 )

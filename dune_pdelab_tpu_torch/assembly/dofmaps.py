@@ -96,29 +96,33 @@ class ReshapeDofMap:
 class SlicedDofMap:
     """Structured C0 fast path: strided slices of the DOF lattice.
 
-    DOF grid dims (per axis, dim 0 fastest): n_d = k*c_d + 1. Element flat
-    order and local tensor order both have dim 0 fastest, so the
-    (reversed-shape) C-order reshape lines the axes up.
+    DOF grid dims (per axis, dim 0 fastest): n_d = k*c_d (+1 if not
+    periodic). Element flat order and local tensor order both have dim 0
+    fastest, so the (reversed-shape) C-order reshape lines the axes up.
+    Periodic axes compute on an extended (+1) grid: gather reads a wrapped
+    copy of the first plane, scatter folds the last plane back onto it.
     """
 
     def __init__(self, offset: int, k: int, cells, periodic, local_mi):
-        if any(periodic):
-            raise NotImplementedError(
-                "periodic DOF lattices are not ported yet (ROADMAP slice 11)")
         self.offset = int(offset)
         self.k = k
         self.cells = tuple(cells)
+        self.periodic = tuple(bool(p) for p in periodic)
         self.dim = len(cells)
         self.local_mi = np.asarray(local_mi)      # (nloc, dim)
-        self.dims = tuple(k * c + 1 for c in cells)
+        self.dims = tuple(k * c if p else k * c + 1
+                          for c, p in zip(cells, self.periodic))   # stored grid
+        self.ext_dims = tuple(k * c + 1 for c in cells)           # computation grid
         self.n = int(np.prod(self.dims))
         self.nloc = len(self.local_mi)
 
-    def _grid(self):
-        return tuple(reversed(self.dims))         # C-order: slowest axis first
+    def _grid(self, ext=False):
+        """C-order grid shape (slowest axis first)."""
+        return tuple(reversed(self.ext_dims if ext else self.dims))
 
     def _slices(self, l):
-        """Index expression (slowest axis first) for local node l."""
+        """Index expression (slowest axis first) for local node l on the
+        extended grid."""
         mi = self.local_mi[l]
         out = []
         for d in reversed(range(self.dim)):
@@ -127,16 +131,38 @@ class SlicedDofMap:
                              self.k))
         return tuple(out)
 
+    def _extend(self, xg):
+        """Stored grid -> extended grid (wrap the first plane on periodic
+        axes)."""
+        for d in range(self.dim):
+            if self.periodic[d]:
+                ax = self.dim - 1 - d
+                xg = torch.cat([xg, xg.narrow(ax, 0, 1)], dim=ax)
+        return xg
+
+    def _fold(self, rg):
+        """Extended grid -> stored grid (fold the last plane onto the
+        first)."""
+        for d in range(self.dim):
+            if self.periodic[d]:
+                ax = self.dim - 1 - d
+                n = rg.shape[ax] - 1
+                body = rg.narrow(ax, 0, n)
+                last = rg.narrow(ax, n, 1)
+                rg = body + F.pad(last, [0, 0] * (self.dim - 1 - ax) + [0, n - 1])
+        return rg
+
     def gather(self, x):
-        xg = x[self.offset:self.offset + self.n].reshape(self._grid())
+        xg = self._extend(x[self.offset:self.offset + self.n].reshape(self._grid()))
         cols = [xg[self._slices(l)].reshape(-1) for l in range(self.nloc)]
         return torch.stack(cols, dim=1)           # (E, nloc)
 
     def scatter_add(self, r, r_loc):
         eshape = tuple(reversed(self.cells))
-        rg = torch.zeros(self._grid(), dtype=r.dtype, device=r.device)
+        rg = torch.zeros(self._grid(ext=True), dtype=r.dtype, device=r.device)
         for l in range(self.nloc):
             rg[self._slices(l)] += r_loc[:, l].reshape(eshape).to(r.dtype)
+        rg = self._fold(rg)
         return r + F.pad(rg.reshape(-1),
                          (self.offset, r.shape[0] - self.offset - self.n))
 
@@ -164,7 +190,7 @@ def make_leaf_dof_map(leaf, element_dofs: np.ndarray | None, offset=None):
     if (offset is not None and fem.continuity == "C0"
             and hasattr(fem, "_mi")
             and getattr(fem, "variant", "equidistant") == "equidistant"
-            and mesh.geometry_type == "cube"):
+            and mesh.geometry_type == "cube" and not hasattr(mesh, "hanging_constraints")):
         return SlicedDofMap(int(offset), fem.degree, mesh.cells,
                             mesh.periodic, fem._mi)
     return IndexDofMap(leaf.element_dofs if element_dofs is None
@@ -191,12 +217,13 @@ class SlabFaceTransfer:
     of the element grid, [lo, cells[axis] + hi_off) along that axis, so
     gathering the face coefficients is a reshape + slice of the leaf's
     contiguous DOF block, and the scatter-add zero-pads the slab back to
-    the grid: no index arrays. (Periodic closure, the reference's
-    `periodic_roll`, waits for ROADMAP slice 11.)
+    the grid: no index arrays. On a periodic axis the outside slab of the
+    wrap-closed skeleton group is the grid rolled by `periodic_roll` cells
+    (the reference's `periodic_roll`).
     """
 
     def __init__(self, offset: int, cells, nbasis: int, axis: int,
-                 lo: int, hi_off: int):
+                 lo: int, hi_off: int, periodic_roll: int = 0):
         self.offset = int(offset)
         self.cells = tuple(int(c) for c in cells)
         self.nb = int(nbasis)
@@ -206,6 +233,7 @@ class SlabFaceTransfer:
         self.gax = self.dim - 1 - self.axis      # C-order axis in the grid view
         self.lo = int(lo)
         self.hi = self.cells[self.axis] + int(hi_off)
+        self.roll = int(periodic_roll)
         self.grid_shape = tuple(reversed(self.cells)) + (self.nb,)
 
     def _slc(self):
@@ -215,6 +243,8 @@ class SlabFaceTransfer:
 
     def gather(self, x):
         g = x[self.offset:self.offset + self.E * self.nb].reshape(self.grid_shape)
+        if self.roll:
+            g = torch.roll(g, -self.roll, dims=self.gax)
         return g[self._slc()].reshape(-1, self.nb)
 
     def scatter_add(self, r, r_loc):
@@ -223,6 +253,8 @@ class SlabFaceTransfer:
         g = r_loc.reshape(shape).to(r.dtype)
         # F.pad lists (before, after) pairs from the last axis backwards
         pad = [0, 0] * (self.dim - self.gax) + [self.lo, self.cells[self.axis] - self.hi]
-        full = F.pad(g, pad).reshape(-1)
+        full = F.pad(g, pad)
+        if self.roll:
+            full = torch.roll(full, self.roll, dims=self.gax)
         n = self.E * self.nb
-        return r + F.pad(full, (self.offset, r.shape[0] - self.offset - n))
+        return r + F.pad(full.reshape(-1), (self.offset, r.shape[0] - self.offset - n))

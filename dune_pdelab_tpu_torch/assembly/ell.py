@@ -107,10 +107,15 @@ class EllMatrix:
 
 
 def _lattice_space(space):
-    """Single-leaf C0 tensor Lagrange space on a non-periodic structured
-    cube mesh (a simplex mesh declines: it has no DOF lattice)."""
+    """Single-leaf C0 tensor Lagrange space on a uniform non-periodic
+    structured cube mesh. A simplex mesh or an AdaptiveMesh has no DOF
+    lattice; a periodic lattice wraps, which the shifted-slice layout
+    cannot hold; a mapped mesh declines too (the reference probes it; the
+    port keeps every assembled lattice tier to uniform meshes)."""
     return (getattr(space, "is_leaf", False)
             and space.mesh.geometry_type == "cube"
+            and getattr(space, "_dof_grid_dims", None) is not None
+            and space.mesh.uniform
             and space.fem.continuity == "C0"
             and hasattr(space.fem, "_mi") and not any(space.mesh.periodic))
 
@@ -126,7 +131,7 @@ def _probed_ell(go, x_lin, time):
     (mod 2k+1); same-color columns never share a row, so the rows i with
     i + off_t of color c read tap t from that probe."""
     space = go.space
-    if not _lattice_space(space):
+    if not _lattice_space(space) or (go.cg is not None and go.cg.has_affine):
         return None
     k = space.fem.degree
     dim = space.mesh.dim
@@ -204,7 +209,7 @@ def assemble_ell_direct(go, x_lin=None, time=0.0, check=False):
         return None
     if go.has["alpha_boundary"] or go.has["alpha_skeleton"]:
         return None                      # face jacobian terms: use probing
-    if go.cg is not None and getattr(go.cg, "has_affine", False):
+    if go.cg is not None and go.cg.has_affine:
         return None                      # affine constraints: use probing
     if x_lin is None:
         x_lin = _default_x_lin(go)

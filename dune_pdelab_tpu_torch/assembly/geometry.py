@@ -8,14 +8,15 @@ PyTorch port of dune_pdelab_tpu/assembly/geometry.py. Two volume paths:
     origin array costs about 3.2 GB. They are computed on the device when a
     context is built, and the slabbed / stencil paths only ever build
     contexts of slab or proxy size.
-  * per element (simplex meshes; mapped cube meshes later use the same
-    branch): J = sum over corners of corner (x) dN of the P1/Q1 geometry
+  * per element (simplex, mapped cube and AdaptiveMesh meshes):
+    J = sum over corners of corner (x) dN of the P1/Q1 geometry
     element, per element and quadrature point, inverted in closed form
     (`det_inv`), with the quadrature factor, the cell volume and the
     physical quadrature points, all float64 numpy at setup.
 
-Face geometry exists for the uniform structured mesh only; mapped and
-simplex faces wait for ROADMAP slice 11.
+FaceGeometry is the uniform structured mesh's shared face data; the faces
+of mapped and simplex meshes carry per-face geometry built by the
+GridOperator's face groups.
 """
 from __future__ import annotations
 
@@ -62,6 +63,7 @@ class VolumeGeometry:
         self.mesh = mesh
         self.qp_ref = qp_ref            # (nqp, dim)
         self.weights = weights          # (nqp,)
+        self.jac_inv_T_elem = None      # (E, d, d) on a simplex mesh
         if mesh.uniform:
             h = mesh.h
             detJ = float(np.prod(h))
@@ -74,9 +76,18 @@ class VolumeGeometry:
         corners = mesh.element_corner_coords()                # (E, C, d)
         N, dN = geometry_element(mesh.geometry_type, mesh.dim).tabulate(qp_ref)
         # the einsums "eci,qcj->eqij" and "qc,ecd->eqd" as broadcast matmuls
-        J = np.swapaxes(corners, 1, 2)[:, None] @ dN[None]    # (E, nqp, d, d)
-        detJ, invT = det_inv(J)
-        self.jac_inv_T = invT                                 # (E, nqp, d, d)
+        if mesh.geometry_type == "simplex":
+            # affine: one Jacobian per element (the same bits at every point),
+            # inverted once and broadcast over the points (a view)
+            J1 = np.swapaxes(corners, 1, 2) @ dN[0]           # (E, d, d)
+            det1, invT1 = det_inv(J1)
+            E, nqp, d = len(corners), len(weights), mesh.dim
+            self.jac_inv_T_elem = invT1
+            self.jac_inv_T = np.broadcast_to(invT1[:, None], (E, nqp, d, d))
+            detJ = np.broadcast_to(det1[:, None], (E, nqp))
+        else:
+            J = np.swapaxes(corners, 1, 2)[:, None] @ dN[None]    # (E, nqp, d, d)
+            detJ, self.jac_inv_T = det_inv(J)                     # (E, nqp, d, d)
         self.factor = weights[None, :] * np.abs(detJ)         # (E, nqp)
         self.cell_volume = np.einsum("q,eq->e", weights, np.abs(detJ))
         self.qp_phys = N[None] @ corners                      # (E, nqp, d)
@@ -111,7 +122,18 @@ class VolumeGeometry:
         if self.mesh.uniform:
             return (ref_grad / self.mesh.h)[None]
         # "eqij,qbj->eqbi" as a broadcast matmul
-        return np.swapaxes(self.jac_inv_T @ np.swapaxes(ref_grad, 1, 2)[None], 2, 3)
+        invT = (self.jac_inv_T_elem[:, None] if self.jac_inv_T_elem is not None
+                else self.jac_inv_T)
+        return np.swapaxes(invT @ np.swapaxes(ref_grad, 1, 2)[None], 2, 3)
+
+    def jac_inv_T_tensor(self, dtype, device) -> torch.Tensor:
+        """jac_inv_T as a tensor: on a simplex mesh the per-element
+        inverse expanded over the points (no copy per point)."""
+        if self.jac_inv_T_elem is None:
+            return torch.as_tensor(self.jac_inv_T, dtype=dtype, device=device)
+        E, nqp, d, _ = self.jac_inv_T.shape
+        return torch.as_tensor(self.jac_inv_T_elem, dtype=dtype,
+                               device=device)[:, None].expand(E, nqp, d, d)
 
 
 def embed_face_points(qp_face: np.ndarray, axis: int, side: int, dim: int) -> np.ndarray:
@@ -137,8 +159,9 @@ class FaceGeometry:
                  qp_face: np.ndarray, weights: np.ndarray):
         if not mesh.uniform:
             raise NotImplementedError(
-                "face integrals on mapped meshes are not ported yet "
-                "(ROADMAP slice 11)")
+                "FaceGeometry needs a uniform mesh: the faces of a mapped "
+                "mesh carry per-face geometry (GridOperator's mapped face "
+                "groups), as in the reference")
         self.mesh = mesh
         self.axis = axis
         self.qp_face = qp_face

@@ -1,32 +1,40 @@
 """GridOperator: global residual / Jacobian-apply as batched kernels.
 
 PyTorch port of dune_pdelab_tpu/assembly/gridoperator.py for leaf and
-composite spaces on a uniform non-periodic structured mesh, and for
-volume-only operators on a simplex mesh (reference:
+composite spaces on structured (uniform, periodic or mapped), locally
+refined (AdaptiveMesh, hanging nodes) and simplex meshes (reference:
 dune/pdelab/gridoperator/gridoperator.hh:35-240 facade,
 gridoperator/default/assembler.hh:84-279 element and intersection sweep):
 
   * the element loop becomes one batched gather, one batched kernel call and
-    one scatter-add over all elements; faces are grouped by normal axis
-    (and side, on the boundary): one batched kernel call per group. The
-    faces of a group are a slab of the element grid, so a DG leaf moves
-    its face coefficients by slices (SlabFaceTransfer), a C0 leaf by index
-    arrays (IndexFaceTransfer);
+    one scatter-add over all elements; faces are grouped, one batched kernel
+    call per group. On a structured mesh a group is the faces normal to one
+    axis (and side, on the boundary): a slab of the element grid, so a DG
+    leaf moves its face coefficients by slices (SlabFaceTransfer, rolled by
+    one cell on a periodic axis), a C0 leaf by index arrays
+    (IndexFaceTransfer). On a simplex mesh faces are grouped by their
+    local-embedding configuration (`_build_simplex_face_groups`), so basis
+    values are shared per group while normals, measures and physical
+    gradients vary per face; a mapped cube mesh keeps the axis groups with
+    per-face geometry (Nanson's formula, `_mapped_*_geometry`);
   * `jacobian_apply` is torch.func.jvp of the residual (the reference's
     jax.jvp), face terms included, not a finite difference;
-  * constrained rows are zeroed in the residual and act as identity in J.
+  * constrained rows are zeroed in the residual and act as identity in J;
+    hanging-node (affine) constraints prolong the arguments and restrict
+    the result, r = P^T R(P x) (the reference's etadd triple product).
 
 `element_jacobians`, `element_diagonal_blocks`, the assembled `jacobian` (a
 sparse COO tensor; `jacobian_csr` hands it to host scipy) and
 `jacobian_diagonal` probe the kernels with jvps, as the reference does, in
-the concatenated local layout of the leaves.
+the concatenated local layout of the leaves. Every sum is in a fixed order:
+the scatters gather through transpose maps or add slices, and the per-group
+element sums (`index_add`) see distinct elements within a group (asserted
+when a group is built), so two calls give the same bits.
 
-On a simplex mesh the volume context carries per-element geometry:
-`jac_inv_T` (E, nqp, d, d), physical gradients (E, nqp, nb, d) and the
-physical quadrature points `qp_phys`. Mapped-mesh and simplex face groups
-wait for ROADMAP slice 11: a simplex operator with boundary or skeleton
-kernels raises, unless a pure-Dirichlet problem drops its boundary terms
-with skip_boundary=True (the reference's shortcut).
+On a simplex or mapped mesh the volume context carries per-element
+geometry: `jac_inv_T` (E, nqp, d, d), physical gradients (E, nqp, nb, d)
+and the physical quadrature points `qp_phys`; face contexts carry per-face
+normals (F, 1 or nqp, d), factors (F, nqp) and h (F,).
 
 There is no jit: PyTorch runs eagerly. Context tensors (tabulations,
 factors, quadrature points) are built once per (dtype, device) and cached.
@@ -43,6 +51,7 @@ from dune_pdelab_tpu_torch.assembly.dofmaps import (
 from dune_pdelab_tpu_torch.assembly.geometry import (
     FaceGeometry, VolumeGeometry, embed_face_points,
 )
+from dune_pdelab_tpu_torch.fe.basis import geometry_element
 from dune_pdelab_tpu_torch.fe.quadrature import quadrature_rule
 from dune_pdelab_tpu_torch.ops.base import (
     FaceContext, LeafTab, SkeletonContext, VolumeContext,
@@ -56,14 +65,23 @@ _KERNELS = ("alpha_volume", "lambda_volume", "alpha_boundary",
 
 
 class _FaceGroupData:
-    """Static per-group data: faces normal to `axis` whose inside elements
-    are the slab [lo, hi) of the element grid along that axis (the outside
-    elements of a skeleton group: the slab shifted by one). `trs_in` and
-    `trs_out` hold one face transfer per leaf; `tr_in`/`tr_out` read the
-    first leaf's (on a leaf space, the only one)."""
-    __slots__ = ("axis", "side", "lo", "hi", "trs_in", "trs_out",
-                 "tabs_in", "tabs_out", "factor", "normal", "h_in", "h_out", "pts",
-                 "weights")
+    """Static per-group data. On a structured mesh: faces normal to `axis`
+    whose inside elements are the slab [lo, hi) of the element grid along
+    that axis (the outside elements of a skeleton group: the slab shifted
+    by one, or rolled by `roll` on a periodic axis); `elements`/`outside`
+    are None. Elsewhere (simplex groups) they are explicit arrays. `x` is
+    None where the physical points follow from the slab's element origins
+    (uniform mesh), else an (F, nqp, dim) array. `trs_in` and `trs_out`
+    hold one face transfer per leaf; `tr_in`/`tr_out` read the first
+    leaf's (on a leaf space, the only one)."""
+    __slots__ = ("axis", "side", "lo", "hi", "roll", "elements", "outside", "x",
+                 "trs_in", "trs_out", "tabs_in", "tabs_out", "factor", "normal",
+                 "h_in", "h_out", "pts", "weights")
+
+    def __init__(self):
+        self.axis = self.side = self.lo = self.hi = None
+        self.roll = 0
+        self.elements = self.outside = self.x = None
 
     @property
     def tr_in(self):
@@ -77,6 +95,31 @@ class _FaceGroupData:
 def _cat_leaf_dofs(maps):
     """Concatenate per-leaf (B, nloc_i) global-DOF maps -> (B, sum nloc_i)."""
     return np.concatenate([np.asarray(m, dtype=np.int64) for m in maps], axis=1)
+
+
+def _affine_expand(cg, rows, cols, data):
+    """Expand COO entries through hanging-node parent maps: P^T A P.
+
+    rows/cols are numpy; data is a tensor. Each entry (i, j, v) becomes
+    {(p_r, p_c, w_r * w_c * v)} over the parents of i and j (identity for
+    DOFs that are not hanging)."""
+    indptr, pidx, pw = cg._parent_indptr, cg._parent_idx, cg._parent_w
+
+    def expand(idx, other, src, mult):
+        cnt = indptr[idx + 1] - indptr[idx]
+        rep = np.repeat(np.arange(len(idx)), cnt)
+        pos = np.arange(len(rep)) - np.repeat(
+            np.concatenate([[0], np.cumsum(cnt)[:-1]]), cnt)
+        flat = indptr[idx][rep] + pos
+        return pidx[flat], other[rep], src[rep], mult[rep] * pw[flat]
+
+    src = np.arange(len(rows))
+    mult = np.ones(len(rows))
+    new_rows, cols, src, mult = expand(rows, cols, src, mult)
+    new_cols, new_rows, src, mult = expand(cols, new_rows, src, mult)
+    data = data[torch.as_tensor(src, device=data.device)] * torch.as_tensor(
+        mult, dtype=data.dtype, device=data.device)
+    return new_rows, new_cols, data
 
 
 class GridOperator:
@@ -131,25 +174,34 @@ class GridOperator:
             self.has["lambda_boundary"] = False
         needs_faces = (self.has["alpha_boundary"] or self.has["lambda_boundary"]
                        or self.has["alpha_skeleton"])
-        if needs_faces and self.mesh.geometry_type != "cube":
+        if needs_faces and not hasattr(self.mesh, "boundary_faces"):
             raise NotImplementedError(
-                f"face integrals on a {self.mesh.geometry_type} mesh are not "
-                "ported yet (ROADMAP slice 11); for a pure-Dirichlet problem "
-                "pass skip_boundary=True")
+                f"{type(self.mesh).__name__} provides no face lists; boundary/"
+                "skeleton kernels need a structured or simplex mesh (for "
+                "pure-Dirichlet problems pass skip_boundary=True)")
         if hasattr(lop, "skip_entity") or hasattr(lop, "skip_intersection"):
             raise NotImplementedError(
                 "selective assembly (skip_entity/skip_intersection) is not "
                 "ported yet")
         self.bnd_groups: list[_FaceGroupData] = []
         self.skel_groups: list[_FaceGroupData] = []
-        if self.has["alpha_boundary"] or self.has["lambda_boundary"]:
-            self._build_boundary_groups()
-        if self.has["alpha_skeleton"]:
-            self._build_skeleton_groups()
+        if self.mesh.geometry_type == "simplex":
+            if needs_faces:
+                self._build_simplex_face_groups()
+        else:
+            if self.has["alpha_boundary"] or self.has["lambda_boundary"]:
+                self._build_boundary_groups()
+            if self.has["alpha_skeleton"]:
+                self._build_skeleton_groups()
+        for g in self.bnd_groups + self.skel_groups:
+            # the per-group element sums (index_add) need distinct elements
+            for el in (g.elements, g.outside):
+                if el is not None and len(np.unique(el)) != len(el):
+                    raise AssertionError("a face group repeats an element")
         self._ctx_cache = {}
 
     # ------------------------------------------------------------------
-    # setup of face groups (uniform structured mesh)
+    # setup of face groups
     # ------------------------------------------------------------------
     def _make_tabs(self, pts_ref, geo=None):
         """Per leaf: (values, physical gradients, reference gradients,
@@ -185,41 +237,51 @@ class GridOperator:
     def _face_rule(self):
         return quadrature_rule("cube", self.mesh.dim - 1, self.qorder)
 
-    def _slab_elements(self, axis, lo, hi):
+    def _slab_elements(self, axis, lo, hi, roll=0):
         """Element indices of the slab [lo, hi) along `axis`, in the order
-        of the mesh's face lists (ascending element index)."""
+        of the mesh's face lists (ascending element index); roll = 1 reads
+        the grid shifted by one cell along a periodic axis (the outside
+        elements of its wrap-closed skeleton group)."""
         cells = self.mesh.cells
         dim = self.mesh.dim
         grid = np.arange(self.mesh.nelements, dtype=np.int64).reshape(
             tuple(reversed(cells)))
+        if roll:
+            grid = np.roll(grid, -roll, axis=dim - 1 - axis)
         sl = [slice(None)] * dim
         sl[dim - 1 - axis] = slice(lo, hi)
         return grid[tuple(sl)].reshape(-1)
 
     def group_elements(self, g, outside=False):
         """(F,) inside (or outside) element of every face of group g."""
+        if g.elements is not None:
+            return g.outside if outside else g.elements
+        if outside and g.roll:
+            return self._slab_elements(g.axis, g.lo, g.hi, g.roll)
         shift = 1 if outside else 0
         return self._slab_elements(g.axis, g.lo + shift, g.hi + shift)
 
-    def _face_transfers(self, axis, lo, hi):
-        """Per-leaf face transfers of the slab [lo, hi): slices for a DG
-        (reshape) leaf, index arrays else."""
+    def _face_transfers(self, axis, lo, hi, roll=0):
+        """Per-leaf face transfers of the slab [lo, hi) (rolled by `roll`):
+        slices for a DG (reshape) leaf, index arrays else."""
         out = []
         for li, dm in enumerate(self.dof_maps):
             if isinstance(dm, ReshapeDofMap) and self._face_transfer_mode == "auto":
                 out.append(SlabFaceTransfer(dm.offset, self.mesh.cells, dm.nb, axis,
-                                            lo, hi - self.mesh.cells[axis]))
+                                            lo, hi - self.mesh.cells[axis], roll))
             else:
                 out.append(IndexFaceTransfer(
-                    self._leaf_maps()[li][self._slab_elements(axis, lo, hi)]))
+                    self._leaf_maps()[li][self._slab_elements(axis, lo, hi, roll)]))
         return out
 
     def _build_boundary_groups(self):
         mesh = self.mesh
         qpf, wf = self._face_rule()
         for a in range(mesh.dim):
+            if mesh.periodic[a]:
+                continue
             c_a = mesh.cells[a]
-            fgeo = FaceGeometry(mesh, a, qpf, wf)
+            fgeo = FaceGeometry(mesh, a, qpf, wf) if mesh.uniform else None
             for s in (0, 1):
                 g = _FaceGroupData()
                 g.axis, g.side = a, s
@@ -228,14 +290,17 @@ class GridOperator:
                 g.trs_out = None
                 g.pts = embed_face_points(qpf, a, s, mesh.dim)
                 g.weights = wf
-                g.tabs_in = self._make_tabs(g.pts)
                 g.tabs_out = None
-                g.factor = fgeo.factor
-                n = np.zeros(mesh.dim)
-                n[a] = 2.0 * s - 1.0
-                g.normal = n
-                g.h_in = fgeo.h_normal
                 g.h_out = None
+                if mesh.uniform:
+                    g.tabs_in = self._make_tabs(g.pts)
+                    g.factor = fgeo.factor
+                    n = np.zeros(mesh.dim)
+                    n[a] = 2.0 * s - 1.0
+                    g.normal = n
+                    g.h_in = fgeo.h_normal
+                else:
+                    self._mapped_boundary_geometry(g, self._slab_elements(a, g.lo, g.hi))
                 self.bnd_groups.append(g)
 
     def _build_skeleton_groups(self):
@@ -245,24 +310,197 @@ class GridOperator:
             c_a = mesh.cells[a]
             if c_a < 2:
                 continue
-            fgeo = FaceGeometry(mesh, a, qpf, wf)
             g = _FaceGroupData()
             g.axis, g.side = a, None
-            g.lo, g.hi = 0, c_a - 1
-            g.trs_in = self._face_transfers(a, 0, c_a - 1)
-            g.trs_out = self._face_transfers(a, 1, c_a)
-            g.pts = embed_face_points(qpf, a, 1, mesh.dim)   # upper face of inside
+            if mesh.periodic[a]:
+                # every cell owns its upper face; the outside slab wraps
+                g.lo, g.hi, g.roll = 0, c_a, 1
+                g.trs_in = self._face_transfers(a, 0, c_a)
+                g.trs_out = self._face_transfers(a, 0, c_a, roll=1)
+            else:
+                g.lo, g.hi = 0, c_a - 1
+                g.trs_in = self._face_transfers(a, 0, c_a - 1)
+                g.trs_out = self._face_transfers(a, 1, c_a)
+            g.pts = embed_face_points(qpf, a, 1, mesh.dim)    # upper face of inside
             pts_out = embed_face_points(qpf, a, 0, mesh.dim)  # lower face of outside
             g.weights = wf
-            g.tabs_in = self._make_tabs(g.pts)
-            g.tabs_out = self._make_tabs(pts_out)
-            g.factor = fgeo.factor
-            n = np.zeros(mesh.dim)
-            n[a] = 1.0                                        # inside -> outside
-            g.normal = n
-            g.h_in = fgeo.h_normal
-            g.h_out = fgeo.h_normal
+            if mesh.uniform:
+                fgeo = FaceGeometry(mesh, a, qpf, wf)
+                g.tabs_in = self._make_tabs(g.pts)
+                g.tabs_out = self._make_tabs(pts_out)
+                g.factor = fgeo.factor
+                n = np.zeros(mesh.dim)
+                n[a] = 1.0                                    # inside -> outside
+                g.normal = n
+                g.h_in = fgeo.h_normal
+                g.h_out = fgeo.h_normal
+            else:
+                self._mapped_skeleton_geometry(g, pts_out, self.group_elements(g),
+                                               self.group_elements(g, True))
             self.skel_groups.append(g)
+
+    # -- mapped (multilinear) cube meshes ------------------------------------
+    def _mapped_cube_geometry(self, pts_ref, elements):
+        """Per-element Q1-map Jacobians at reference points on a mapped cube
+        mesh: J (F, q, d, d), detJ (F, q), for the given elements."""
+        corners = self.mesh.element_corner_coords()[elements]   # (F, C, d)
+        _, dN = geometry_element("cube", self.mesh.dim).tabulate(pts_ref)
+        J = np.einsum("eci,qcj->eqij", corners, dN)
+        detJ = np.linalg.det(J)
+        if np.any(detJ <= 0):
+            raise ValueError("mapped cube mesh has non-positive Jacobians "
+                             "(flipped/degenerate elements)")
+        return J, detJ
+
+    def _mapped_face_tabs(self, pts, invT):
+        """Per-leaf per-face tabulations at embedded face points of a mapped
+        cube mesh (gradients transformed by the adjacent element's
+        Jacobians at those points)."""
+        tabs = []
+        for lf in self.leaves:
+            vals, gref = lf.fem.tabulate(pts)
+            tabs.append((vals, np.einsum("fqij,qbj->fqbi", invT, gref), gref,
+                         lf.fem.degree))
+        return tabs
+
+    def _face_frame(self, g, pts, elements, n_ref):
+        """Nanson's formula n dS = det J J^{-T} N dS_ref on the faces of
+        `elements` at embedded points: sets g.normal (F, q, d), g.factor
+        (F, q) and g.x (F, q, d); returns (invT, face areas (F,))."""
+        J, detJ = self._mapped_cube_geometry(pts, elements)
+        invT = np.linalg.inv(J).transpose(0, 1, 3, 2)
+        nvec = np.einsum("fqij,j->fqi", invT, n_ref)
+        scale = np.linalg.norm(nvec, axis=-1)                   # (F, q)
+        g.normal = nvec / scale[..., None]
+        g.factor = g.weights[None, :] * detJ * scale
+        N, _ = geometry_element("cube", self.mesh.dim).tabulate(pts)
+        g.x = np.einsum("qc,fcd->fqd", N, self.mesh.element_corner_coords()[elements])
+        return invT, g.factor.sum(axis=1)
+
+    def _mapped_boundary_geometry(self, g, elements):
+        """Per-face geometry and tabs of a boundary group on a mapped cube
+        mesh (reference: IntersectionGeometry over general geometries,
+        common/geometrywrapper.hh). h is cell volume over face area."""
+        n_ref = np.zeros(self.mesh.dim)
+        n_ref[g.axis] = 2.0 * g.side - 1.0
+        invT, area = self._face_frame(g, g.pts, elements, n_ref)
+        g.h_in = np.asarray(self.vol_geo.cell_volume)[elements] / np.maximum(area, 1e-300)
+        g.tabs_in = self._mapped_face_tabs(g.pts, invT)
+
+    def _mapped_skeleton_geometry(self, g, pts_out, ei, eo):
+        """Two-sided face geometry on a mapped cube mesh: the shared face is
+        parametrized by the inside element's upper face (the same four
+        corner nodes as the outside element's lower face, so normals,
+        measures and x agree); each side's gradients are transformed by its
+        own Jacobians at the same physical points (reference:
+        common/geometrywrapper.hh:119 ff)."""
+        n_ref = np.zeros(self.mesh.dim)
+        n_ref[g.axis] = 1.0                                      # inside -> outside
+        invT_in, area = self._face_frame(g, g.pts, ei, n_ref)
+        cellvol = np.asarray(self.vol_geo.cell_volume)
+        g.h_in = cellvol[ei] / np.maximum(area, 1e-300)
+        g.h_out = cellvol[eo] / np.maximum(area, 1e-300)
+        g.tabs_in = self._mapped_face_tabs(g.pts, invT_in)
+        J_out, _ = self._mapped_cube_geometry(pts_out, eo)
+        g.tabs_out = self._mapped_face_tabs(pts_out, np.linalg.inv(J_out).transpose(0, 1, 3, 2))
+
+    # -- simplex meshes -------------------------------------------------------
+    def _build_simplex_face_groups(self):
+        """Face groups on a simplex mesh (reference: the intersection sweep
+        of gridoperator/default/assembler.hh:156-252). Faces are grouped by
+        their local-embedding configuration, the positions of the face's
+        sorted global vertices inside each adjacent cell, so the basis
+        values are shared per group while normals, measures and physical
+        gradients vary per face (affine geometry). Within a group every
+        inside (and every outside) element is distinct: the configuration
+        fixes the local face."""
+        mesh = self.mesh
+        dim = mesh.dim
+        qpf, wf = quadrature_rule("simplex", dim - 1, self.qorder)
+        lam = np.concatenate([1.0 - qpf.sum(axis=1, keepdims=True), qpf], axis=1)
+        # reference coordinates of local vertex v: the P1 geometry's node v
+        ref_corners = geometry_element("simplex", dim).nodes        # (d+1, dim)
+        verts, cells = mesh.vertices, mesh.cells
+        jacT = np.asarray(self.vol_geo.jac_inv_T)[:, 0]           # (E, d, d)
+        cellvol = np.asarray(self.vol_geo.cell_volume)
+        d1 = dim + 1
+        locs = np.array([[v for v in range(d1) if v != lf] for lf in range(d1)])
+        ref_face_vol = float(wf.sum())
+        leaf_maps = self._leaf_maps()
+
+        def face_geometry(cellids, locfaces):
+            canon = np.sort(cells[cellids[:, None], locs[locfaces]], axis=1)   # (F, d)
+            pos = (cells[cellids][:, :, None] == canon[:, None, :]).argmax(axis=1)
+            A = verts[canon]                                      # (F, d, dim)
+            edges = A[:, 1:] - A[:, :1]
+            G = np.einsum("fid,fjd->fij", edges, edges)
+            dens = np.sqrt(np.abs(np.linalg.det(G)))              # (F,)
+            if dim == 2:
+                t = edges[:, 0]
+                n = np.stack([t[:, 1], -t[:, 0]], axis=1)
+            else:
+                n = np.cross(edges[:, 0], edges[:, 1])
+            n = n / np.linalg.norm(n, axis=1, keepdims=True)
+            opp = verts[cells[cellids, locfaces]]
+            flip = np.einsum("fd,fd->f", n, A[:, 0] - opp) < 0
+            n[flip] *= -1.0
+            return pos, dens, n, np.einsum("qj,fjd->fqd", lam, A)
+
+        def tabs_for(pts_ref, cellids):
+            out = []
+            for lf in self.leaves:
+                vals, gref = lf.fem.tabulate(pts_ref)
+                out.append((vals, np.einsum("fij,qbj->fqbi", jacT[cellids], gref),
+                            gref, lf.fem.degree))
+            return out
+
+        def transfers(el):
+            return [IndexFaceTransfer(m[el]) for m in leaf_maps]
+
+        def group(sel, ei, dens, n, x, pts_in):
+            g = _FaceGroupData()
+            g.elements = ei
+            g.pts = pts_in
+            g.weights = wf
+            g.trs_in = transfers(ei)
+            g.tabs_in = tabs_for(pts_in, ei)
+            g.factor = wf[None, :] * dens[sel][:, None]
+            g.normal = n[sel][:, None, :]                         # (F, 1, d)
+            g.h_in = cellvol[ei] / (dens[sel] * ref_face_vol)
+            g.x = x[sel]
+            g.trs_out = g.tabs_out = g.h_out = None
+            return g
+
+        if self.has["alpha_boundary"] or self.has["lambda_boundary"]:
+            bf = mesh.boundary_faces()
+            cellids = bf["element"]
+            pos, dens, n, x = face_geometry(cellids, bf["local_face"])
+            if len(cellids):
+                _, inv = np.unique(pos, axis=0, return_inverse=True)
+                inv = inv.reshape(-1)
+                for ci in range(inv.max() + 1):
+                    sel = np.nonzero(inv == ci)[0]
+                    self.bnd_groups.append(group(sel, cellids[sel], dens, n, x,
+                                                 lam @ ref_corners[pos[sel[0]]]))
+
+        if self.has["alpha_skeleton"]:
+            itf = mesh.interior_faces()
+            cin, cout = itf["inside"], itf["outside"]
+            pos_i, dens, n, x = face_geometry(cin, itf["face_in"])
+            pos_o = face_geometry(cout, itf["face_out"])[0]
+            if len(cin):
+                _, inv = np.unique(np.concatenate([pos_i, pos_o], axis=1), axis=0,
+                                   return_inverse=True)
+                inv = inv.reshape(-1)
+                for ci in range(inv.max() + 1):
+                    sel = np.nonzero(inv == ci)[0]
+                    ei, eo = cin[sel], cout[sel]
+                    g = group(sel, ei, dens, n, x, lam @ ref_corners[pos_i[sel[0]]])
+                    g.outside = eo
+                    g.trs_out = transfers(eo)
+                    g.tabs_out = tabs_for(lam @ ref_corners[pos_o[sel[0]]], eo)
+                    g.h_out = cellvol[eo] / (dens[sel] * ref_face_vol)
+                    self.skel_groups.append(g)
 
     # ------------------------------------------------------------------
     # context construction (cached per dtype and device)
@@ -290,13 +528,16 @@ class GridOperator:
             return dict(weights=t(vg.weights), x=vg.x_tensor(dtype, device),
                         factor=t(vg.factor),
                         tabs=self._leaf_tab(self._vol_tabs, t),
-                        jac_inv_T=t(vg.jac_inv_T), cell_volume=t(vg.cell_volume))
+                        jac_inv_T=vg.jac_inv_T_tensor(dtype, device),
+                        cell_volume=t(vg.cell_volume))
         return VolumeContext(time=time, **self._cached(("vol",), build, dtype, device))
 
     def _face_x(self, g, dtype, device):
-        """(F, nqp, dim) physical face quadrature points: the slab's element
-        origins (float64 on the device, as VolumeGeometry) plus the
-        embedded points scaled by h."""
+        """(F, nqp, dim) physical face quadrature points: the group's own
+        array, or (uniform mesh) the slab's element origins (float64 on the
+        device, as VolumeGeometry) plus the embedded points scaled by h."""
+        if g.x is not None:
+            return torch.as_tensor(g.x, dtype=dtype, device=device)
         mesh = self.mesh
         dim = mesh.dim
         org = self.vol_geo.origins_tensor(torch.float64, device).reshape(
@@ -380,26 +621,92 @@ class GridOperator:
     def residual(self, x, time=0.0):
         """r(x) with constrained rows zeroed (so the correction problem
         J z = r has z = 0 on Dirichlet DOFs; reference convention:
-        gridoperator residual + set_trivial_rows)."""
+        gridoperator residual + set_trivial_rows). Hanging nodes:
+        r = P^T R(P x) (the etadd triple product as vector ops, reference:
+        gridoperator/common/assemblerutilities.hh:501-586)."""
+        affine = self.cg is not None and self.cg.has_affine
+        if affine:
+            x = self.cg.prolong(x)
         r = self.residual_unconstrained(x, time)
         if self.cg is not None:
+            if affine:
+                r = self.cg.restrict_transpose(r)
             r = torch.where(self.cg.mask_on(x.device), 0.0, r)
         return r
+
+    def weighted_element_residuals(self, x, w, time=0.0):
+        """Per-element signed weighted residuals eta_K = r_K(x) . w_K.
+
+        The localization step of dual-weighted-residual error estimation:
+        each element's volume/boundary/skeleton contribution is dotted with
+        w gathered on the same DOFs instead of being scattered, so
+        sum_K eta_K == w^T r(x) up to rounding. w is zeroed on constrained
+        rows; hanging-node constraints prolong both arguments. The face
+        terms add into their elements by `index_add` with distinct
+        elements per group (no float atomics). Returns an (nelements,)
+        tensor."""
+        dtype, device = x.dtype, x.device
+        if self.cg is not None:
+            w = torch.where(self.cg.mask_on(device), 0.0, w)
+            if self.cg.has_affine:
+                x = self.cg.prolong(x)
+                w = self.cg.prolong(w)
+        lop = self.lop.set_time(time)
+        eta = torch.zeros(self.mesh.nelements, dtype=dtype, device=device)
+
+        def dots(r_loc, w_list):
+            return sum(torch.sum(rl.to(dtype) * wl, dim=tuple(range(1, rl.ndim)))
+                       for rl, wl in zip(self._pack(r_loc), w_list))
+
+        def add(eta, g, vals, outside=False):
+            el = torch.as_tensor(self.group_elements(g, outside), device=device)
+            return eta.index_add(0, el, vals)
+
+        vctx = self._volume_ctx(time, dtype, device)
+        u = self._uarg([dm.gather(x) for dm in self.dof_maps])
+        wv = [dm.gather(w) for dm in self.dof_maps]
+        if self.has["alpha_volume"]:
+            eta = eta + dots(lop.alpha_volume(vctx, u), wv)
+        if self.has["lambda_volume"]:
+            eta = eta + dots(lop.lambda_volume(vctx), wv)
+        for g in self.bnd_groups:
+            fctx = self._face_ctx(g, time, dtype, device)
+            wf = [tr.gather(w) for tr in g.trs_in]
+            if self.has["alpha_boundary"]:
+                uf = self._uarg([tr.gather(x) for tr in g.trs_in])
+                eta = add(eta, g, dots(lop.alpha_boundary(fctx, uf), wf))
+            if self.has["lambda_boundary"]:
+                eta = add(eta, g, dots(lop.lambda_boundary(fctx), wf))
+        for g in self.skel_groups:
+            sctx = self._skel_ctx(g, time, dtype, device)
+            r_in, r_out = lop.alpha_skeleton(
+                sctx, self._uarg([tr.gather(x) for tr in g.trs_in]),
+                self._uarg([tr.gather(x) for tr in g.trs_out]))
+            eta = add(eta, g, dots(r_in, [tr.gather(w) for tr in g.trs_in]))
+            eta = add(eta, g, dots(r_out, [tr.gather(w) for tr in g.trs_out]), True)
+        return eta
 
     # ------------------------------------------------------------------
     # matrix-free Jacobian application (jacobianapplyengine analog)
     # ------------------------------------------------------------------
     def jacobian_apply(self, x, z, time=0.0):
         """y = J(x) z with symmetric constraint handling:
-        y = mask*z + P J P z, P = projection onto unconstrained DOFs."""
+        y = mask*z + P J P z, P = projection onto unconstrained DOFs (and,
+        with hanging nodes, J -> P_h^T J P_h)."""
+        affine = self.cg is not None and self.cg.has_affine
         if self.cg is not None:
             mask = self.cg.mask_on(z.device)
             zf = torch.where(mask, 0.0, z)
+            if affine:
+                x = self.cg.prolong(x)
+                zf = self.cg.prolong(zf)
         else:
             zf = z
         _, jz = jvp(lambda y: self.residual_unconstrained(y, time, lambdas=False),
                     (x,), (zf,))
         if self.cg is not None:
+            if affine:
+                jz = self.cg.restrict_transpose(jz)
             jz = torch.where(mask, z, jz)
         return jz
 
@@ -533,16 +840,32 @@ class GridOperator:
         """Assembled sparse Jacobian, a coalesced torch.sparse_coo_tensor
         with the reference's BCOO triples: symmetric constraint elimination
         (entries in a constrained row or column dropped) and unit rows on
-        constrained DOFs."""
+        constrained DOFs. With hanging nodes every entry is expanded
+        through the parent maps first (P^T J P at P x; host index work, the
+        reference's `_affine_expand`)."""
         n = self.space.ndofs
+        affine = self.cg is not None and self.cg.has_affine
+        if affine:
+            x = self.cg.prolong(x)
         rows, cols, datas = [], [], []
         for gd, J in self._all_jacobian_blocks(x, time):
             B, ni, nj = J.shape
-            gdt = torch.as_tensor(gd, device=x.device)
-            rows.append(gdt[:, :, None].expand(B, ni, nj).reshape(-1))
-            cols.append(gdt[:, None, :].expand(B, ni, nj).reshape(-1))
+            if affine:
+                rows.append(np.broadcast_to(gd[:, :, None], (B, ni, nj)).reshape(-1))
+                cols.append(np.broadcast_to(gd[:, None, :], (B, ni, nj)).reshape(-1))
+            else:
+                gdt = torch.as_tensor(gd, device=x.device)
+                rows.append(gdt[:, :, None].expand(B, ni, nj).reshape(-1))
+                cols.append(gdt[:, None, :].expand(B, ni, nj).reshape(-1))
             datas.append(J.reshape(-1))
-        rows, cols, data = torch.cat(rows), torch.cat(cols), torch.cat(datas)
+        data = torch.cat(datas)
+        if affine:
+            rows, cols, data = _affine_expand(self.cg, np.concatenate(rows),
+                                              np.concatenate(cols), data)
+            rows = torch.as_tensor(rows, device=x.device)
+            cols = torch.as_tensor(cols, device=x.device)
+        else:
+            rows, cols = torch.cat(rows), torch.cat(cols)
         if self.cg is not None:
             mask = self.cg.mask_on(x.device)
             keep = ~mask[rows] & ~mask[cols]
@@ -569,7 +892,12 @@ class GridOperator:
         probe, in the concatenated local layout of the leaves), summed
         through each leaf's DOF map and face transfers: slices on a
         structured leaf, the transpose map else, so the result is the same
-        from run to run."""
+        from run to run. With hanging nodes the hanging rows' diagonals
+        fold into their parents with weight w^2 (cross terms dropped, as in
+        the reference: a Jacobi diagonal, not the exact P^T J P one)."""
+        affine = self.cg is not None and self.cg.has_affine
+        if affine:
+            x = self.cg.prolong(x)
         d = torch.zeros(self.space.ndofs, dtype=x.dtype, device=x.device)
         lop = self.lop.set_time(time)
 
@@ -600,6 +928,8 @@ class GridOperator:
             d = self._scatter(d, g.trs_out, diag_of(
                 self._skeleton_side(lop, sctx, ui, uo, 1), uo))
         if self.cg is not None:
+            if affine:
+                d = self.cg.fold_diagonal(d)
             d = torch.where(self.cg.mask_on(x.device), 1.0, d)
         return d
 

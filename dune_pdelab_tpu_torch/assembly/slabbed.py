@@ -66,9 +66,10 @@ def residual_slabbed(space, lop, cg, x, nslabs=8, time=0.0):
     """
     if not (space.is_leaf and space.fem.continuity == "C0"):
         raise ValueError("residual_slabbed needs a single-leaf C0 space")
-    if space.mesh.geometry_type != "cube" or not space.mesh.uniform:
-        raise ValueError("residual_slabbed needs a uniform structured cube "
-                         f"mesh, got {space.mesh!r}")
+    if (space.mesh.geometry_type != "cube" or not space.mesh.uniform
+            or any(space.mesh.periodic)):
+        raise ValueError("residual_slabbed needs a uniform non-periodic "
+                         f"structured cube mesh, got {space.mesh!r}")
     mesh = space.mesh
     k = space.fem.degree
     dims = space._dof_grid_dims

@@ -2,8 +2,8 @@
 
 PyTorch port of dune_pdelab_tpu/fe/basis.py, limited to the Lagrange
 elements: continuous QkFEM and discontinuous QkDGFEM on the cube and
-continuous PkFEM on the simplex (PkDGFEM waits for ROADMAP slice 11, the
-other families for slice 13). A basis is its tabulation: `tabulate(points)` returns dense
+continuous PkFEM and discontinuous PkDGFEM on the simplex (the other
+families wait for ROADMAP slice 13). A basis is its tabulation: `tabulate(points)` returns dense
 (nqp, nb) / (nqp, nb, dim) float64 arrays that the assembler turns into
 tensors. All polynomial manipulation happens in float64 numpy at setup.
 """
@@ -30,6 +30,16 @@ def _poly_eval(C: np.ndarray, x: np.ndarray):
     if n > 1:
         dpowers[:, 1:] = powers[:, :-1] * np.arange(1, n)
     return powers @ C, dpowers @ C                   # (npts, nb) each
+
+
+def _poly_eval2(C: np.ndarray, x: np.ndarray):
+    """Second derivatives of the polynomials given monomial coeffs C."""
+    n = C.shape[0]
+    powers = np.vander(x, n, increasing=True)
+    d2 = np.zeros_like(powers)
+    if n > 2:
+        d2[:, 2:] = powers[:, :-2] * (np.arange(2, n) * np.arange(1, n - 1))
+    return d2 @ C
 
 
 def lagrange_nodes_1d(k: int) -> np.ndarray:
@@ -121,6 +131,33 @@ class _TensorLagrange(FiniteElement):
         return vals, grads
 
 
+    def tabulate_hessian(self, points: np.ndarray):
+        """(npts, nb, dim, dim) second derivatives (for error estimators)."""
+        points = np.atleast_2d(points)
+        vals1, ders1, ders2 = [], [], []
+        for d in range(self.dim):
+            v, dv = _poly_eval(self._C, points[:, d])
+            vals1.append(v)
+            ders1.append(dv)
+            ders2.append(_poly_eval2(self._C, points[:, d]))
+        mi = self._mi
+        npts = points.shape[0]
+        H = np.empty((npts, self.nbasis, self.dim, self.dim))
+        for a in range(self.dim):
+            for b in range(self.dim):
+                gg = np.ones((npts, self.nbasis))
+                for d in range(self.dim):
+                    if d == a == b:
+                        f = ders2[d]
+                    elif d in (a, b):
+                        f = ders1[d]
+                    else:
+                        f = vals1[d]
+                    gg *= f[:, mi[:, d]]
+                H[:, :, a, b] = gg
+        return H
+
+
 class QkFEM(_TensorLagrange):
     """Continuous Lagrange Qk (reference: dune/pdelab/finiteelementmap/qkfem.hh)."""
 
@@ -134,7 +171,7 @@ class QkDGFEM(_TensorLagrange):
     """Discontinuous Lagrange Qk with equidistant nodes (reference:
     dune/pdelab/finiteelementmap/qkdg.hh). The Gauss-Legendre and
     Gauss-Lobatto node variants, and the Legendre, monomial and OPB bases,
-    wait for ROADMAP slice 13; PkDGFEM on simplices for slice 11."""
+    wait for ROADMAP slice 13."""
 
     def __init__(self, k: int, dim: int, variant: str = "equidistant"):
         if variant != "equidistant":
@@ -151,21 +188,24 @@ class PkFEM(FiniteElement):
 
     geometry = "simplex"
 
-    def __init__(self, k: int, dim: int):
-        if k < 1:
-            raise ValueError("PkFEM needs k >= 1 (P0 and PkDGFEM: ROADMAP "
-                             "slices 13 and 11)")
+    def __init__(self, k: int, dim: int, continuity: str = "C0"):
+        if k < 1 and continuity == "C0":
+            raise ValueError("PkFEM needs k >= 1 (use PkDGFEM(0, dim) for P0)")
         self.dim = dim
         self.degree = k
         self.k = k
-        self.continuity = "C0"
-        pts, exps = [], []
-        for mi in itertools.product(range(k + 1), repeat=dim):
-            if sum(mi) <= k:
-                pts.append([m / k for m in mi])
-                exps.append(mi)
-        self.nodes = np.array(pts)
-        self._exps = np.array(exps, dtype=int)
+        self.continuity = continuity
+        if k == 0:
+            self.nodes = np.full((1, dim), 1.0 / (dim + 1))
+            self._exps = np.zeros((1, dim), dtype=int)
+        else:
+            pts, exps = [], []
+            for mi in itertools.product(range(k + 1), repeat=dim):
+                if sum(mi) <= k:
+                    pts.append([m / k for m in mi])
+                    exps.append(mi)
+            self.nodes = np.array(pts)
+            self._exps = np.array(exps, dtype=int)
         self.nbasis = len(self.nodes)
         V = self._monomials(self.nodes)[0]
         self._C = np.linalg.inv(V)  # vals = M(x) @ C
@@ -195,6 +235,15 @@ class PkFEM(FiniteElement):
     def tabulate(self, points: np.ndarray):
         V, dV = self._monomials(points)
         return V @ self._C, np.einsum("pmd,mb->pbd", dV, self._C)
+
+
+class PkDGFEM(PkFEM):
+    """Discontinuous Pk on the simplex (reference:
+    dune/pdelab/finiteelementmap/{monomfem.hh,opbfem.hh} analogs): the
+    PkFEM lattice basis, numbered element-major like every DG space."""
+
+    def __init__(self, k: int, dim: int):
+        super().__init__(k, dim, continuity="DG")
 
 
 @functools.lru_cache(maxsize=None)

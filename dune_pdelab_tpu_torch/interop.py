@@ -2,8 +2,9 @@
 
 Takes plain numpy data (e.g. `st.dims`, `st.k`, `st.weights`, `st.offsets`
 and `np.asarray(st.mask)` of a JAX StencilOperator, the level state of a
-JAX LatticeGMG, GeometricMultigrid or AlgebraicMultigrid, a simplex mesh's
-arrays, or `np.asarray(x)` of a JAX DOF vector) and builds the port's
+JAX LatticeGMG, GeometricMultigrid or AlgebraicMultigrid, the arrays of
+a simplex, structured or adaptive mesh, or `np.asarray(x)` of a JAX DOF
+vector) and builds the port's
 objects from it. Never imports jax, so it
 runs where jax is absent.
 Tensors land on `device`, default utils/common.default_device().
@@ -131,14 +132,49 @@ def block_stencil_from_numpy(cells, nb, W_taps, offsets, dD_sides, dtype=None):
                                 np.asarray(offsets), held(dD_sides))
 
 
-def simplex_mesh_from_numpy(vertices, cells, boundary_vertices=None):
+def simplex_mesh_from_numpy(vertices, cells, boundary_vertices=None, parent_cells=None,
+                            bisect_tag=None, cell_tags=None, facet_tags=None):
     """Port SimplexMesh from a mesh's arrays (`m.vertices`, `m.cells`,
-    `m.boundary_vertex_mask()` of a JAX SimplexMesh)."""
+    `m.boundary_vertex_mask()` of a JAX SimplexMesh), with, where the mesh
+    has them, the bisection state (`m.parent_cells`, `m.bisect_tag`) and
+    the gmsh tags (`m.cell_tags`, `m.facet_tags`)."""
     from dune_pdelab_tpu_torch.mesh.simplex import SimplexMesh
 
     bv = None if boundary_vertices is None else np.asarray(boundary_vertices, bool)
-    return SimplexMesh(np.asarray(vertices, np.float64), np.asarray(cells, np.int64),
-                       boundary_vertices=bv)
+    m = SimplexMesh(np.asarray(vertices, np.float64), np.asarray(cells, np.int64),
+                    boundary_vertices=bv)
+    if parent_cells is not None:
+        m.parent_cells = np.asarray(parent_cells, np.int64)
+    if bisect_tag is not None:
+        m.bisect_tag = np.asarray(bisect_tag, np.int64)
+    if cell_tags is not None:
+        m.cell_tags = np.asarray(cell_tags, np.int64)
+    if facet_tags is not None:
+        m.facet_tags = {tuple(int(v) for v in k): int(t) for k, t in facet_tags.items()}
+    return m
+
+
+def structured_mesh_from_numpy(lower, upper, cells, periodic=None, coords=None):
+    """Port StructuredMesh from a mesh's numpy state (`m.lower`, `m.upper`,
+    `m.cells`, `m.periodic`, `m.coords` of a JAX StructuredMesh)."""
+    from dune_pdelab_tpu_torch.mesh.structured import StructuredMesh
+
+    return StructuredMesh(np.asarray(lower, np.float64), np.asarray(upper, np.float64),
+                          tuple(int(c) for c in cells),
+                          periodic=None if periodic is None else tuple(bool(p) for p in periodic),
+                          coords=None if coords is None else np.asarray(coords, np.float64))
+
+
+def adaptive_mesh_from_numpy(lower, upper, coarse_cells, levels, origins, max_level):
+    """Port AdaptiveMesh from a forest's numpy state (`m.lower`, `m.upper`,
+    `m.coarse_cells`, `m.levels`, `m.origins`, `m.max_level` of a JAX
+    AdaptiveMesh)."""
+    from dune_pdelab_tpu_torch.mesh.adaptive import AdaptiveMesh
+
+    return AdaptiveMesh(np.asarray(lower, np.float64), np.asarray(upper, np.float64),
+                        tuple(int(c) for c in coarse_cells),
+                        levels=np.asarray(levels, np.int64),
+                        origins=np.asarray(origins, np.int64), max_level=int(max_level))
 
 
 def amg_from_host_levels(host_levels, host_coarse, *, device=None, **amg_kw):

@@ -26,8 +26,10 @@ Two cycles compute the same preconditioner:
     corner slice adds; flat layout only at entry and exit.
 The mode-major cycle runs with the LatticeGMG coarse solve, as in the
 reference. The reference's three-jit split of that cycle (a workaround for
-its remote compiler) has no counterpart. DG on simplex meshes (PkDGFEM)
-waits for ROADMAP slice 11.
+its remote compiler) has no counterpart. On a simplex mesh (PkDGFEM) the
+conforming subspace is P1, the coarse solve AMG (coarse='auto'), the block
+inverses come from probed element diagonal blocks and the smoother's
+colours from a greedy colouring of the face-adjacency graph.
 
 Usable directly as the `precond` callable of LinearSolverBackend.
 """
@@ -40,7 +42,7 @@ import torch
 
 from dune_pdelab_tpu_torch.assembly.dofmaps import make_leaf_dof_map
 from dune_pdelab_tpu_torch.constraints.dirichlet import constraints as make_constraints
-from dune_pdelab_tpu_torch.fe.basis import QkFEM
+from dune_pdelab_tpu_torch.fe.basis import PkFEM, QkFEM
 from dune_pdelab_tpu_torch.fe.quadrature import quadrature_rule
 from dune_pdelab_tpu_torch.space.space import FunctionSpace, _leaf_boundary_dof_mask
 from dune_pdelab_tpu_torch.utils.common import (
@@ -48,10 +50,32 @@ from dune_pdelab_tpu_torch.utils.common import (
 )
 
 
+def _greedy_element_colors(mesh):
+    """Colour simplex elements so face-adjacent elements differ (the DG
+    coupling graph: SIPG couples element blocks only through shared
+    faces). Greedy over the face-adjacency graph, host numpy as in the
+    reference; returns one element-index array per colour."""
+    if_ = mesh.interior_faces()
+    E = mesh.nelements
+    nbrs = [[] for _ in range(E)]
+    for a, b in zip(if_["inside"], if_["outside"]):
+        nbrs[a].append(b)
+        nbrs[b].append(a)
+    color = np.full(E, -1, np.int64)
+    for e in range(E):
+        used = {color[n] for n in nbrs[e] if color[n] >= 0}
+        c = 0
+        while c in used:
+            c += 1
+        color[e] = c
+    return [np.flatnonzero(color == c) for c in range(int(color.max()) + 1)]
+
+
 class DGTwoLevel:
     """Two-level preconditioner for (linear, SPD-ish) DG operators.
 
-    go_dg:   the DG GridOperator (single leaf: QkDG on a structured mesh)
+    go_dg:   the DG GridOperator (single leaf: QkDG on a structured mesh
+             or PkDG on a simplex mesh)
     cg_lop:  the CG discretization of the same PDE for the coarse space
              (e.g. ConvectionDiffusionFEM(problem))
     bctype:  Dirichlet bctype for the CG subspace (strong constraints)
@@ -59,7 +83,7 @@ class DGTwoLevel:
              GeometricMultigrid even where LatticeGMG would apply)
     coarse:  'gmg' (structured lattices), 'amg' (AlgebraicMultigrid on the
              assembled CG operator, options `amg_kwargs`) or 'auto' (gmg on
-             the structured meshes the port's DG spaces live on)
+             structured lattices, amg on simplex meshes)
     device:  where the coarse hierarchy lives (default: the default device)
     """
 
@@ -73,8 +97,9 @@ class DGTwoLevel:
         if not (space.is_leaf and space.fem.continuity == "DG"):
             raise ValueError("DGTwoLevel needs a single-leaf DG space")
         mesh = space.mesh
+        self._is_simplex = mesh.geometry_type == "simplex"
         if coarse == "auto":
-            coarse = "gmg"       # DG spaces of the port live on structured meshes
+            coarse = "amg" if self._is_simplex else "gmg"
         if coarse not in ("gmg", "amg"):
             raise ValueError(f"coarse={coarse!r}")
         self.go_dg = go_dg
@@ -87,7 +112,7 @@ class DGTwoLevel:
         # conforming Q1 subspace (cg_to_dg_prolongation.hh analog) with a
         # stencil-resident lattice GMG where it applies: fully Dirichlet
         # boundary, a lattice-stencil operator, no explicit gmg_kwargs
-        cg_fem = QkFEM(1, dim)
+        cg_fem = PkFEM(1, dim) if self._is_simplex else QkFEM(1, dim)
         self.V_cg = FunctionSpace(mesh, cg_fem)
         self.cg_cg = make_constraints(bctype, self.V_cg, device=self.device)
         self.gmg_lattice = None
@@ -120,7 +145,7 @@ class DGTwoLevel:
         M = phi.T @ (qw[:, None] * phi)
         b = phi.T @ (qw[:, None] * lam)
         self._W = np.linalg.solve(M, b)               # (nb, C)
-        self._corner_mi = np.asarray(cg_fem._mi)      # (C, dim), dim 0 first
+        self._corner_mi = None if self._is_simplex else np.asarray(cg_fem._mi)
         self.E = mesh.nelements
         self.nb = fem.nbasis
         self._apply = None
@@ -166,7 +191,7 @@ class DGTwoLevel:
         if x_lin is None:
             x_lin = torch.zeros(go.space.ndofs, dtype=default_float(), device=self.device)
         bst_src = operator if hasattr(operator, "W_taps") else getattr(operator, "source", None)
-        if operator is None and getattr(go.lop, "is_linear", False):
+        if operator is None and getattr(go.lop, "is_linear", False) and not self._is_simplex:
             operator = compile_block_stencil(go, x_lin, time)
             bst_src = operator
             if operator is not None and mesh.dim == 3:
@@ -204,9 +229,15 @@ class DGTwoLevel:
         # two-coloring; palindromic schedule with the repeated middle step
         # dropped ([r, b, r]: a repeated color step after an exact block
         # solve is a no-op)
-        par = mesh.element_multi_index().sum(axis=1) % 2
-        masks_np = np.stack([(par == c).astype(np.float64) for c in range(2)])
-        order = [0, 1, 0]
+        if self._is_simplex:
+            colors = _greedy_element_colors(mesh)
+        else:
+            par = mesh.element_multi_index().sum(axis=1) % 2
+            colors = [np.flatnonzero(par == c) for c in range(2)]
+        masks_np = np.zeros((len(colors), self.E))
+        for i, cidx in enumerate(colors):
+            masks_np[i, cidx] = 1.0
+        order = list(range(len(colors))) + list(range(len(colors) - 2, -1, -1))
         if use_mm:
             self._apply = self._build_mm_apply(operator, masks_np, order, gmg_apply)
         else:

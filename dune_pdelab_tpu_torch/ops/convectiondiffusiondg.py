@@ -39,16 +39,21 @@ class DGMethod:
 
 
 def _dotn(X, normal):
-    """X (..., d) · normal (d,)."""
-    return torch.einsum("...d,d->...", X, normal)
+    """X (..., d) · normal, the normal (d,) shared by a structured group or
+    (F, 1|nqp, d) per face (simplex and mapped meshes)."""
+    if normal.ndim == 1:
+        return torch.einsum("...d,d->...", X, normal)
+    return (X * normal).sum(-1)
 
 
 def _A_normal_grad(tab: LeafTab, A, normal, x_shape):
     """(A grad phi_b)·n exactly for scalar/field/tensor A: (F, nqp, nb)
     (reference: convectiondiffusiondg.hh:319-331). A constant scalar A
-    gives one shared (1, nqp, nb) array instead of a per-face one."""
+    with a shared normal gives one (1, nqp, nb) array instead of a
+    per-face one."""
     if isinstance(A, (int, float)) or (isinstance(A, torch.Tensor) and A.ndim == 0):
-        return (tab.grad * (A * normal)).sum(-1)
+        n = normal if normal.ndim == 1 else normal[:, :, None, :]
+        return (tab.grad * (A * n)).sum(-1)
     An = apply_tensor(A, torch.broadcast_to(normal, x_shape))   # A symmetric
     return (tab.grad * An[:, :, None, :]).sum(-1)
 
@@ -117,8 +122,10 @@ class ConvectionDiffusionDG(LocalOperator):
         """Normal diffusivity n·A n at face quadrature points."""
         A = torch.as_tensor(A, dtype=normal.dtype, device=normal.device)
         if A.ndim >= 2 and A.shape[-1] == A.shape[-2] == normal.shape[-1]:
-            An = torch.einsum("...ij,j->...i", A, normal)
-            return torch.einsum("...i,i->...", An, normal)
+            if normal.ndim == 1:
+                return torch.einsum("...i,i->...", torch.einsum("...ij,j->...i", A, normal),
+                                    normal)
+            return (torch.einsum("...ij,...j->...i", A, normal) * normal).sum(-1)
         return A  # scalar/isotropic
 
     def _gamma(self, delta, h, degree, dim):

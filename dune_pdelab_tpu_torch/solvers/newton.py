@@ -170,7 +170,7 @@ class NewtonMethod:
                 f"Newton did not converge in {self.max_iterations} iterations "
                 f"(defect {res.defect:.3e})"
             )
-        if self.go.cg is not None and getattr(self.go.cg, "has_affine", False):
+        if self.go.cg is not None and self.go.cg.has_affine:
             x = self.go.cg.prolong(x)  # conforming hanging-node values
         return x
 

@@ -57,4 +57,9 @@ class StationaryLinearProblemSolver:
             print(f"StationaryLinearProblemSolver: defect {defect0:.4e}, "
                   f"{self.result.linear_solver_iterations} linear iterations, "
                   f"converged={self.result.converged}")
-        return x - z
+        x = x - z
+        if self.go.cg is not None and self.go.cg.has_affine:
+            # subordinate hanging DOFs to their parents so the result is a
+            # conforming FE function (reference: newton.hh:104-115)
+            x = self.go.cg.prolong(x)
+        return x

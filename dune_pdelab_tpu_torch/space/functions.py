@@ -3,9 +3,10 @@
 PyTorch port of dune_pdelab_tpu/space/functions.py (reference:
 DiscreteGridFunction, dune/pdelab/gridfunctionspace/
 gridfunctionspaceutilities.hh:54, and the test oracles
-dune/pdelab/test/l2difference.hh:15-34, l2norm.hh) on uniform structured
-and simplex meshes (the latter through VolumeGeometry's per-element
-`qp_phys` and gradient transform); `exact` and `exact_grad` receive the
+dune/pdelab/test/l2difference.hh:15-34, l2norm.hh) on uniform, periodic,
+mapped and adaptive cube meshes and on simplex meshes (the mapped,
+adaptive and simplex ones through VolumeGeometry's per-element `qp_phys`
+and gradient transform); `exact` and `exact_grad` receive the
 (npts, dim) quadrature points as a float64 tensor on x's device (the
 port's callback convention) and return a tensor, array or scalar. Norms
 of a complex x are real.
@@ -20,11 +21,13 @@ from dune_pdelab_tpu_torch.assembly.geometry import VolumeGeometry
 from dune_pdelab_tpu_torch.fe.quadrature import quadrature_rule
 
 
-def evaluate_at_quadrature(space, x, quad_order=None):
+def evaluate_at_quadrature(space, x, quad_order=None, gradient=True):
     """u_h and grad u_h at volume quadrature points of every element.
 
     Returns (x_qp (E,nqp,dim) float64, u (E,nqp), gradu (E,nqp,dim),
-    factor (Eb,nqp)); Eb = 1 on a uniform mesh, E else.
+    factor (Eb,nqp)); Eb = 1 on a uniform mesh, E else. gradient=False
+    skips the physical gradients (gradu is None): on a simplex mesh they
+    cost E*nqp*nb*dim host values.
     """
     mesh = space.mesh
     qo = quad_order if quad_order is not None else 2 * space.fem.degree + 2
@@ -38,6 +41,8 @@ def evaluate_at_quadrature(space, x, quad_order=None):
         return torch.as_tensor(a, dtype=x.dtype, device=x.device)
 
     u = torch.einsum("qb,eb->eq", t(vals), u_loc)
+    if not gradient:
+        return xq, u, None, t(geo.factor)
     gphys = t(geo.transform_grad(grads))
     if gphys.shape[0] == 1:
         gu = torch.einsum("qbd,eb->eqd", gphys[0], u_loc)
@@ -49,7 +54,7 @@ def evaluate_at_quadrature(space, x, quad_order=None):
 def l2_difference(space, x, exact, quad_order=None):
     """|| u_h - exact ||_L2 (reference: test/l2difference.hh:15-34); real
     for a complex x."""
-    xq, u, _, factor = evaluate_at_quadrature(space, x, quad_order)
+    xq, u, _, factor = evaluate_at_quadrature(space, x, quad_order, gradient=False)
     ue = torch.as_tensor(exact(xq.reshape(-1, xq.shape[-1])), dtype=x.dtype,
                          device=x.device)
     d = u - torch.broadcast_to(ue.reshape(-1) if ue.ndim else ue,
@@ -65,7 +70,7 @@ def _at_points(v, like, shape):
 
 def l2_norm(space, x, quad_order=None):
     """|| u_h ||_L2 (l2norm.hh analog); real for a complex x."""
-    _, u, _, factor = evaluate_at_quadrature(space, x, quad_order)
+    _, u, _, factor = evaluate_at_quadrature(space, x, quad_order, gradient=False)
     return torch.sqrt(torch.real(torch.sum(factor * u * torch.conj(u))))
 
 
@@ -79,7 +84,7 @@ def h1_seminorm_difference(space, x, exact_grad, quad_order=None):
 
 def integrate_grid_function(space, x, quad_order=None):
     """∫ u_h dx (functionutilities.hh integrateGridFunction analog)."""
-    _, u, _, factor = evaluate_at_quadrature(space, x, quad_order)
+    _, u, _, factor = evaluate_at_quadrature(space, x, quad_order, gradient=False)
     return torch.sum(factor * u)
 
 
@@ -108,8 +113,9 @@ def _locate_simplex(mesh, pts, chunk=4096, tol=1e-12):
 
 def evaluate_at_points(space, x, pts):
     """u_h at arbitrary points (npts, dim): locate each point's element and
-    reference coordinates (lattice arithmetic on a uniform mesh, a
-    barycentric search on a simplex mesh), tabulate the basis there (the
+    reference coordinates (lattice arithmetic on a uniform mesh, the leaf
+    walk on an AdaptiveMesh, a barycentric search on a simplex mesh; a
+    mapped mesh raises), tabulate the basis there (the
     reference's per-point adaptivity._evaluate_on, in one batch). Returns a
     tensor of x's dtype on x's device."""
     mesh = space.mesh
@@ -121,11 +127,17 @@ def evaluate_at_points(space, x, pts):
         dofs = torch.as_tensor(space.element_dofs[elem], device=x.device)
         return torch.sum(torch.as_tensor(vals, dtype=x.dtype, device=x.device)
                          * x[dofs], dim=1)
-    rel = (pts - mesh.lower) / mesh.h
-    e_mi = np.clip(np.floor(rel).astype(np.int64), 0, np.array(mesh.cells) - 1)
-    vals, _ = space.fem.tabulate(rel - e_mi)                  # (npts, nb)
-    dofs = torch.as_tensor(space.element_dofs[mesh.element_index(e_mi)],
-                           device=x.device)
+    if hasattr(mesh, "locate"):                               # AdaptiveMesh
+        elem, ref = mesh.locate(pts)
+    elif not mesh.uniform:
+        raise NotImplementedError("point evaluation on a mapped mesh needs the "
+                                  "inverse multilinear map (not in the reference)")
+    else:
+        rel = (pts - mesh.lower) / mesh.h
+        e_mi = np.clip(np.floor(rel).astype(np.int64), 0, np.array(mesh.cells) - 1)
+        elem, ref = mesh.element_index(e_mi), rel - e_mi
+    vals, _ = space.fem.tabulate(ref)                         # (npts, nb)
+    dofs = torch.as_tensor(space.element_dofs[elem], device=x.device)
     return torch.sum(torch.as_tensor(vals, dtype=x.dtype, device=x.device) * x[dofs],
                      dim=1)
 

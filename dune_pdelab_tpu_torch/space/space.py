@@ -1,7 +1,9 @@
 """Discrete function spaces: DOF maps as lattice arithmetic.
 
 PyTorch port of dune_pdelab_tpu/space/space.py. Leaves: continuous (C0)
-Qk on the DOF lattice of a structured cube mesh, discontinuous (DG) Qk
+Qk on the DOF lattice of a structured cube mesh (a periodic axis wraps its
+last DOF plane onto the first), Q1 on the vertices of an AdaptiveMesh
+(hanging vertices are DOFs, constrained by affine rows), discontinuous (DG) Qk
 numbered element-major, DOF e*nb + j for local basis function j of element
 e, and continuous Pk on a simplex mesh, numbered [vertices | edge
 interiors | face interiors | cell interiors] (`_build_simplex_c0_map`).
@@ -62,7 +64,16 @@ class FunctionSpace:
         self.fem = fem
         self.name = name
         self._element_dofs = None
-        if fem.continuity == "DG":
+        if hasattr(mesh, "hanging_constraints"):          # AdaptiveMesh
+            if fem.continuity != "C0" or fem.degree != 1:
+                raise NotImplementedError(
+                    "adaptive meshes support Q1 spaces (the reference's "
+                    "hanging-node constraint assemblers are likewise Q1/P1 "
+                    "only, dune/pdelab/constraints/hangingnode.hh:24)")
+            self._element_dofs = np.asarray(mesh.element_vertex_indices(), np.int64)
+            self._dof_grid_dims = None
+            self.ndofs = mesh.nvertices
+        elif fem.continuity == "DG":
             self._dof_grid_dims = None
             self.ndofs = mesh.nelements * fem.nbasis
         elif mesh.geometry_type == "simplex":
@@ -92,7 +103,9 @@ class FunctionSpace:
             raise NotImplementedError(
                 f"C0 DOF layout requires a tensor nodal element, got {self.fem}")
         k = self.fem.degree
-        return tuple(k * c + 1 for c in self.mesh.cells)
+        # a periodic axis identifies its last DOF plane with the first
+        return tuple(k * c if p else k * c + 1
+                     for c, p in zip(self.mesh.cells, self.mesh.periodic))
 
     def _build_c0_map(self):
         mesh, fem = self.mesh, self.fem
@@ -103,6 +116,7 @@ class FunctionSpace:
             strides[d] = strides[d - 1] * dims[d - 1]
         emi = mesh.element_multi_index()           # (E, dim)
         g = k * emi[:, None, :] + fem._mi[None, :, :]  # (E, nloc, dim)
+        g = np.mod(g, np.array(dims))              # wraps on periodic axes only
         return g @ strides, dims
 
     def _build_simplex_c0_map(self):
@@ -208,9 +222,13 @@ class FunctionSpace:
     # -- node coordinates & interpolation ------------------------------------
     def dof_coords(self) -> np.ndarray:
         """(ndofs, dim) nodal coordinates: lattice arithmetic for a C0
-        lattice space, else the element node positions scattered through
-        the DOF map (conforming elements agree on shared entities)."""
-        if self._dof_grid_dims is not None:
+        lattice space on a uniform non-periodic mesh, else the element node
+        positions scattered through the DOF map (conforming elements agree
+        on shared entities; on a periodic axis the wrap elements write the
+        identified plane last, with their unwrapped positions, as in the
+        reference)."""
+        if (self._dof_grid_dims is not None and self.mesh.uniform
+                and not any(self.mesh.periodic)):
             return self.dof_coords_at(np.arange(self.ndofs, dtype=np.int64))
         pts = self._geometry_at(np.atleast_2d(self.fem.interpolation_points))
         coords = np.empty((self.ndofs, self.mesh.dim))
@@ -219,8 +237,9 @@ class FunctionSpace:
 
     def dof_coords_at(self, idx: np.ndarray) -> np.ndarray:
         """(len(idx), dim) nodal coordinates of selected DOFs, by lattice
-        arithmetic on a C0 lattice space (no per-element geometry sweep)."""
-        if self._dof_grid_dims is None:
+        arithmetic on a C0 lattice space of a uniform mesh (no per-element
+        geometry sweep)."""
+        if self._dof_grid_dims is None or not self.mesh.uniform:
             return self.dof_coords()[np.asarray(idx)]
         k = self.fem.degree
         nodes1d = lagrange_nodes_1d(k)
@@ -498,6 +517,8 @@ def _leaf_boundary_dof_mask(space: FunctionSpace) -> np.ndarray:
     """
     if space.mesh.geometry_type == "simplex" and space.fem.continuity == "C0":
         return _simplex_boundary_dof_mask(space)
+    if hasattr(space.mesh, "hanging_constraints"):      # AdaptiveMesh (Q1)
+        return space.mesh.boundary_vertex_mask()
     dims = space._dof_grid_dims
     if dims is None:
         raise NotImplementedError(
@@ -506,6 +527,8 @@ def _leaf_boundary_dof_mask(space: FunctionSpace) -> np.ndarray:
     dim = space.mesh.dim
     mask = np.zeros(tuple(reversed(dims)), dtype=bool)  # C-order, dim0 last
     for d in range(dim):
+        if space.mesh.periodic[d]:
+            continue
         ax = dim - 1 - d
         sl = [slice(None)] * dim
         sl[ax] = 0

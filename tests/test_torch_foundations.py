@@ -192,10 +192,28 @@ def test_device_key_normalises_cuda_spellings():
 
 
 def test_unported_mesh_options_raise():
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        tpt.StructuredMesh([0, 0], [1, 1], (4, 4), periodic=(True, False))
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        tpt.StructuredMesh([0, 0], [1, 1], (1, 1), coords=np.zeros((4, 2)))
+    """Periodic and mapped StructuredMesh construct (tests/
+    test_torch_mapped.py holds them against the JAX package); a bad
+    coordinate array raises, and the H(curl) spaces whose covariant Piola
+    map serves mapped meshes name ROADMAP slice 13."""
+    from dune_pdelab_tpu_torch.fe.basis import FiniteElement
+
+    m = tpt.StructuredMesh([0, 0], [1, 1], (4, 4), periodic=(True, False))
+    assert m.periodic == (True, False) and m.nvertices == 4 * 5
+    V = tpt.FunctionSpace(m, tpt.QkFEM(1, 2))
+    bmask = V.boundary_dof_mask()          # y = 0 and y = 1 only: x wraps
+    assert V.ndofs == 4 * 5 and bmask[:4].all() and not bmask[4:16].any()
+    mapped = tpt.StructuredMesh([0, 0], [1, 1], (1, 1),
+                                coords=np.array([[0, 0], [1, 0], [0, 1], [1.2, 1.1]]))
+    assert not mapped.uniform and mapped.element_corner_coords()[0, 3, 0] == 1.2
+    with pytest.raises(ValueError, match="coords must cover"):
+        tpt.StructuredMesh([0, 0], [1, 1], (1, 1), coords=np.zeros((3, 2)))
+
+    class Nedelec(FiniteElement):
+        geometry, continuity, dim, degree, nbasis, nodes = "cube", "Hcurl", 2, 1, 4, None
+
+    with pytest.raises(NotImplementedError, match="slice 13"):
+        tpt.FunctionSpace(mapped, Nedelec())
 
 
 def test_lazy_mesh_and_space_at_scale():

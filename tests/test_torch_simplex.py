@@ -13,8 +13,10 @@
     DiscreteGridFunction on those spaces;
   * the structured fast paths decline a simplex mesh with the documented
     answer (compile_stencil, assemble_ell and the fused operator: None;
-    residual_slabbed: ValueError), face kernels raise naming ROADMAP slice
-    11, and so do the SimplexMesh stubs.
+    residual_slabbed: ValueError); face kernels, gmsh input, submesh and
+    bisection now work (tests/test_torch_simplex_faces.py,
+    test_torch_bisection.py and test_torch_gmsh.py hold them against the
+    JAX package), and the stubs still left name ROADMAP slice 13.
 """
 import numpy as np
 import pytest
@@ -239,15 +241,29 @@ def test_fast_paths_decline_simplex():
 
 
 def test_simplex_faces_and_stubs_raise():
+    """Face kernels build on a simplex mesh (skip_boundary is no longer
+    needed), submesh and bisection run; the native MSH reader and the
+    H(div)/H(curl) spaces whose Piola maps serve simplex and mapped meshes
+    name ROADMAP slice 13."""
+    from dune_pdelab_tpu_torch.fe.basis import FiniteElement
+
     _, tV = _spaces(2, 3, 1)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        tpt.GridOperator(tV, TFEM(TSrc()), constraints=tpt.constraints(True, tV))
+    go = tpt.GridOperator(tV, TFEM(TSrc()), constraints=tpt.constraints(True, tV))
+    assert go.bnd_groups and not go.skel_groups
     _, tm = _meshes(2, 3)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        TSimplex.from_gmsh("mesh.msh")
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        tm.submesh(np.ones(tm.nelements, bool))
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        tm.refine_bisection(np.ones(tm.nelements, bool))
+    with pytest.raises(NotImplementedError, match="slice 13"):
+        TSimplex.from_gmsh("mesh.msh", reader="native")
+    sub = tm.submesh(np.ones(tm.nelements, bool))
+    np.testing.assert_array_equal(sub.cells, tm.cells)
+    fine, (nv, mids, ends) = tm.oriented_for_bisection().refine_bisection(
+        np.ones(tm.nelements, bool))
+    assert nv == tm.nvertices and len(mids) == len(ends) > 0
+    assert fine.nelements >= 2 * tm.nelements and len(fine.parent_cells) == fine.nelements
+
+    class RT(FiniteElement):
+        geometry, continuity, dim, degree, nbasis, nodes = "simplex", "Hdiv", 2, 1, 3, None
+
+    with pytest.raises(NotImplementedError, match="slice 13"):
+        tpt.FunctionSpace(tm, RT())
     with pytest.raises(ValueError, match="geometry"):
         tpt.FunctionSpace(tm, tpt.QkFEM(1, 2))
