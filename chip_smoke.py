@@ -136,12 +136,34 @@ Phases (each passes or raises; there is no CPU path):
      flat, and at 32^2 the residual, J.v, dg_jump_indicator,
      MinmodSlopeLimiter and dwr_indicators on the card against the CPU,
      the face-group residual twice bit-equal.
+ 13. slice 13a, fp64 unless stated: (k) block_stencil_em/_mm against their
+     plain versions at every new block size, fp32 and fp64, repeats
+     bit-equal, timed against the bound and a convolution (nb = 1: CCFV at
+     1024^2 and 128^3; nb = 6: SIPG on MonomialDGFEM/OPBFEM k = 2 at 256^2;
+     nb = 9: LegendreDGFEM; nb = 4: MonomialDGFEM k = 1 at 32^3; not
+     counted); (a) the config11 golden (34 Newton iterations, 2 failed
+     steps, 96 DOFs, the saturations to 1e-8); (b) config11's problem at
+     256x64 cells for 4 steps (rows equal, s_l in [0, 1], the share in
+     jacobian_apply), the wells problem at 128^2 (mass balance to 1e-6) and
+     config11's first three steps at 48x4 on the card against the CPU; (c)
+     CCFV diffusion at 512^2/1024^2 (K6, nb = 1) and 64^3/128^3 (K5),
+     order > 1.7, the upwind transport (BiCGStab at 128^2 held to its
+     bounds; at 512^2 BiCGStab breaks down in both packages and SuperLU's
+     solution is held), the Darcy reconstruction's per-cell conservation;
+     (d) SIPG on MonomialDGFEM/OPBFEM (nb = 6) and LegendreDGFEM (nb = 9)
+     at 128^2/256^2 (order > 2.5), MonomialDGFEM(1, 3) at 32^3 (K5, nb = 4),
+     variable order at 64^2 against the truncated space; (e) Q2 elasticity
+     at 128^2/256^2 (order > 2.7); (f) LinearAcousticsDG at 256^2 Q2 and
+     MaxwellDG at 32^3 Q1, 50 shu3 steps, and at 8^2 / 8x8x2 against the
+     CPU to 1e-12; (g) L2 projections onto every new element, a config11
+     restart through CheckpointManager bit-equal, a numpy-written
+     checkpoint loaded onto the card.
 
-Launch counts are set to 0 before each of phases 3 to 12 and read after
+Launch counts are set to 0 before each of phases 3 to 13 and read after
 it; a kernel of that path that was never launched fails the run (the
-comparison launches of phases 6a, 6c, 7a, 9a and 9c are not counted).
+comparison launches of phases 6a, 6c, 7a, 9a, 9c and 13k are not counted).
 Prints phase results and times, the card's name and power limit, one JSON
-line {"kernels": [...]} with each kernel's launches over phases 3-12,
+line {"kernels": [...]} with each kernel's launches over phases 3-13,
 error, times and bound, and as its last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -264,6 +286,64 @@ HEAT_PERIODIC_CELLS = 256   # phase 12e: fully periodic 2D heat
 MAPPED_CELLS = (256, 512)   # phase 12f: curved Poisson on the annulus
 MAPPED_DG_CELLS = (128, 256)   # phase 12f: SIPG on the curved mesh
 SIMPLEX_DG_CELLS = (128, 256)  # phase 12g: SIPG PkDGFEM(1, 2) on triangles
+# phase 13 (slice 13a), fp64 unless stated
+# 13k: every (dim, nb) phase 13 launches the block stencil at, in fp32 and
+# fp64, in each layout the kernel has there: (operator kind, cells,
+# layouts): nb = 1 (CCFV on P0), nb = 6 (SIPG on MonomialDGFEM and OPBFEM at
+# k = 2), nb = 9 (LegendreDGFEM at k = 2), nb = 4 in 3D (MonomialDGFEM at
+# k = 1). Their launches are not counted.
+P13_KERNEL_CASES = [("ccfv", (1024, 1024), ("em",)),
+                    ("ccfv", (128, 128, 128), ("mm", "em")),
+                    ("MonomialDGFEM", (256, 256), ("em",)),
+                    ("OPBFEM", (256, 256), ("em",)),
+                    ("LegendreDGFEM", (256, 256), ("em",)),
+                    ("MonomialDGFEM", (32, 32, 32), ("mm", "em"))]
+TP_C11_CELLS = 24         # 13a: config11 golden (models/configs.py:440-487)
+# 13b: config11's displacement at N = 32,768 on square cells: 32 cells
+# across the front (x) by 512 rows on [0, 1] x [0, 16], periodic in y, so
+# every row sees the same operator (the problem is 1D in x). With 64 or
+# more cells across, the first step of dt = 1e-3 does not converge within
+# 4 halvings, in the JAX package too (a line search failure at 64, 128 and
+# 256 cells across; 48 needs all 4; models/configs.py config11 runs 24);
+# with walls in y the rows' Jacobi diagonals differ and whether it
+# converges depends on the row count (the JAX package fails at 32 x 64).
+TP_CELLS = (32, 512)
+TP_HEIGHT = 16.0
+TP_TEND = 0.004           # 13b: 4 implicit Euler steps of dt = 1e-3
+TP_WELLS_CELLS = 128      # 13b: wells (tests/test_twophase.py:79-127)
+# 13b: config11's first three steps on the card and on the CPU: 8 x 4 cells
+# (13 Newton iterations, ~40 s of the CPU's eager general-jvp applies); at
+# 48 x 4 the first step fails 4 times and the CPU side takes minutes
+TP_SMALL_CELLS = 8
+# 13b: the wells' storage change per step against the injected amount. At
+# 128^2 the injected amount per step is 3.1e-8 (256x smaller than at the
+# test's 8^2) and the JAX package's own run of this problem with the test's
+# settings misses the test's 1e-6 (1.67e-6 at step 2; 9.8e-9 and 4.1e-7 at
+# steps 1 and 3): Newton stops on its absolute defect limit
+TP_WELLS_REL = 1e-5
+# the states agree to the solves' accuracy, not to rounding: Newton stops at
+# a 1e-7 defect reduction with BiCGStab to 1e-4, so the card's and the CPU's
+# iterates part at ~1e-9 (2.1e-9 of max|x| measured)
+TP_SMALL_TOL = 1e-8
+CCFV_2D = (512, 1024)     # 13c: N = 1,048,576 at 1024^2 (K6, nb = 1)
+CCFV_3D = (64, 128)       # 13c: N = 2,097,152 at 128^3 (K5, nb = 1)
+CCFV_UPWIND = 512         # 13c: upwind transport (tests/test_ccfv.py:49-64)
+CCFV_UPWIND_SMALL = 128   # 13c: the largest size whose Jacobi-BiCGStab holds its bounds
+CCFV_ORDER_MIN = 1.7      # tests/test_ccfv.py:43
+MODAL_CELLS = (128, 256)  # 13d: SIPG on the modal bases
+MODAL_ORDER_MIN = 2.5     # tests/test_fe_zoo.py:81
+MODAL_3D_CELLS = 32       # 13d: MonomialDGFEM(1, 3), nb = 4 (K5)
+VARORDER_CELLS = 64       # 13d: variable order (tests/test_variableorder.py:62-85)
+ELAST_CELLS = (128, 256)  # 13e: N = 132,098 / 526,338
+ELAST_SMALLER = (64, 128)
+ELAST_BUDGET_S = 40.0
+ELAST_ORDER_MIN = 2.7     # tests/test_elasticity.py:85
+ACOUSTICS_CELLS = 256     # 13f: 2D Q2 standing wave, N = 1,769,472
+MAXWELL_CELLS = 32        # 13f: 3D Q1 cavity, 32^3 cells, N = 1,572,864
+WAVE_STEPS = 50
+WAVE_SMALL_TOL = 1e-12
+PROJ_CELLS = 64           # 13g: L2 projections of polynomials
+PROJ_TOL = 1e-12
 CARD = "card not read yet"   # nvidia-smi name and power limit, set by main()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -2204,8 +2284,12 @@ def velocity_l2(W, x, exact):
 
 def synced_timer(torch, spent, key, f):
     """f wrapped so that each call adds its wall time between two device
-    syncs to spent[key] = [seconds, calls]."""
+    syncs to spent[key] = [seconds, calls]; a call made while a CUDA graph
+    is being captured (solvers/linear.py GraphedApply) runs unsynced and
+    uncounted."""
     def call(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            return f(*a, **k)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = f(*a, **k)
@@ -3639,6 +3723,723 @@ def phase_adaptivity(torch, pt, dev):
         log(f"[phase {name}] {time.perf_counter() - t0:.2f} s")
 
 
+# ---------------------------------------------------------------- phase 13
+
+def p0_diffusion_problem(dim):
+    """tests/test_ccfv.py's Diff (and its 3D extension): -lap u = f with
+    u = prod_d sin(pi x_d), homogeneous Dirichlet data."""
+    import torch
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+
+    pi = math.pi
+
+    class Diff(ConvectionDiffusionProblem):
+        def exact(self, p):
+            out = torch.ones(p.shape[:-1], dtype=p.dtype, device=p.device)
+            for d in range(dim):
+                out = out * torch.sin(pi * p[..., d])
+            return out
+
+        def f(self, x):
+            return dim * pi ** 2 * self.exact(x)
+    return Diff()
+
+
+def upwind_problem():
+    """tests/test_ccfv.py:49-64: nearly pure upwinded advection, inflow 1
+    on x = 0."""
+    import torch
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+
+    class T(ConvectionDiffusionProblem):
+        def A(self, x):
+            return 1e-8
+
+        def b(self, x):
+            return torch.broadcast_to(torch.tensor([1.0, 0.3], dtype=x.dtype,
+                                                   device=x.device), x.shape)
+
+        def g(self, x):
+            return torch.where(x[..., 0] < 1e-12, 1.0, 0.0).to(x.dtype)
+    return T()
+
+
+def modal_problem(dim):
+    """tests/test_fe_zoo.py:64-81 (SinCos, 2D) and a 3D counterpart:
+    u = sin(pi x) cos(2 pi y) [cos(pi z)] + x."""
+    import torch
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+
+    pi = math.pi
+
+    class SinCos(ConvectionDiffusionProblem):
+        def _w(self, x):
+            w = torch.sin(pi * x[..., 0]) * torch.cos(2 * pi * x[..., 1])
+            return w * torch.cos(pi * x[..., 2]) if dim == 3 else w
+
+        def exact(self, p):
+            return self._w(p) + p[..., 0]
+
+        def f(self, x):
+            return (5 + (dim == 3)) * pi ** 2 * self._w(x)
+
+        def g(self, x):
+            return self._w(x) + x[..., 0]
+    return SinCos()
+
+
+def p0_space(pt, cells, upper=None, geometry="cube", periodic=None):
+    from dune_pdelab_tpu_torch.fe import P0FEM
+    dim = len(cells)
+    mesh = pt.StructuredMesh([0.0] * dim, upper or [1.0] * dim, cells, periodic=periodic)
+    if geometry == "simplex":
+        mesh = pt.SimplexMesh.from_structured(mesh)
+    return mesh, pt.FunctionSpace(mesh, P0FEM(dim, geometry))
+
+
+def p13_operator(pt, kind, cells):
+    """(space, GridOperator) of a phase 13 kernel case: `ccfv` (13c's
+    diffusion CCFV, nb = 1) or SIPG on the modal basis `kind` of 13d
+    (k = 2 in 2D, k = 1 in 3D)."""
+    from dune_pdelab_tpu_torch import fe
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionCCFV, ConvectionDiffusionDG
+    dim = len(cells)
+    if kind == "ccfv":
+        _, V = p0_space(pt, cells)
+        return V, pt.GridOperator(V, ConvectionDiffusionCCFV(p0_diffusion_problem(dim)))
+    mesh = pt.StructuredMesh([0.0] * dim, [1.0] * dim, cells)
+    V = pt.FunctionSpace(mesh, getattr(fe, kind)(2 if dim == 2 else 1, dim))
+    return V, pt.GridOperator(V, ConvectionDiffusionDG(modal_problem(dim)))
+
+
+def p13_kernels(torch, pt, dev):
+    """Phase 13k: block_stencil_mm / block_stencil_em at every new (dim,
+    nb) of P13_KERNEL_CASES against their plain versions, fp32 and fp64 to
+    BLOCK_TOL, a repeated launch bit-equal; kernel, plain and convolution
+    times against block_work's bound. Launches not counted."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.assembly.blockstencil import compile_block_stencil
+    from dune_pdelab_tpu_torch.assembly.blockstencil_mm import try_mm_block_stencil
+    from dune_pdelab_tpu_torch.kernels import blockstencil as bk
+
+    saved = bk.launches_mm, bk.launches_em
+    rng = np.random.default_rng(130)
+    for kind, cells, layouts in P13_KERNEL_CASES:
+        _, go = p13_operator(pt, kind, cells)
+        st = compile_block_stencil(go, dtype=torch.float64, device=dev)
+        if st is None:
+            raise AssertionError(f"13k: compile_block_stencil declined {kind} {cells}")
+        for dtype in (torch.float32, torch.float64):
+            W, dD = st.taps(dtype, dev)
+            nb = st.nb
+            z = torch.as_tensor(rng.standard_normal(st.ndofs), dtype=dtype, device=dev)
+            ch, rows = bk.shared_plan(dtype, nb)
+            path = bk.block_path(dtype, nb)
+            plan = f"{path} path" + (f", ch {ch}, {rows} rows" if path == "shared" else "")
+            tag = (f"{kind} {'x'.join(map(str, cells))} nb={nb} "
+                   f"{str(dtype).replace('torch.', '')}")
+            nbytes, flops = block_work(cells, nb, z.element_size())
+            for layout in layouts:
+                arg = try_mm_block_stencil(st).to_mm(z) if layout == "mm" else z
+                fn = getattr(bk, f"block_stencil_{layout}")
+                ref = getattr(bk, f"block_stencil_{layout}_reference")
+                run = lambda: fn(arg, W, dD, cells)
+                plain = lambda: ref(arg, W, dD, cells)
+                y, y_p, y2 = run(), plain(), run()
+                torch.cuda.synchronize()
+                err = block_err(f"13k block_stencil_{layout} {tag}", y, y_p)
+                if not torch.equal(y, y2):
+                    raise AssertionError(f"13k block_stencil_{layout} {tag}: repeat differs")
+                ms = cuda_ms(torch, run, 50)
+                plain_ms = cuda_ms(torch, plain, 10)
+                lib_ms = conv_ms(torch, z, W, cells, 20)
+                b = bound(nbytes, flops)
+                log(f"[phase 13k] block_stencil_{layout} {tag} ({plan}): max abs err "
+                    f"{err:.3e} (max|y| {float(y_p.abs().max()):.3e}), repeat bit-equal, "
+                    f"{ms:.4f} ms, graph replay {graph_ms(torch, run, 200):.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, conv {lib_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+                    f"({b['bound_by']}), kernel at {100 * b['bound_ms'] / ms:.1f}% of it")
+                del y, y_p, y2, arg
+            del z
+        del go, st
+        torch.cuda.empty_cache()
+    bk.launches_mm, bk.launches_em = saved
+
+
+def peak_gib(torch):
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def displacement_params():
+    """models/configs.py config11's Displacement: the wetting phase floods
+    in from x = 0, outflow at x = 1."""
+    import torch
+    from dune_pdelab_tpu_torch.ops.twophase import TwoPhaseParameters
+
+    class Displacement(TwoPhaseParameters):
+        def is_dirichlet(self, x):
+            return (x[..., 0] < 1e-9) | (x[..., 0] > 1 - 1e-9)
+
+        def g_l(self, x):
+            return torch.where(x[..., 0] < 0.5, 2.0, 0.0).to(x.dtype)
+
+        def g_g(self, x):
+            return torch.where(x[..., 0] < 0.5, 1.5, 1.5).to(x.dtype)
+    return Displacement(phi=0.2, K=1.0, mu_l=1.0, mu_g=0.2, pc_scale=1.0)
+
+
+def twophase_setup(torch, pt, cells, dev, upper=(1.0, 0.25), prm=None, reduction=1e-7,
+                   min_lin=1e-4, start=(0.0, 0.5), periodic=None):
+    """config11's discretisation on `cells` (implicit Euler, Newton,
+    SEQ_BCGS_Jacobi): (mesh, W, osm, backend, x0), x0 = (p_l, p_g) = start
+    in fp64 on dev."""
+    from dune_pdelab_tpu_torch.instationary import OneStepMethod, implicit_euler
+    from dune_pdelab_tpu_torch.ops.twophase import TwoPhaseCCFV, TwoPhaseStorage
+    mesh, V = p0_space(pt, cells, list(upper), periodic=periodic)
+    W = pt.PowerSpace(V, 2)
+    prm = prm or displacement_params()
+    backend = pt.SEQ_BCGS_Jacobi()
+    osm = OneStepMethod(implicit_euler(), pt.GridOperator(W, TwoPhaseCCFV(prm)),
+                        pt.GridOperator(W, TwoPhaseStorage(prm)), backend,
+                        pdesolver="newton", reduction=reduction, max_iterations=40,
+                        min_linear_reduction=min_lin)
+    E = mesh.nelements
+    x0 = torch.cat([torch.full((E,), start[0], dtype=torch.float64, device=dev),
+                    torch.full((E,), start[1], dtype=torch.float64, device=dev)])
+    return mesh, W, osm, backend, x0
+
+
+def s_liquid(W, x):
+    """config11's saturation sigmoid(4 (1/2 - (p_g - p_l)))."""
+    pl, pg = W.restrict(x, 0), W.restrict(x, 1)
+    return 1.0 / (1.0 + (-4.0 * (0.5 - (pg - pl))).exp())
+
+
+def twophase_config11(torch, pt, dev):
+    """Phase 13a: config11 (models/configs.py:440-487) on the card, held
+    to tests/golden_parity.json: 34 Newton iterations, 2 failed steps, 96
+    DOFs, t_final 0.008, s_inlet / s_outlet to 1e-8, its Krylov applies
+    replayed from CUDA graphs (solvers/linear.py GraphedApply)."""
+    gold = json.loads((ROOT / "tests" / "golden_parity.json").read_text())[
+        "config11_twophase_displacement"]
+    torch.cuda.reset_peak_memory_stats()
+    mesh, W, osm, backend, x0 = twophase_setup(torch, pt, (TP_C11_CELLS, 2), dev)
+    (t, x), s = timed(torch, lambda: osm.solve(0.0, 1e-3, 0.008, x0, max_step_retries=4))
+    s_l = s_liquid(W, x).cpu().numpy()
+    centers = mesh.element_centers()
+    row = abs(centers[:, 1] - centers[0, 1]) < 1e-12
+    s_row = s_l[row][centers[row][:, 0].argsort()]
+    got = {"newton_iterations": osm.result.total_newton_iterations,
+           "failed_steps": osm.result.failed_steps, "ndofs": W.ndofs, "t_final": float(t),
+           "s_inlet": float(s_row[0]), "s_outlet": float(s_row[-1])}
+    log(f"[phase 13a] config11 fp64 (N = {W.ndofs}): {got['newton_iterations']} Newton "
+        f"iterations, {got['failed_steps']} failed steps, "
+        f"{osm.result.total_linear_iterations} BiCGStab iterations, t_final {t}, s_inlet "
+        f"{got['s_inlet']!r} (golden {gold['s_inlet']!r}), s_outlet {got['s_outlet']!r} "
+        f"(golden {gold['s_outlet']!r}), {s:.2f} s, peak {peak_gib(torch):.3f} GiB; "
+        f"{'; '.join(backend.report(osm.igos).splitlines())}")
+    path = backend.report(osm.igos)
+    if dev.type == "cuda" and ("CUDA graph replay" not in path or "graph declined" in path):
+        raise AssertionError(f"13a: the general-jvp apply was not replayed from a graph: {path}")
+    for key in ("newton_iterations", "failed_steps", "ndofs", "t_final"):
+        if got[key] != gold[key]:
+            raise AssertionError(f"13a config11 {key}: {got[key]} != golden {gold[key]}")
+    for key in ("s_inlet", "s_outlet"):
+        if not abs(got[key] - gold[key]) <= 1e-8:
+            raise AssertionError(f"13a config11 {key}: {got[key]!r} vs {gold[key]!r}")
+
+
+def twophase_at_size(torch, pt, dev):
+    """Phase 13b: config11's problem on TP_CELLS (periodic in y),
+    implicit Euler steps of 1e-3 to TP_TEND with config11's Newton and
+    BiCGStab settings: every row of cells equal to the first (the problem
+    is 1D in x) to 1e-8, s_l in [0, 1] to 1e-8; the wells problem;
+    config11's first three steps at TP_SMALL_CELLS x 4 on the card against
+    the CPU."""
+    torch.cuda.reset_peak_memory_stats()
+    mesh, W, osm, backend, x = twophase_setup(torch, pt, TP_CELLS, dev, (1.0, TP_HEIGHT),
+                                              periodic=(False, True))
+    spent = {"japply": [0.0, 0]}
+    osm.igos.jacobian_apply = synced_timer(torch, spent, "japply", osm.igos.jacobian_apply)
+    res = osm.result
+    t, total = 0.0, 0.0
+    while t < TP_TEND - 1e-12:
+        n0, l0, f0 = res.total_newton_iterations, res.total_linear_iterations, res.failed_steps
+        (t_new, x), s = timed(torch, lambda: osm.solve(t, 1e-3, t + 1e-3, x,
+                                                       max_step_retries=4))
+        total += s
+        log(f"[phase 13b] step to t = {t_new:.4f}: {res.total_newton_iterations - n0} Newton, "
+            f"{res.total_linear_iterations - l0} BiCGStab iterations, "
+            f"{res.failed_steps - f0} failed steps, {s:.2f} s")
+        t = t_new
+    nx, ny = TP_CELLS
+    rows = [W.restrict(x, c).reshape(ny, nx) for c in (0, 1)]
+    row_gap = max(float((r - r[:1]).abs().max()) for r in rows)
+    s_l = s_liquid(W, x)
+    lo, hi = float(s_l.min()), float(s_l.max())
+    log(f"[phase 13b] displacement {nx}x{ny} (N = {W.ndofs}) to t = {t}: "
+        f"{res.total_newton_iterations} Newton, {res.total_linear_iterations} BiCGStab "
+        f"iterations, {res.failed_steps} failed steps, {total / res.steps:.2f} s per step, "
+        f"jacobian_apply {spent['japply'][1]} calls {spent['japply'][0]:.2f} s = "
+        f"{100 * spent['japply'][0] / total:.1f}% of it; rows vs the first {row_gap:.3e}, "
+        f"s_l in [{lo:.6f}, {hi:.6f}], peak {peak_gib(torch):.3f} GiB; "
+        f"{'; '.join(backend.report(osm.igos).splitlines())}; {CARD}")
+    if not (row_gap <= 1e-8 and lo >= -1e-8 and hi <= 1 + 1e-8):
+        raise AssertionError(f"13b: rows {row_gap}, s_l in [{lo}, {hi}]")
+    twophase_wells(torch, pt, dev)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        _, _, osm_s, _, xs = twophase_setup(torch, pt, (TP_SMALL_CELLS, 4), d)
+        steps, t = [], 0.0
+        for _ in range(3):
+            n0 = osm_s.result.total_newton_iterations
+            t, xs = osm_s.solve(t, 1e-3, t + 1e-3, xs, max_step_retries=4)
+            steps.append(osm_s.result.total_newton_iterations - n0)
+        out[d.type] = (steps, osm_s.result.failed_steps, xs.cpu())
+    card, host = out[dev.type], out["cpu"]
+    gap = float((card[2] - host[2]).abs().max() / host[2].abs().max())
+    log(f"[phase 13b] config11 {TP_SMALL_CELLS}x4, 3 steps: Newton per step card "
+        f"{card[0]} / CPU {host[0]}, failed {card[1]} / {host[1]}, states {gap:.3e} of max|x|")
+    if card[:2] != host[:2] or not gap <= TP_SMALL_TOL:
+        raise AssertionError(f"13b card vs CPU: {card[:2]} {host[:2]} {gap}")
+
+
+def twophase_wells(torch, pt, dev):
+    """Phase 13b: the wells problem of tests/test_twophase.py:79-127 at
+    TP_WELLS_CELLS^2: each phase's storage changes per step by the
+    injected amount to TP_WELLS_REL relative."""
+    from dune_pdelab_tpu_torch.ops.twophase import TwoPhaseParameters
+    n = TP_WELLS_CELLS
+    Q, hx = 0.05, 1.0 / n
+
+    class Wells(TwoPhaseParameters):
+        def q_l(self, x):                            # injector at (0, 0)
+            return torch.where((x[..., 0] < hx) & (x[..., 1] < hx), Q, 0.0).to(x.dtype)
+
+        def q_g(self, x):                            # producer at (1, 1)
+            return torch.where((x[..., 0] > 1 - hx) & (x[..., 1] > 1 - hx), -Q,
+                               0.0).to(x.dtype)
+
+    mesh, W, osm, _, x = twophase_setup(torch, pt, (n, n), dev, (1.0, 1.0),
+                                        Wells(phi=0.2, pc_scale=2.0), 1e-10, 1e-5, (0.0, 1.0))
+    E = mesh.nelements
+    go1 = osm.igos.go1
+
+    def masses(v):
+        m = go1.residual_unconstrained(v)
+        return float(m[:E].sum()), float(m[E:].sum())
+
+    m0 = masses(x)
+    t, dt, worst = 0.0, 0.01, 0.0
+    for step in range(3):
+        n0, l0 = osm.result.total_newton_iterations, osm.result.total_linear_iterations
+        x, s = timed(torch, lambda: osm.apply(t, dt, x))
+        t += dt
+        m = masses(x)
+        want = (step + 1) * dt * Q * hx * hx
+        rel = max(abs((m[0] - m0[0]) - want), abs((m[1] - m0[1]) + want)) / want
+        worst = max(worst, rel)
+        log(f"[phase 13b] wells {n}^2 step {step + 1}: "
+            f"{osm.result.total_newton_iterations - n0} Newton, "
+            f"{osm.result.total_linear_iterations - l0} BiCGStab iterations, {s:.2f} s; "
+            f"storage change vs injected: rel {rel:.3e}; "
+            f"{'; '.join(osm.pdesolver.ls.report(osm.igos).splitlines())}")
+    if not worst <= TP_WELLS_REL:
+        raise AssertionError(f"13b wells: mass balance off by {worst}")
+
+
+def ccfv_solves(torch, pt, dev):
+    """Phase 13c: CCFV diffusion at CCFV_2D^2 (K6, nb = 1) and CCFV_3D^3
+    (K5, nb = 1) with SEQ_CG_Jacobi to 1e-10 (center error order > 1.7),
+    the upwind transport (upwind_runs), and the Darcy reconstruction on the
+    largest 2D head: per cell, the RT0 fluxes' imbalance minus the source
+    equals the solver's residual to 1e-10 of the largest face flux. Every
+    Krylov solve's report names the block-stencil tier."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionCCFV, DarcyVelocityFromHeadCCFV
+
+    def solve(problem, cells, backend, tag, tier="compiled block stencil", held=True):
+        torch.cuda.reset_peak_memory_stats()
+        mesh, V = p0_space(pt, cells)
+        go = pt.GridOperator(V, ConvectionDiffusionCCFV(problem))
+        slp = pt.StationaryLinearProblemSolver(go, backend, reduction=1e-10, verbose=0)
+        x, s = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
+        path = (backend.report(go).splitlines()[0] if hasattr(backend, "report")
+                else f"solve path: {type(backend).__name__} (host sparse LU)")
+        log(f"[phase 13c] {tag} {'x'.join(map(str, cells))} (N = {V.ndofs}): "
+            f"{slp.result.linear_solver_iterations} iterations, {s:.2f} s, converged "
+            f"{slp.result.converged}, peak {peak_gib(torch):.3f} GiB; {path}")
+        if tier not in path or (held and not slp.result.converged):
+            raise AssertionError(f"13c {tag}: converged {slp.result.converged}, {path}")
+        return mesh, go, x
+
+    head = None
+    for dim, sizes in ((2, CCFV_2D), (3, CCFV_3D)):
+        p = p0_diffusion_problem(dim)
+        errs = []
+        for n in sizes:
+            mesh, go, x = solve(p, (n,) * dim, pt.SEQ_CG_Jacobi(), f"diffusion {dim}D CG")
+            c = torch.as_tensor(mesh.element_centers(), device=dev)
+            errs.append(float(((x - p.exact(c)) ** 2).mean().sqrt()))
+            if dim == 2:
+                head = (mesh, go, x)
+        order = math.log2(errs[-2] / errs[-1])
+        log(f"[phase 13c] diffusion {dim}D: center RMS errors {errs}, order {order:.3f}")
+        if not order > CCFV_ORDER_MIN:
+            raise AssertionError(f"13c {dim}D order {order}")
+    upwind_runs(torch, pt, dev, solve)
+    mesh, go, x = head
+    p = p0_diffusion_problem(2)
+    dv, s = timed(torch, lambda: DarcyVelocityFromHeadCCFV(mesh, p, x))
+    vol = float(np.prod(mesh.h))
+    fmid = p.f(torch.as_tensor(mesh.element_centers(), dtype=torch.float64)).numpy()
+    r = go.residual(x).cpu().numpy()                  # outward fluxes - source, per cell
+    gap = float(np.abs(dv.cell_divergence() * vol - fmid * vol - r).max())
+    fmax = max(float(np.abs(V).max()) * vol / h for V, h in zip(dv.face_normal_velocities(),
+                                                                 mesh.h))
+    div_rel = float(np.abs(dv.cell_divergence() - fmid).max() / np.abs(fmid).max())
+    log(f"[phase 13c] Darcy RT0 on the {mesh.cells[0]}^2 head: reconstruction {s:.2f} s; "
+        f"per-cell imbalance minus the solver's residual {gap:.3e} (largest face flux "
+        f"{fmax:.3e}); |div v - f| / max|f| = {div_rel:.3e}")
+    if not gap <= 1e-10 * fmax:
+        raise AssertionError(f"13c Darcy conservation {gap} > 1e-10 * {fmax}")
+
+
+def upwind_runs(torch, pt, dev, solve):
+    """Phase 13c: the upwind transport of tests/test_ccfv.py:49-64 with
+    SEQ_BCGS_Jacobi on the block-stencil tier at CCFV_UPWIND_SMALL^2, held
+    to the test's [-1e-6, 1 + 1e-6], and at CCFV_UPWIND^2, where Jacobi-
+    BiCGStab breaks down in the JAX package too (its outcome is logged, not
+    held); at CCFV_UPWIND^2 the bounds are held on SEQ_SuperLU's solution of
+    the same system."""
+    from dune_pdelab_tpu_torch.solvers import SEQ_SuperLU
+
+    def bounds(x, tag):
+        lo, hi = float(x.min()), float(x.max())
+        log(f"[phase 13c] {tag}: solution in [{lo:.3e}, 1 {hi - 1:+.3e}], finite "
+            f"{bool(x.isfinite().all())}")
+        return lo, hi
+
+    for n, backend, tag, held in (
+            (CCFV_UPWIND_SMALL, pt.SEQ_BCGS_Jacobi(), "upwind BiCGStab", True),
+            (CCFV_UPWIND, pt.SEQ_BCGS_Jacobi(), "upwind BiCGStab (logged only)", False),
+            (CCFV_UPWIND, SEQ_SuperLU(), "upwind SuperLU", True)):
+        tier = "compiled block stencil" if "BiCGStab" in tag else ""
+        _, _, x = solve(upwind_problem(), (n, n), backend, tag, tier, held)
+        lo, hi = bounds(x, f"{tag} {n}^2")
+        if held and not (lo >= -1e-6 and hi <= 1 + 1e-6):
+            raise AssertionError(f"13c {tag} {n}^2 bounds [{lo}, {hi}]")
+
+
+def modal_solves(torch, pt, dev):
+    """Phase 13d: SIPG on MonomialDGFEM(2, 2), OPBFEM(2, 2) (nb = 6) and
+    LegendreDGFEM(2, 2) (nb = 9) at MODAL_CELLS^2 with SEQ_BCGS_Jacobi to
+    1e-11 (L2 order > 2.5), MonomialDGFEM(1, 3) at MODAL_3D_CELLS^3 (nb = 4,
+    K5), and variable order at VARORDER_CELLS^2 against the truncated
+    lower-order space (tests/test_variableorder.py:62-85)."""
+    import numpy as np
+    from dune_pdelab_tpu_torch import fe
+    from dune_pdelab_tpu_torch.constraints.variableorder import p_adaptive_constraints
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionDG, DGMethod
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    def solve(V, p, tag, cg_=None, penalty=2.0, quad_order=None):
+        torch.cuda.reset_peak_memory_stats()
+        go = pt.GridOperator(V, ConvectionDiffusionDG(p, method=DGMethod.SIPG,
+                                                      penalty=penalty),
+                             constraints=cg_, quad_order=quad_order)
+        backend = pt.SEQ_BCGS_Jacobi(maxiter=40000)
+        slp = pt.StationaryLinearProblemSolver(go, backend, reduction=1e-11, verbose=0)
+        x, s = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
+        err = float(l2_difference(V, x, p.exact))
+        path = backend.report(go).splitlines()[0]
+        log(f"[phase 13d] {tag} (N = {V.ndofs}): {slp.result.linear_solver_iterations} "
+            f"BiCGStab iterations, {s:.2f} s, L2 {err:.6e}, peak {peak_gib(torch):.3f} GiB; "
+            f"{path}")
+        if not slp.result.converged:
+            raise AssertionError(f"13d {tag} did not converge")
+        return x, err, path
+
+    p2 = modal_problem(2)
+    for name in ("MonomialDGFEM", "OPBFEM", "LegendreDGFEM"):
+        errs = []
+        for n in MODAL_CELLS:
+            V = pt.FunctionSpace(pt.StructuredMesh([0, 0], [1, 1], (n, n)),
+                                 getattr(fe, name)(2, 2))
+            _, err, path = solve(V, p2, f"SIPG {name}(2, 2) {n}^2")
+            if "compiled block stencil" not in path:
+                raise AssertionError(f"13d {name}: {path}")
+            errs.append(err)
+        order = math.log2(errs[0] / errs[1])
+        log(f"[phase 13d] {name}(2, 2): L2 order {order:.3f}")
+        if not order > MODAL_ORDER_MIN:
+            raise AssertionError(f"13d {name} order {order}")
+    n = MODAL_3D_CELLS
+    V = pt.FunctionSpace(pt.StructuredMesh([0] * 3, [1] * 3, (n,) * 3), fe.MonomialDGFEM(1, 3))
+    _, err, path = solve(V, modal_problem(3), f"SIPG MonomialDGFEM(1, 3) {n}^3")
+    if "MMBlockStencil" not in path or not err < 1e-2:
+        raise AssertionError(f"13d MonomialDGFEM(1, 3): L2 {err}, {path}")
+    n = VARORDER_CELLS
+    mesh = pt.StructuredMesh([0, 0], [1, 1], (n, n))
+    V2 = pt.FunctionSpace(mesh, fe.LegendreDGFEM(2, 2))
+    cg_ = p_adaptive_constraints(V2, np.full(mesh.nelements, 1), device=dev)
+    xt, _, _ = solve(V2, p2, f"variable order (k = 1 in LegendreDGFEM(2, 2)) {n}^2",
+                     cg_, 2.0, 8)
+    V1 = pt.FunctionSpace(mesh, fe.LegendreDGFEM(1, 2))
+    x1, _, _ = solve(V1, p2, f"LegendreDGFEM(1, 2) {n}^2", None, 6.0, 8)
+    keep = np.nonzero(V2.fem._mi.max(axis=1) <= 1)[0]
+    xt, x1 = xt.cpu().numpy(), x1.cpu().numpy()
+    d = float(np.abs(xt[V2.element_dofs[:, keep]] - x1[V1.element_dofs]).max())
+    log(f"[phase 13d] variable order vs the truncated space: max coefficient gap {d:.3e}")
+    if not d < 1e-7:
+        raise AssertionError(f"13d variable order gap {d}")
+
+
+def elasticity_solves(torch, pt, dev):
+    """Phase 13e: the 2D Q2 manufactured elasticity problem of
+    tests/test_elasticity.py:47-85 with SEQ_CG_Jacobi to 1e-10 (the
+    general-jvp tier), L2 order > 2.7; at ELAST_SMALLER when the larger
+    pair would take more than ELAST_BUDGET_S."""
+    from dune_pdelab_tpu_torch.ops import LinearElasticity, LinearElasticityParameters
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+    from dune_pdelab_tpu_torch.space.space import VectorSpace
+
+    pi = math.pi
+    lam = mu = 1.0
+
+    def u1(q):
+        return torch.sin(pi * q[..., 0]) * torch.sin(pi * q[..., 1])
+
+    class P(LinearElasticityParameters):
+        def g(self, x):
+            return torch.stack([u1(x), torch.zeros_like(x[..., 0])], -1)
+
+        def f(self, x):
+            px, py = pi * x[..., 0], pi * x[..., 1]
+            return torch.stack([pi ** 2 * ((lam + 2 * mu) + mu) * torch.sin(px) * torch.sin(py),
+                                -pi ** 2 * (lam + mu) * torch.cos(px) * torch.cos(py)], -1)
+
+    def run(n):
+        torch.cuda.reset_peak_memory_stats()
+        W = VectorSpace(pt.StructuredMesh([0, 0], [1, 1], (n, n)), pt.QkFEM(2, 2))
+        cg_ = pt.constraints((True, True), W, device=dev)
+        go = pt.GridOperator(W, LinearElasticity(P(lam=lam, mu=mu)), constraints=cg_)
+        x0 = pt.interpolate_dirichlet(
+            lambda q: torch.stack([u1(q), torch.zeros_like(q[:, 0])], -1),
+            W, cg_, W.zero(torch.float64, dev))
+        backend = pt.SEQ_CG_Jacobi()
+        slp = pt.StationaryLinearProblemSolver(go, backend, reduction=1e-10, verbose=0)
+        x, s = timed(torch, lambda: slp.apply(x0))
+        its = slp.result.linear_solver_iterations
+        err = float(l2_difference(W.children[0], W.restrict(x, 0), u1))
+        log(f"[phase 13e] Q2 elasticity {n}^2 (N = {W.ndofs}): {its} CG iterations, "
+            f"{s:.2f} s ({1e3 * s / max(1, its):.2f} ms per iteration), L2(u_1) {err:.6e}, "
+            f"peak {peak_gib(torch):.3f} GiB; {backend.report(go).splitlines()[0]}")
+        if not slp.result.converged:
+            raise AssertionError(f"13e {n}^2 did not converge")
+        return err, s
+
+    e0, s0 = run(ELAST_CELLS[0])
+    # the CG iterations double with n and a host-bound apply costs about
+    # the same: the larger solve takes ~2x the smaller one
+    if 3.0 * s0 > ELAST_BUDGET_S:
+        log(f"[phase 13e] {ELAST_CELLS[0]}^2 took {s0:.2f} s: the pair {ELAST_CELLS} would "
+            f"take ~{3 * s0:.0f} s > {ELAST_BUDGET_S} s; running {ELAST_SMALLER} instead")
+        (e0, _), (e1, _) = run(ELAST_SMALLER[0]), run(ELAST_SMALLER[1])
+    else:
+        e1, _ = run(ELAST_CELLS[1])
+    order = math.log2(e0 / e1)
+    log(f"[phase 13e] L2 order {order:.3f}")
+    if not order > ELAST_ORDER_MIN:
+        raise AssertionError(f"13e order {order}")
+
+
+def wave_run(torch, pt, kind, cells, steps, dev):
+    """(error, energy ratio, ms per step, N, x) of `steps` shu3 steps of
+    the standing acoustic wave (2D Q2, tests/test_hyperbolic.py:18-44) or
+    the Maxwell TM_110 cavity mode (3D Q1, :67-96) at the tests' CFL."""
+    from dune_pdelab_tpu_torch.fe import QkDGFEM
+    from dune_pdelab_tpu_torch.instationary import ExplicitOneStepMethod, shu3
+    from dune_pdelab_tpu_torch.ops import L2, LinearAcousticsDG, MaxwellDG
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    pi = math.pi
+    dim, k = (2, 2) if kind == "acoustics" else (3, 1)
+    leaf = pt.FunctionSpace(pt.StructuredMesh([0.0] * dim, [1.0] * dim, cells),
+                            QkDGFEM(k, dim))
+    n = cells[0]
+
+    def zero(q):
+        return torch.zeros(len(q), dtype=q.dtype)
+
+    if kind == "acoustics":
+        Q = pt.PowerSpace(leaf, 3)
+        lop = LinearAcousticsDG(c=1.0, bc="reflect")
+        x = Q.interpolate((lambda q: torch.cos(pi * q[:, 0]), zero, zero),
+                          dtype=torch.float64, device=dev)
+        dt, comp = 0.4 / (n * (2 * k + 1)), 0
+    else:
+        Q = pt.PowerSpace(leaf, 6)
+        lop = MaxwellDG(bc="pec")
+        x = Q.interpolate((zero, zero, lambda q: torch.sin(pi * q[:, 0]) * torch.sin(pi * q[:, 1]),
+                           zero, zero, zero), dtype=torch.float64, device=dev)
+        dt, comp = 0.3 / (n * (2 * k + 1)), 2
+    go1 = pt.GridOperator(Q, L2())
+    osm = ExplicitOneStepMethod(shu3(), pt.GridOperator(Q, lop), go1)
+    energy0 = float(torch.dot(x, go1.jacobian_apply(x, x)))
+    t = 0.0
+    x, _ = osm.apply(t, dt, x)                      # the first step sets up the mass solve
+    t += dt
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        x, _ = osm.apply(t, dt, x)
+        t += dt
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / max(1, steps - 1)
+    w = math.sqrt(2.0) * pi
+    if kind == "acoustics":
+        def exact(q):
+            return torch.cos(pi * q[:, 0]) * math.cos(pi * t)
+    else:
+        def exact(q):
+            return torch.sin(pi * q[:, 0]) * torch.sin(pi * q[:, 1]) * math.cos(w * t)
+    err = float(l2_difference(leaf, Q.restrict(x, comp), exact))
+    ratio = float(torch.dot(x, go1.jacobian_apply(x, x))) / energy0
+    return err, ratio, ms, Q.ndofs, x
+
+
+def wave_runs(torch, pt, dev):
+    """Phase 13f: LinearAcousticsDG (2D Q2 standing wave) at
+    ACOUSTICS_CELLS^2 and MaxwellDG (3D Q1 cavity) at MAXWELL_CELLS^3, shu3
+    for WAVE_STEPS steps: the error against the exact mode within the
+    tests' bounds, the energy not growing; 3 steps at 8^2 / 8x8x2 on the
+    card against the CPU to WAVE_SMALL_TOL."""
+    for kind, cells, lim in (("acoustics", (ACOUSTICS_CELLS,) * 2, 0.02),
+                             ("maxwell", (MAXWELL_CELLS,) * 3, 0.05)):
+        torch.cuda.reset_peak_memory_stats()
+        err, ratio, ms, N, _ = wave_run(torch, pt, kind, cells, WAVE_STEPS, dev)
+        log(f"[phase 13f] {kind} {'x'.join(map(str, cells))} (N = {N}), {WAVE_STEPS} shu3 "
+            f"steps: error vs the exact mode {err:.3e}, energy ratio {ratio:.9f}, "
+            f"{ms:.2f} ms per step, peak {peak_gib(torch):.3f} GiB; {CARD}")
+        if not (err < lim and 0.99 < ratio <= 1.0 + 1e-9):
+            raise AssertionError(f"13f {kind}: error {err}, energy ratio {ratio}")
+    for kind, cells in (("acoustics", (8, 8)), ("maxwell", (8, 8, 2))):
+        xa = wave_run(torch, pt, kind, cells, 3, dev)[-1].cpu()
+        xb = wave_run(torch, pt, kind, cells, 3, torch.device("cpu"))[-1]
+        gap = float((xa - xb).abs().max() / xb.abs().max())
+        log(f"[phase 13f] {kind} {'x'.join(map(str, cells))}, 3 steps: card vs CPU {gap:.3e}")
+        if not gap <= WAVE_SMALL_TOL:
+            raise AssertionError(f"13f {kind} card vs CPU {gap}")
+
+
+def projections(torch, pt, dev):
+    """Phase 13g: the L2 projection (CombinedOperator of L2 and
+    L2VolumeFunctional, Jacobi-CG to 1e-14) of a polynomial in each new
+    element's span at PROJ_CELLS^2 reproduces it to PROJ_TOL in L2."""
+    from dune_pdelab_tpu_torch import fe
+    from dune_pdelab_tpu_torch.ops import CombinedOperator, L2, L2VolumeFunctional
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    def p0(x):
+        return 0.75 + 0 * x[..., 0]
+
+    def rt(x):
+        return 1.0 + x[..., 0] - 2 * x[..., 1] + 0.5 * (x[..., 0] ** 2 - x[..., 1] ** 2)
+
+    def p2(x):
+        return 1.0 + 2 * x[..., 0] - x[..., 1] + 0.5 * x[..., 0] * x[..., 1] + x[..., 0] ** 2
+
+    def q2(x):
+        return p2(x) - 0.25 * x[..., 0] ** 2 * x[..., 1] ** 2
+
+    n = PROJ_CELLS
+    cases = [("P0FEM cube", fe.P0FEM(2), p0), ("P0FEM simplex", fe.P0FEM(2, "simplex"), p0),
+             ("RannacherTurekFEM", fe.RannacherTurekFEM(2), rt),
+             ("LegendreDGFEM(2)", fe.LegendreDGFEM(2, 2), q2),
+             ("MonomialDGFEM(2)", fe.MonomialDGFEM(2, 2), p2),
+             ("OPBFEM(2)", fe.OPBFEM(2, 2), p2),
+             ("QkDGFEM(2, gl)", fe.QkDGFEM(2, 2, "gl"), q2),
+             ("QkDGFEM(2, lobatto)", fe.QkDGFEM(2, 2, "lobatto"), q2)]
+    for name, fem, f in cases:
+        mesh = pt.StructuredMesh([0, 0], [1, 1], (n, n))
+        if fem.geometry == "simplex":
+            mesh = pt.SimplexMesh.from_structured(mesh)
+        V = pt.FunctionSpace(mesh, fem)
+        go = pt.GridOperator(V, CombinedOperator([L2(), L2VolumeFunctional(f)]),
+                             quad_order=2 * fem.degree + 2)
+        backend = pt.SEQ_CG_Jacobi()
+        slp = pt.StationaryLinearProblemSolver(go, backend, reduction=1e-14, verbose=0)
+        x, s = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
+        err = float(l2_difference(V, x, f))
+        log(f"[phase 13g] L2 projection on {name} {n}^2 (N = {V.ndofs}): "
+            f"{slp.result.linear_solver_iterations} CG iterations, {s:.2f} s, L2 error "
+            f"{err:.3e}; {backend.report(go).splitlines()[0]}")
+        if not err <= PROJ_TOL:
+            raise AssertionError(f"13g {name}: projection error {err}")
+
+
+def checkpoints(torch, pt, dev, tmp):
+    """Phase 13g: config11 run to t = 0.004, saved through
+    CheckpointManager, restored on the card and continued to 0.008: the
+    end state bit-equal to continuing from the state kept in memory;
+    and an .npz written by numpy.savez in the reference's layout loaded
+    onto the card."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.utils import CheckpointManager, load_checkpoint
+
+    def leg(x, t0, t1):
+        _, _, osm, _, _ = twophase_setup(torch, pt, (TP_C11_CELLS, 2), dev)
+        return osm.solve(t0, 1e-3, t1, x, max_step_retries=4)
+
+    x0 = twophase_setup(torch, pt, (TP_C11_CELLS, 2), dev)[-1]
+    t4, x4 = leg(x0, 0.0, 0.004)
+    t_all, x_all = leg(x4.clone(), t4, 0.008)          # uninterrupted: x4 stays in memory
+    mgr = CheckpointManager(str(tmp / "ckpt"), keep=2)
+    mgr.save(4, {"x": x4}, {"t": t4})
+    arrays, meta = mgr.restore(device=dev)
+    t_res, x_res = leg(arrays["x"], meta["t"], 0.008)
+    same = bool(torch.equal(x_res, x_all)) and t_res == t_all
+    log(f"[phase 13g] config11 restart at t = {t4}: restored on {arrays['x'].device}, end "
+        f"state bit-equal to the uninterrupted run: {same}")
+    if not same:
+        raise AssertionError("13g: the restarted config11 run differs")
+    ref = {"x": np.linspace(0.0, 1.0, 17), "idx": np.arange(6, dtype=np.int32)}
+    path = tmp / "numpy_written.npz"
+    np.savez(path, **ref, __meta__=np.frombuffer(json.dumps({"t": 0.5}).encode(), np.uint8))
+    arrays, meta = load_checkpoint(str(path), device=dev)
+    ok = (meta == {"t": 0.5} and all(arrays[k].device.type == dev.type
+                                     and np.array_equal(arrays[k].cpu().numpy(), v)
+                                     for k, v in ref.items()))
+    log(f"[phase 13g] numpy.savez checkpoint loaded onto {dev}: {ok}")
+    if not ok:
+        raise AssertionError("13g: the numpy-written checkpoint did not load")
+
+
+def phase_slice13a(torch, pt, dev):
+    """Phase 13: P0 and modal elements, CCFV, two-phase flow, elasticity,
+    explicit DG waves and checkpoints (ROADMAP slice 13a), fp64. The CCFV
+    solves launch the block stencil at nb = 1 (K6 in 2D, K5 in 3D), the
+    modal SIPG solves at nb = 6 and 9 (K6) and 4 (K5), the projections at
+    nb = 1, 4, 6 and 9; two-phase flow, elasticity and the waves run the
+    general torch.func.jvp or the residual."""
+    import tempfile
+    p13_kernels(torch, pt, dev)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for name, run in (("13a", twophase_config11), ("13b", twophase_at_size),
+                          ("13c", ccfv_solves), ("13d", modal_solves),
+                          ("13e", elasticity_solves), ("13f", wave_runs),
+                          ("13g", lambda *a: (projections(*a), checkpoints(*a, Path(tmp))))):
+            t0 = time.perf_counter()
+            run(torch, pt, dev)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            log(f"[phase {name}] {time.perf_counter() - t0:.2f} s")
+
+
 def main():
     if not (ROOT / "dune_pdelab_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -3704,6 +4505,8 @@ def main():
         ("phase 11 (algebraic solvers)", lambda: phase_algebraic(torch, pt, dev),
          ("stencil27", "blockstencil_mm")),
         ("phase 12 (adaptivity, mesh breadth)", lambda: phase_adaptivity(torch, pt, dev), ()),
+        ("phase 13 (slice 13a: P0, modal DG, CCFV, two-phase, waves)",
+         lambda: phase_slice13a(torch, pt, dev), ("blockstencil_em", "blockstencil_mm")),
     ]
     totals = dict.fromkeys(counters, 0)
     for name, run, needed in paths:
@@ -3718,7 +4521,7 @@ def main():
             raise AssertionError(f"{name} never launched {missing}: {counts}")
         for k in totals:
             totals[k] += counts[k]
-    log(f"launch counts over phases 3-12: {totals}")
+    log(f"launch counts over phases 3-13: {totals}")
 
     meta = {
         "stencil27": ("dune_pdelab_tpu_torch/csrc/stencil27.cu",

@@ -28,7 +28,12 @@ backends (solvers/direct.py), LOBPCG (linalg/eigen.py) and GenEO
 structured meshes, the hanging-node AdaptiveMesh with affine constraints,
 simplex and mapped face integrals, PkDGFEM, newest-vertex bisection
 (SimplexMesh.refine_bisection), gmsh input and the estimators, marking and
-transfers of adaptivity/. See ROADMAP.md for what remains.
+transfers of adaptivity/; and the elements and operators of slice 13a:
+P0, Rannacher-Turek and the modal DG bases, variable-order constraints,
+cell-centered finite volumes (ops/ccfv.py) with Darcy post-processing,
+two-phase flow (ops/twophase.py), linear elasticity, the acoustics and
+Maxwell DG operators, and checkpoints and logging in utils/. See
+ROADMAP.md for what remains.
 
 Entry points put their tensors on `default_device()`, the card, unless the
 caller names a device or calls `set_default_device` (the CPU tests do).
@@ -38,7 +43,7 @@ __version__ = "0.1.0"
 
 from dune_pdelab_tpu_torch.mesh import AdaptiveMesh, SimplexMesh, StructuredMesh
 from dune_pdelab_tpu_torch.fe import (
-    PkDGFEM, PkFEM, QkDGFEM, QkFEM, gauss_legendre, quadrature_rule,
+    P0FEM, PkDGFEM, PkFEM, QkDGFEM, QkFEM, gauss_legendre, quadrature_rule,
 )
 from dune_pdelab_tpu_torch.space import (
     CompositeSpace, FunctionSpace, PermutedSpace, PowerSpace, entity_blocked,

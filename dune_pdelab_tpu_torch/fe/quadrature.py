@@ -1,7 +1,8 @@
-"""Quadrature rules on reference cubes.
+"""Quadrature rules on reference cubes and simplices.
 
 PyTorch port of dune_pdelab_tpu/fe/quadrature.py: tensor Gauss rules on
-the cube and collapsed (Duffy) Gauss-Jacobi rules on the simplex. Rules are
+the cube, collapsed (Duffy) Gauss-Jacobi rules on the simplex and the
+Gauss-Lobatto rule (the nodes of the `lobatto` Lagrange variant). Rules are
 float64 numpy arrays computed once at setup, exactly as in the reference.
 Reference domains: cube = [0,1]^d, simplex = {x : x_i >= 0, sum x_i <= 1}.
 """
@@ -33,6 +34,30 @@ def gauss_jacobi_alpha(order: int, alpha: int):
     x, w = roots_jacobi(n, alpha, 0.0)  # weight (1-x)^a on [-1,1]
     # map to [0,1]: x' = (x+1)/2, weight (1-x)^a dx = (2(1-x'))^a 2 dx'
     return (x + 1.0) / 2.0, w / 2.0 ** (alpha + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def gauss_lobatto(order: int):
+    """Gauss-Lobatto rule on [0,1] (includes endpoints), exact to `order`."""
+    # n-point Lobatto is exact to degree 2n-3  =>  n = ceil((order+3)/2)
+    n = max(2, -(-(order + 3) // 2))
+    return lobatto_points_weights(n)
+
+
+@functools.lru_cache(maxsize=None)
+def lobatto_points_weights(n: int):
+    """n-point Gauss-Lobatto-Legendre nodes/weights on [0,1]: the interior
+    nodes are the roots of P'_{n-1}."""
+    if n == 2:
+        x = np.array([-1.0, 1.0])
+    else:
+        c = np.zeros(n)
+        c[-1] = 1.0
+        dP = np.polynomial.legendre.Legendre(c).deriv()
+        x = np.concatenate([[-1.0], np.sort(dP.roots().real), [1.0]])
+    Pn1 = np.polynomial.legendre.Legendre.basis(n - 1)(x)
+    w = 2.0 / (n * (n - 1) * Pn1**2)
+    return (x + 1.0) / 2.0, w / 2.0
 
 
 def cube_rule(dim: int, order: int):

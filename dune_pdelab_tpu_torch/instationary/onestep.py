@@ -292,19 +292,30 @@ class ExplicitOneStepMethod:
 
     def _build_mass_solve(self, x):
         """Element-block mass inverse, averaged over DOFs that elements
-        share."""
+        share; on a composite space the blocks span the concatenated local
+        layout of the leaves (go1.elem_gdofs_cat, as in the reference)."""
         from dune_pdelab_tpu_torch.linalg.preconditioners import _explicit_block_inverse
 
         go1 = self.go1
-        dm = go1.dof_maps[0]
+        dms, sizes = go1.dof_maps, list(go1.local_sizes)
         dinv = _explicit_block_inverse(go1.element_jacobians(x, 0.0))
+
+        def gather(v):
+            return torch.cat([dm.gather(v) for dm in dms], dim=1)
+
+        def scatter(like, z_loc):
+            out = torch.zeros_like(like)
+            for dm, part in zip(dms, torch.split(z_loc, sizes, dim=1)):
+                out = dm.scatter_add(out, part)
+            return out
+
         zero = torch.zeros(go1.space.ndofs, dtype=dinv.dtype, device=dinv.device)
-        counts = dm.scatter_add(zero, torch.ones(dinv.shape[:2], dtype=dinv.dtype,
-                                                 device=dinv.device))
+        counts = scatter(zero, torch.ones(dinv.shape[:2], dtype=dinv.dtype,
+                                          device=dinv.device))
 
         def solve(rhs):
-            z_loc = torch.einsum("ejk,ek->ej", dinv.to(rhs.dtype), dm.gather(rhs))
-            return dm.scatter_add(torch.zeros_like(rhs), z_loc) / counts.to(rhs.dtype)
+            z_loc = torch.einsum("ejk,ek->ej", dinv.to(rhs.dtype), gather(rhs))
+            return scatter(rhs, z_loc) / counts.to(rhs.dtype)
 
         return solve
 

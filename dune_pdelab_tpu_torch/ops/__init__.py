@@ -15,3 +15,18 @@ from dune_pdelab_tpu_torch.ops.stokes import (  # noqa: F401
     NavierStokesMass, NavierStokesParameters, StokesBC, TaylorHoodNavierStokes,
 )
 from dune_pdelab_tpu_torch.ops.dgnavierstokes import DGNavierStokes  # noqa: F401
+from dune_pdelab_tpu_torch.ops.base import CombinedOperator, ScaledOperator  # noqa: F401
+from dune_pdelab_tpu_torch.ops.elasticity import (  # noqa: F401
+    LinearElasticity, LinearElasticityParameters,
+)
+from dune_pdelab_tpu_torch.ops.acoustics import LinearAcousticsDG  # noqa: F401
+from dune_pdelab_tpu_torch.ops.maxwell import MaxwellDG  # noqa: F401
+from dune_pdelab_tpu_torch.ops.ccfv import ConvectionDiffusionCCFV  # noqa: F401
+from dune_pdelab_tpu_torch.ops.twophase import (  # noqa: F401
+    BrooksCoreyParameters, TwoPhaseCCFV, TwoPhaseParameters, TwoPhaseStorage,
+    TwoPhaseVelocity, VanGenuchtenParameters,
+)
+from dune_pdelab_tpu_torch.ops.darcy import (  # noqa: F401
+    DarcyVelocityFromHeadCCFV, DarcyVelocityFromHeadFEM, darcy_velocity_at_quadrature,
+    diagonal_permeability_field, permeability_field,
+)

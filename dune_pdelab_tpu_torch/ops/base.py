@@ -153,3 +153,45 @@ class LocalOperator:
         if tab.grad.shape[0] == 1:
             return torch.einsum("qbd,eqd->eb", tab.grad[0], wv)
         return torch.einsum("eqbd,eqd->eb", tab.grad, wv)
+
+
+class CombinedOperator(LocalOperator):
+    """Weighted sum of local operators (reference:
+    localoperator/combinedoperator.hh:29, sum.hh:25, weightedsum.hh,
+    scaled.hh), e.g. mass + stiffness outside the one-step machinery. A
+    kernel is present when any summand has it (method presence, as the
+    GridOperator tests with hasattr)."""
+
+    def __init__(self, ops, weights=None):
+        self.ops = tuple(ops)
+        self.weights = tuple(weights) if weights is not None else (1.0,) * len(self.ops)
+        self.is_linear = all(op.is_linear for op in self.ops)
+        self.quadrature_factor = max(op.quadrature_factor for op in self.ops)
+        self.quadrature_add = max(op.quadrature_add for op in self.ops)
+
+    def set_time(self, t):
+        return CombinedOperator([op.set_time(t) for op in self.ops], self.weights)
+
+    def _sum(self, method, *args):
+        out = None
+        for w, op in zip(self.weights, self.ops):
+            if hasattr(op, method):
+                term = getattr(op, method)(*args)
+                if isinstance(term, tuple):
+                    term = tuple(w * t for t in term)
+                    out = term if out is None else tuple(a + b for a, b in zip(out, term))
+                else:
+                    out = w * term if out is None else out + w * term
+        return out
+
+    def __getattr__(self, name):
+        if name in ("alpha_volume", "lambda_volume", "alpha_boundary",
+                    "lambda_boundary", "alpha_skeleton", "lambda_skeleton"):
+            if any(hasattr(op, name) for op in self.ops):
+                return lambda *args: self._sum(name, *args)
+        raise AttributeError(name)
+
+
+def ScaledOperator(op, factor):
+    """Scaled local operator (reference: localoperator/scaled.hh)."""
+    return CombinedOperator([op], [factor])

@@ -31,7 +31,11 @@ class BCType:
 
 
 def apply_tensor(A, g):
-    """A * g where A is scalar, (...,) field, or (..., d, d) tensor; g (..., d)."""
+    """A * g where A is scalar, (...,) field, or (..., d, d) tensor; g (..., d).
+    A Python number multiplies directly (no tensor copied from the host, so
+    the apply can be captured into a CUDA graph)."""
+    if isinstance(A, (int, float)):
+        return A * g
     A = torch.as_tensor(A, dtype=g.dtype, device=g.device)
     if A.ndim >= g.ndim + 1 and A.shape[-1] == g.shape[-1] == A.shape[-2]:
         return torch.einsum("...ij,...j->...i", A, g)
@@ -151,7 +155,12 @@ class ConvectionDiffusionFEM(LocalOperator):
 
 def at_face_qp(v, ctx, dtype=None):
     """A callback's value (tensor, array or scalar) as a tensor of shape
-    x.shape[:-1] on the context's device."""
+    x.shape[:-1] on the context's device; a Python number is filled there
+    (no copy from the host)."""
+    if isinstance(v, (bool, int, float)):
+        kind = torch.bool if isinstance(v, bool) else (
+            torch.int64 if isinstance(v, int) else torch.get_default_dtype())
+        return torch.full(ctx.x.shape[:-1], v, dtype=dtype or kind, device=ctx.x.device)
     t = torch.as_tensor(v, device=ctx.x.device)
     if dtype is not None:
         t = t.to(dtype)

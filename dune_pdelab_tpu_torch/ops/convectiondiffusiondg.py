@@ -119,7 +119,10 @@ class ConvectionDiffusionDG(LocalOperator):
     # -- penalty / weighting helpers ----------------------------------------
     @staticmethod
     def _delta(A, normal):
-        """Normal diffusivity n·A n at face quadrature points."""
+        """Normal diffusivity n·A n at face quadrature points (a Python
+        number as it is)."""
+        if isinstance(A, (int, float)):
+            return A
         A = torch.as_tensor(A, dtype=normal.dtype, device=normal.device)
         if A.ndim >= 2 and A.shape[-1] == A.shape[-2] == normal.shape[-1]:
             if normal.ndim == 1:

@@ -3,7 +3,8 @@
 PyTorch port of dune_pdelab_tpu/ops/l2.py (reference:
 dune/pdelab/localoperator/l2.hh:149 class L2, and
 l2volumefunctional.hh): the scaled mass ∫ scale * u v dx and the
-right-hand-side functional ∫ f v dx, on a single-leaf space.
+right-hand-side functional ∫ f v dx; the mass acts on every leaf of a
+composite space.
 """
 from __future__ import annotations
 
@@ -30,9 +31,12 @@ class L2(LocalOperator):
         return self.scale(ctx.x) if callable(self.scale) else self.scale
 
     def alpha_volume(self, ctx: VolumeContext, u):
+        s = self._scale(ctx)
+        if isinstance(u, tuple):          # composite space: one mass per leaf
+            return tuple(self.accumulate_value(t, ctx.factor, s * self.value_at_qp(t, ui))
+                         for t, ui in zip(ctx.tabs, u))
         tab = ctx.tab
-        return self.accumulate_value(tab, ctx.factor,
-                                     self._scale(ctx) * self.value_at_qp(tab, u))
+        return self.accumulate_value(tab, ctx.factor, s * self.value_at_qp(tab, u))
 
 
 class L2VolumeFunctional(LocalOperator):

@@ -25,7 +25,9 @@ of choice:
     Jacobi or Chebyshev the Krylov loop on an MMBlockStencil runs in the
     mode-major layout (one transpose at entry and exit). Jacobi and
     Chebyshev take the (block) stencil's exact diagonal;
-  * general-jvp: go.jacobian_apply (torch.func.jvp) per apply.
+  * general-jvp: go.jacobian_apply (torch.func.jvp) per apply; on the card
+    the apply is captured once per solve into a CUDA graph and replayed
+    (GraphedApply), bit-equal to the eager apply.
 
 Jacobi takes go.jacobian_diagonal on every tier but the stencil one, as in
 the reference; block Jacobi and block GS take go.element_diagonal_blocks,
@@ -55,6 +57,57 @@ _PRECONDS = (None, "none", "richardson", "jacobi", "block_jacobi", "chebyshev",
              "block_gs")
 # preconditioners a Krylov loop may run in the mode-major layout
 _MM_PRECONDS = (None, "none", "richardson", "jacobi", "chebyshev")
+
+
+class GraphedApply:
+    """z -> apply(z) on the card, replayed from one CUDA graph.
+
+    The general-jvp tier's apply (`go.jacobian_apply(x_lin, z, time)`)
+    issues a few hundred small operations, and in torch's forward mode
+    each one whose other operand carries no tangent costs ~0.2-0.4 ms of
+    host time (a Python meta kernel behind the zero tangent), so an apply
+    of a pointwise-heavy kernel (two-phase flow) is host-bound at ~50 ms
+    whatever the mesh. Within one Krylov solve the linearization point,
+    time and operator stay fixed, so the first call runs eagerly, the
+    second captures the apply once into a CUDA graph (after a warm-up on
+    a side stream) and every later call copies z into the captured input
+    and replays it: the same kernels on the same data, so the results are
+    bit-equal to the eager apply. An apply that cannot be captured (one
+    that copies from the host or synchronises) runs eagerly and `reason`
+    says why. A GraphedApply lives for one solve."""
+
+    def __init__(self, apply):
+        self.apply = apply
+        self.calls = 0
+        self.graph = None
+        self.reason = None
+
+    def _capture(self, z):
+        self.z_in = z.clone()
+        side = torch.cuda.Stream(device=z.device)
+        side.wait_stream(torch.cuda.current_stream(z.device))
+        with torch.cuda.stream(side):
+            self.apply(self.z_in)
+        torch.cuda.current_stream(z.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.z_out = self.apply(self.z_in)
+        self.graph = graph
+
+    def __call__(self, z):
+        if self.graph is None:
+            self.calls += 1
+            if self.calls < 2 or self.reason is not None:
+                return self.apply(z)
+            try:
+                self._capture(z)
+            except RuntimeError as exc:      # capture refused: run eagerly, say so
+                self.graph, self.reason = None, f"capture failed: {exc}".splitlines()[0]
+                torch.cuda.synchronize(z.device)
+                return self.apply(z)
+        self.z_in.copy_(z)
+        self.graph.replay()
+        return self.z_out.clone()
 
 
 def _kernel_how(uses_kernel, name, device):
@@ -249,6 +302,10 @@ class LinearSolverBackend:
         if st is not None:
             how = _kernel_how(st.uses_stencil27, "stencil27", b.device)
             return st, st, f"compiled stencil StencilOperator [{how}]"
+        if b.device.type == "cuda":
+            return (GraphedApply(lambda z: go.jacobian_apply(x_lin, z, time)), None,
+                    "general-jvp (matrix-free batched assembly per apply; CUDA graph "
+                    "replay)")
         return (lambda z: go.jacobian_apply(x_lin, z, time), None,
                 "general-jvp (matrix-free batched assembly per apply)")
 
@@ -287,6 +344,12 @@ class LinearSolverBackend:
             M = self._make_M(setup, A)
         z, stats = run(A, b, x0=x0, M=M, tol=reduction, maxiter=self.maxiter, **kw)
         self.stats_history.append(stats)
+        if isinstance(A, GraphedApply):
+            if A.reason is not None:
+                path += " [graph declined]"
+                self._reasons(go)["CUDA graph replay"] = A.reason
+            else:
+                self._reasons(go).pop("CUDA graph replay", None)
         self._last_path[id(go)] = path
         if A is not op and isinstance(op, MMBlockStencil):
             z = op.from_mm(z.reshape(op.mm_shape))

@@ -230,6 +230,8 @@ class FunctionSpace:
         if (self._dof_grid_dims is not None and self.mesh.uniform
                 and not any(self.mesh.periodic)):
             return self.dof_coords_at(np.arange(self.ndofs, dtype=np.int64))
+        if self.fem.nodes is None:
+            raise NotImplementedError("modal basis has no nodal coordinates")
         pts = self._geometry_at(np.atleast_2d(self.fem.interpolation_points))
         coords = np.empty((self.ndofs, self.mesh.dim))
         coords[self.element_dofs.reshape(-1)] = pts.reshape(-1, self.mesh.dim)

@@ -1,6 +1,7 @@
 """Small shared utilities: dtype and device policy, timers, integer helpers.
 
-PyTorch port of dune_pdelab_tpu/utils/common.py.
+PyTorch port of dune_pdelab_tpu/utils/common.py (reference:
+dune/pdelab/common/clock.hh:17, common/benchmarkhelper.hh:51).
 """
 from __future__ import annotations
 
@@ -8,6 +9,11 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+
+# Index dtype of DOF / element index tensors. The reference takes int32 (the
+# TPU's fast path); torch's gathers and scatters (index_select, index_add_,
+# advanced indexing) take int64, so the port's maps are int64.
+INDEX_DTYPE = torch.int64
 
 
 def default_float() -> torch.dtype:
@@ -86,3 +92,33 @@ class Timer:
 
     def elapsed(self) -> float:
         return time.perf_counter() - self._start
+
+
+@dataclass
+class TimingReport:
+    """Named start/stop timings with per-name accumulation.
+
+    Analog of BenchmarkHelper (common/benchmarkhelper.hh:51-120): named
+    phases, per-run statistics. Host clock: a caller timing device work
+    synchronises before `stop`.
+    """
+
+    timings: dict = field(default_factory=dict)
+    _open: dict = field(default_factory=dict)
+
+    def start(self, name: str) -> None:
+        self._open[name] = time.perf_counter()
+
+    def stop(self, name: str) -> float:
+        dt = time.perf_counter() - self._open.pop(name)
+        self.timings.setdefault(name, []).append(dt)
+        return dt
+
+    def total(self, name: str) -> float:
+        return sum(self.timings.get(name, ()))
+
+    def summary(self) -> dict:
+        return {
+            k: {"n": len(v), "total": sum(v), "min": min(v), "max": max(v)}
+            for k, v in self.timings.items()
+        }
