@@ -158,12 +158,35 @@ Phases (each passes or raises; there is no CPU path):
      CPU to 1e-12; (g) L2 projections onto every new element, a config11
      restart through CheckpointManager bit-equal, a numpy-written
      checkpoint loaded onto the card.
+ 14. slices 13b and 13c, fp64 unless stated (no hand kernel: K1-K6 decline
+     H(div), H(curl) and mimetic leaves and report() names each declined
+     tier; every Krylov apply is the general torch.func.jvp replayed from a
+     CUDA graph): (a) DiffusionMixed with unpreconditioned MINRES on
+     squares: RT0/P0 at 128^2/256^2 (cell-centre order > 1.5, max |r_p| <
+     1e-9), RT1/Q1DG at 32^2/64^2 and RT2/Q2DG at 16^2/32^2 (L2 orders > 1.6
+     and 2.5), BDM1/P0 at 128^2; (b) RT0 and BDM1 triangles at 64^2/128^2 x
+     2, RT1/P1DG triangles at 32^2/64^2, RT0 tets at 16^3 x 6, RT1 hexahedra
+     at 8^3/16^3 and RT0 on the quarter annulus at 64^2/128^2 (the mapped
+     Piola and Nanson boundary term, orders > 1.85); (c) curl-curl on
+     N0Cube(2) at 128^2/256^2 against the exact edge circulations, the
+     discrete de Rham check on N0Cube(3) at 32^3, Whitney tets at 8^3/16^3
+     x 6, the Maxwell cavity at 32^2 (A and M by go.jacobian on the card, a
+     dense generalised eigensolve: {1, 1, 2, 4, 4} pi^2, a 31^2 kernel); (d)
+     DiffusionMFD at 256^2/512^2 (order > 1.8), the 7 x 5 patch test and the
+     3D operator at 32^3 (symmetric, Jacobi-CG converges); (e) adjoint
+     gradients: the linear Poisson problem of tests/test_differentiable.py
+     at 256^2 against directional FD and at 10^2 against the CPU, the
+     Crank-Nicolson rollout at 128^2 for 20 steps against central FD and
+     checkpointed, the Stokes viscosity gradient at 5^2 against FD, with
+     forward and backward seconds and adjoint Krylov iterations; (f)
+     residual and J.v of every new operator at 8^2 / 4^3 on the card against
+     the CPU (1e-12) and in fp32 against fp64 (1e-5).
 
-Launch counts are set to 0 before each of phases 3 to 13 and read after
+Launch counts are set to 0 before each of phases 3 to 14 and read after
 it; a kernel of that path that was never launched fails the run (the
 comparison launches of phases 6a, 6c, 7a, 9a, 9c and 13k are not counted).
 Prints phase results and times, the card's name and power limit, one JSON
-line {"kernels": [...]} with each kernel's launches over phases 3-13,
+line {"kernels": [...]} with each kernel's launches over phases 3-14,
 error, times and bound, and as its last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -344,6 +367,34 @@ WAVE_STEPS = 50
 WAVE_SMALL_TOL = 1e-12
 PROJ_CELLS = 64           # 13g: L2 projections of polynomials
 PROJ_TOL = 1e-12
+P14_MIXED_RED = 1e-11       # 14a/14b: MINRES reduction (tests/test_mixed.py:59)
+P14_MINRES_MAX = 60000
+P14_CONSERVE = 1e-9         # 14a/14b: max |r_p| of the converged solves
+P14_RT0_CELLS = (128, 256)  # 14a: RT0/P0, N = 197,120 at 256^2
+P14_RT1_CELLS = (32, 64)    # 14a: RT1/Q1DG
+P14_RT2_CELLS = (16, 32)    # 14a: RT2/Q2DG (MINRES to 1e-12, tests/test_rt_higher.py:96)
+P14_BDM1_CELLS = 128        # 14a: BDM1/P0
+P14_TRI_CELLS = (64, 128)   # 14b: RT0 triangles (x 2 per square)
+P14_BDM1_TRI = 128          # 14b: BDM1 triangles
+P14_RT1_TRI = (32, 64)      # 14b: RT1/P1DG triangles
+P14_TET_CELLS = 16          # 14b: RT0 tets, 16^3 x 6 = 24,576 tets
+P14_HEX_CELLS = (8, 16)     # 14b: RTkCube3D(1)/Q1DG
+P14_ANNULUS_CELLS = (64, 128)   # 14b: RT0/P0 on the quarter annulus
+P14_CURL_CELLS = (128, 256)     # 14c: curl-curl on N0Cube(2)
+P14_DERHAM_CELLS = 32           # 14c: N0Cube(3), N = 104,544
+P14_WHITNEY_CELLS = (8, 16)     # 14c: Whitney tets
+P14_CAVITY_CELLS = 32           # 14c: Maxwell cavity, 1,984 free edges
+P14_MFD_CELLS = (256, 512)      # 14d: DiffusionMFD, N = 525,312 at 512^2
+P14_MFD_3D = 32                 # 14d: 3D mimetic, N = 101,376
+P14_ADJ_CELLS = 256             # 14e: adjoint gradient, N = 66,049
+P14_ADJ_SMALL = 10              # 14e: card against CPU
+P14_ROLL_CELLS = 128            # 14e: rollout, N = 16,641
+P14_ROLL_STEPS = 20
+P14_ROLL_DT = 1e-3
+P14_SMALL = 8                   # 14f: 8^2 (4^3 in 3D)
+P14_CASES = ("mixed-RT0", "mixed-BDM1", "mixed-RT1", "mixed-RT2", "mixed-RT0tri",
+             "mixed-BDM1tri", "mixed-RT0tet", "mixed-annulus", "curl-cube2", "curl-cube3",
+             "curl-simplex2", "curl-simplex3", "mfd")
 CARD = "card not read yet"   # nvidia-smi name and power limit, set by main()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -4440,6 +4491,720 @@ def phase_slice13a(torch, pt, dev):
             log(f"[phase {name}] {time.perf_counter() - t0:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: slices 13b and 13c: H(div), H(curl) and mimetic elements, the
+# mixed Darcy and curl-curl operators, adjoint-differentiable solves and
+# rollouts. No hand kernel: K1-K6 decline these leaves (each declined tier
+# is named in the backend's report), every apply is the general
+# torch.func.jvp replayed from a CUDA graph inside a Krylov solve
+# ---------------------------------------------------------------------------
+
+def _xp(x):
+    """torch for tensors, numpy else."""
+    import numpy as np
+    import torch
+    return torch if isinstance(x, torch.Tensor) else np
+
+
+def p14_problem(dim=2, harmonic=False):
+    """-div grad p = f with p = prod sin(pi x_i), zero Dirichlet data
+    (tests/test_mixed.py:43-55, tests/test_fe_zoo_r3.py:197-208), or the
+    harmonic p = x^2 - y^2 with its Dirichlet data (tests/test_mapped.py:56).
+    p_exact takes numpy points or tensors."""
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+
+    class P(ConvectionDiffusionProblem):
+        def p_exact(self, q):
+            if harmonic:
+                return q[:, 0] ** 2 - q[:, 1] ** 2
+            out = 1.0
+            for d in range(dim):
+                out = out * _xp(q).sin(math.pi * q[:, d])
+            return out
+
+        def f(self, x):
+            if harmonic:
+                return 0.0 * x[..., 0]
+            out = dim * math.pi ** 2
+            for d in range(dim):
+                out = out * _xp(x).sin(math.pi * x[..., d])
+            return out
+
+        def g(self, x):
+            return x[..., 0] ** 2 - x[..., 1] ** 2 if harmonic else 0.0 * x[..., 0]
+    return P()
+
+
+def p14_tier(backend, go):
+    """The solve path of backend.report() and the names of the declined
+    tiers, on one line."""
+    lines = backend.report(go).splitlines()
+    declined = [ln.split(":")[0].replace("declined", "").strip()
+                for ln in lines[1:] if "declined" in ln]
+    return f"{lines[0].replace('solve path: ', '')} (declined: {', '.join(declined) or '-'})"
+
+
+def p14_mixed_space(pt, kind, n, dim=2):
+    """(mesh, W, Vu, Vp) of a mixed Darcy case: velocity element x pressure
+    element on the case's mesh."""
+    from dune_pdelab_tpu_torch.fe import hdiv
+
+    simplex = pt.SimplexMesh.from_structured
+    unit = pt.StructuredMesh([0.0] * dim, [1.0] * dim, (n,) * dim)
+    el, pel, mesh = {
+        "RT0": (hdiv.RT0Cube(2), pt.P0FEM(2), unit),
+        "BDM1": (hdiv.BDM1Cube(2), pt.P0FEM(2), unit),
+        "RT1": (hdiv.RT1Cube2D(), pt.QkDGFEM(1, 2), unit),
+        "RT2": (hdiv.RT2Cube2D(), pt.QkDGFEM(2, 2), unit),
+        "RT0tri": (hdiv.RT0Simplex2D(), pt.P0FEM(2, geometry="simplex"), None),
+        "BDM1tri": (hdiv.BDM1Simplex2D(), pt.P0FEM(2, geometry="simplex"), None),
+        "RT1tri": (hdiv.RT1Simplex2D(), pt.PkDGFEM(1, 2), None),
+        "RT0tet": (hdiv.RT0Simplex3D(), pt.P0FEM(3, geometry="simplex"), None),
+        "RT1hex": (hdiv.RTkCube3D(1), pt.QkDGFEM(1, 3), unit),
+        "annulus": (hdiv.RT0Cube(2), pt.P0FEM(2), None),
+    }[kind]
+    if kind == "annulus":
+        mesh = annulus_mesh(pt, n)
+    elif mesh is None:
+        mesh = simplex(unit)
+    Vu, Vp = pt.FunctionSpace(mesh, el, name="u"), pt.FunctionSpace(mesh, pel, name="p")
+    return mesh, pt.CompositeSpace(Vu, Vp), Vu, Vp
+
+
+def p14_mixed_solve(torch, pt, kind, n, problem, dev, tag, dim=2, reduction=P14_MIXED_RED):
+    """Mixed Darcy with unpreconditioned MINRES (the reference tests'
+    solver) on the card; logs iterations, time, tier, peak memory and
+    max |r_p| (local conservation); returns (mesh, W, Vp, x, max |r_p|)."""
+    from dune_pdelab_tpu_torch.ops import DiffusionMixed
+
+    torch.cuda.reset_peak_memory_stats()
+    mesh, W, Vu, Vp = p14_mixed_space(pt, kind, n, dim)
+    go = pt.GridOperator(W, DiffusionMixed(problem))
+    backend = pt.LinearSolverBackend(solver="minres", precond="none", maxiter=P14_MINRES_MAX)
+    slp = pt.StationaryLinearProblemSolver(go, backend, reduction=reduction, verbose=0)
+    x, s = timed(torch, lambda: slp.apply(W.zero(torch.float64, dev)))
+    rp = float(W.restrict(go.residual(x), 1).abs().max())
+    its = slp.result.linear_solver_iterations
+    log(f"[phase {tag}] {kind} {n}^{dim}{' x 2' if kind.endswith('tri') else ''}"
+        f"{' x 6' if kind == 'RT0tet' else ''} (N = {W.ndofs}): MINRES {its} iterations, "
+        f"{s:.2f} s ({1e3 * s / max(its, 1):.2f} ms/iteration), max |r_p| {rp:.2e}, "
+        f"peak {peak_gib(torch):.3f} GiB; {p14_tier(backend, go)}")
+    if not slp.result.converged:
+        raise AssertionError(f"phase {tag}: {kind} {n} did not converge")
+    return mesh, W, Vp, x, rp
+
+
+def p14_order(tag, what, errs, bound):
+    order = math.log2(errs[0] / errs[1])
+    log(f"[phase {tag}] {what}: errors {', '.join(f'{e:.6e}' for e in errs)}, "
+        f"order {order:.3f} (bound > {bound})")
+    if not order > bound:
+        raise AssertionError(f"phase {tag}: {what} order {order} <= {bound}")
+
+
+def p14_center_error(mesh, W, x, problem):
+    import numpy as np
+    xp = W.restrict(x, 1).cpu().numpy()
+    return float(np.sqrt(np.mean((xp - problem.p_exact(mesh.element_centers())) ** 2)))
+
+
+def p14_l2_error(Vp, W, x, problem):
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+    return float(l2_difference(Vp, W.restrict(x, 1), problem.p_exact))
+
+
+def mixed_cubes(torch, pt, dev):
+    """Phase 14a: DiffusionMixed on squares, MINRES to 1e-11. RT0/P0 at
+    P14_RT0_CELLS: cell-centre order > 1.5 (tests/test_mixed.py:66) and
+    max |r_p| < 1e-9; RT1/Q1DG at P14_RT1_CELLS, L2 order > 1.6
+    (tests/test_fe_zoo.py:137); RT2/Q2DG at P14_RT2_CELLS, L2 order > 2.5
+    (tests/test_rt_higher.py:101); BDM1/P0 at P14_BDM1_CELLS converges
+    with max |r_p| < 1e-9."""
+    p = p14_problem()
+    errs = []
+    for n in P14_RT0_CELLS:
+        mesh, W, _, x, rp = p14_mixed_solve(torch, pt, "RT0", n, p, dev, "14a")
+        if not rp < P14_CONSERVE:
+            raise AssertionError(f"phase 14a: RT0 {n} max |r_p| {rp}")
+        errs.append(p14_center_error(mesh, W, x, p))
+    p14_order("14a", "RT0 cell-centre pressure", errs, 1.5)
+    for kind, sizes, bound in (("RT1", P14_RT1_CELLS, 1.6), ("RT2", P14_RT2_CELLS, 2.5)):
+        errs = []
+        for n in sizes:
+            _, W, Vp, x, _ = p14_mixed_solve(torch, pt, kind, n, p, dev, "14a",
+                                             reduction=1e-12 if kind == "RT2" else P14_MIXED_RED)
+            errs.append(p14_l2_error(Vp, W, x, p))
+        p14_order("14a", f"{kind} L2 pressure", errs, bound)
+    _, _, _, _, rp = p14_mixed_solve(torch, pt, "BDM1", P14_BDM1_CELLS, p, dev, "14a")
+    if not rp < P14_CONSERVE:
+        raise AssertionError(f"phase 14a: BDM1 max |r_p| {rp}")
+
+
+def p14_symmetry(torch, go, n, dev, seed=14):
+    """|u^T A v - v^T A u| / |u^T A v| for seeded random u, v."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    u, v = (torch.as_tensor(rng.standard_normal(n), device=dev) for _ in range(2))
+    zero = torch.zeros(n, dtype=torch.float64, device=dev)
+    uav = float(u @ go.jacobian_apply(zero, v))
+    vau = float(v @ go.jacobian_apply(zero, u))
+    return abs(uav - vau) / abs(uav)
+
+
+def mixed_simplices(torch, pt, dev):
+    """Phase 14b: RT0 triangles at P14_TRI_CELLS (cell-centre order > 0.9,
+    tests/test_hdiv_simplex.py:98), BDM1 triangles at P14_BDM1_TRI, both
+    with max |r_p| < 1e-9; RT1 triangles at P14_RT1_TRI (L2 order > 1.6,
+    tests/test_rt_higher.py:122); RT0 tets at P14_TET_CELLS^3 x 6
+    (tests/test_hdiv_simplex.py:136: symmetric, converged, max |r_p| <
+    1e-8); RTkCube3D(1) at P14_HEX_CELLS (L2 order > 1.6,
+    tests/test_fe_zoo_r3.py:195); RT0 on the quarter annulus at
+    P14_ANNULUS_CELLS (cell-centre orders > 1.85, tests/test_mapped.py:176;
+    the mapped Piola and the Nanson boundary term)."""
+    p = p14_problem()
+    errs = []
+    for n in P14_TRI_CELLS:
+        mesh, W, _, x, rp = p14_mixed_solve(torch, pt, "RT0tri", n, p, dev, "14b")
+        if not rp < P14_CONSERVE:
+            raise AssertionError(f"phase 14b: RT0 triangles {n} max |r_p| {rp}")
+        errs.append(p14_center_error(mesh, W, x, p))
+    p14_order("14b", "RT0 triangles cell-centre pressure", errs, 0.9)
+    _, _, _, _, rp = p14_mixed_solve(torch, pt, "BDM1tri", P14_BDM1_TRI, p, dev, "14b")
+    if not rp < P14_CONSERVE:
+        raise AssertionError(f"phase 14b: BDM1 triangles max |r_p| {rp}")
+    errs = []
+    for n in P14_RT1_TRI:
+        _, W, Vp, x, _ = p14_mixed_solve(torch, pt, "RT1tri", n, p, dev, "14b", reduction=1e-12)
+        errs.append(p14_l2_error(Vp, W, x, p))
+    p14_order("14b", "RT1 triangles L2 pressure", errs, 1.6)
+
+    class Unit(type(p)):
+        def f(self, x):
+            return 1.0 + 0.0 * x[..., 0]
+
+    _, W, _, x, rp = p14_mixed_solve(torch, pt, "RT0tet", P14_TET_CELLS, Unit(), dev, "14b",
+                                     dim=3, reduction=1e-10)
+    from dune_pdelab_tpu_torch.ops import DiffusionMixed
+    asym = p14_symmetry(torch, pt.GridOperator(W, DiffusionMixed(Unit())), W.ndofs, dev)
+    log(f"[phase 14b] RT0 tets: u^T A v against v^T A u {asym:.2e}")
+    if not (rp < 1e-8 and asym < 1e-12):
+        raise AssertionError(f"phase 14b: RT0 tets max |r_p| {rp}, asymmetry {asym}")
+    p3 = p14_problem(3)
+    errs = []
+    for n in P14_HEX_CELLS:
+        _, W, Vp, x, _ = p14_mixed_solve(torch, pt, "RT1hex", n, p3, dev, "14b", dim=3)
+        errs.append(p14_l2_error(Vp, W, x, p3))
+    p14_order("14b", "RT1 hexahedra L2 pressure", errs, 1.6)
+    ph = p14_problem(harmonic=True)
+    errs = []
+    for n in P14_ANNULUS_CELLS:
+        mesh, W, _, x, _ = p14_mixed_solve(torch, pt, "annulus", n, ph, dev, "14b")
+        errs.append(p14_center_error(mesh, W, x, ph))
+    p14_order("14b", "RT0 quarter annulus cell-centre pressure", errs, 1.85)
+
+
+def p14_curl_exact(Ve, h):
+    """Exact edge circulations of u = (sin(pi y), sin(pi x)) on the unit
+    square's edge lattice: h sin(pi y0) on an x-edge at height y0, h sin(pi
+    x0) on a y-edge at x0 (closed forms of tests/test_hcurl.py's quad)."""
+    import numpy as np
+    exact = np.zeros(Ve.ndofs)
+    for a in range(2):
+        ed, off = Ve._hcurl_edge_dims[a], Ve._hcurl_offsets[a]
+        g = np.arange(int(np.prod(ed)), dtype=np.int64)
+        tr = (g // ed[0]) if a == 0 else (g % ed[0])
+        exact[off:off + len(g)] = h * np.sin(np.pi * tr * h)
+    return exact
+
+
+def p14_cg(torch, pt, go, V, dev, tol, maxiter=20000):
+    """Jacobi-CG from zero, the reference tests' loop (J z = r(0), x = -z)
+    as StationaryLinearProblemSolver runs it; returns (x, iterations,
+    seconds, converged, tier)."""
+    backend = pt.LinearSolverBackend(solver="cg", precond="jacobi", maxiter=maxiter)
+    slp = pt.StationaryLinearProblemSolver(go, backend, reduction=tol, verbose=0)
+    x, s = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
+    return (x, slp.result.linear_solver_iterations, s, bool(slp.result.converged),
+            p14_tier(backend, go))
+
+
+def hcurl_runs(torch, pt, dev):
+    """Phase 14c: the CurlCurl manufactured problem of tests/test_hcurl.py:67
+    on N0Cube(2) at P14_CURL_CELLS (boundary edges constrained, Jacobi-CG to
+    1e-11), errors against the exact circulations < 0.05 and falling; the
+    discrete de Rham check (:35) on N0Cube(3) at P14_DERHAM_CELLS^3 to
+    1e-12; Whitney tets (tests/test_fe_zoo_r3.py:131) at P14_WHITNEY_CELLS
+    x 6, order > 0.9; the Maxwell cavity (tests/test_hcurl.py:183) at
+    P14_CAVITY_CELLS^2: A and M assembled on the card by go.jacobian, the
+    boundary edges removed, a dense generalised eigensolve on the host."""
+    import numpy as np
+    import scipy.linalg as sla
+    from dune_pdelab_tpu_torch.fe.hcurl import N0Cube, N0Simplex
+    from dune_pdelab_tpu_torch.ops import CurlCurl, CurlCurlParameters
+
+    class Manufactured(CurlCurlParameters):
+        def f(self, x):
+            c = math.pi ** 2 + 1.0
+            return torch.stack([c * torch.sin(math.pi * x[..., 1]),
+                                c * torch.sin(math.pi * x[..., 0])], -1)
+
+    errs = []
+    for n in P14_CURL_CELLS:
+        torch.cuda.reset_peak_memory_stats()
+        Ve = pt.FunctionSpace(pt.StructuredMesh([0.0, 0.0], [1.0, 1.0], (n, n)), N0Cube(2))
+        go = pt.GridOperator(Ve, CurlCurl(Manufactured()),
+                             constraints=pt.DirichletConstraints(Ve.boundary_edge_mask(),
+                                                                 device=dev))
+        x, its, s, ok, how = p14_cg(torch, pt, go, Ve, dev, 1e-11)
+        exact = p14_curl_exact(Ve, 1.0 / n)
+        err = float(np.linalg.norm(x.cpu().numpy() - exact) / np.linalg.norm(exact))
+        errs.append(err)
+        log(f"[phase 14c] curl-curl N0Cube(2) {n}^2 (N = {Ve.ndofs}): Jacobi-CG {its} "
+            f"iterations, {s:.2f} s, edge error {err:.6e}, peak {peak_gib(torch):.3f} GiB; {how}")
+        if not (ok and err < 0.05):
+            raise AssertionError(f"phase 14c: curl-curl {n}: converged {ok}, error {err}")
+    log(f"[phase 14c] curl-curl errors {errs[0]:.6e} -> {errs[1]:.6e}, ratio {errs[0] / errs[1]:.3f}")
+    if not errs[1] < errs[0]:
+        raise AssertionError("phase 14c: the curl-curl error does not fall")
+
+    # discrete de Rham: edge DOFs of a nodal gradient lie in the kernel
+    n = P14_DERHAM_CELLS
+    mesh = pt.StructuredMesh([0.0] * 3, [1.0] * 3, (n,) * 3)
+    Ve = pt.FunctionSpace(mesh, N0Cube(3))
+    dims_n = (n + 1,) * 3
+    strides = np.cumprod((1,) + dims_n[:-1])
+    pvals = np.random.default_rng(0).standard_normal(int(np.prod(dims_n)))
+    gvec = np.zeros(Ve.ndofs)
+    for a in range(3):
+        ed, off = Ve._hcurl_edge_dims[a], Ve._hcurl_offsets[a]
+        g = np.arange(int(np.prod(ed)), dtype=np.int64)
+        mi = np.stack([g % ed[0], (g // ed[0]) % ed[1], g // (ed[0] * ed[1])], axis=1)
+        gvec[off:off + len(g)] = pvals[(mi + np.eye(3, dtype=np.int64)[a]) @ strides] \
+            - pvals[mi @ strides]
+    go = pt.GridOperator(Ve, CurlCurl(CurlCurlParameters(nu=1.0, beta=0.0)))
+    y, s = timed(torch, lambda: go.jacobian_apply(Ve.zero(torch.float64, dev),
+                                                  torch.as_tensor(gvec, device=dev)))
+    rel = float(torch.linalg.norm(y)) / max(1.0, float(np.linalg.norm(gvec)))
+    log(f"[phase 14c] de Rham N0Cube(3) {n}^3 (N = {Ve.ndofs}): |curl curl grad p| / |grad p| "
+        f"{rel:.2e} ({s:.2f} s)")
+    if not rel < 1e-12:
+        raise AssertionError(f"phase 14c: de Rham {rel}")
+
+    class GradSin(CurlCurlParameters):
+        def f(self, x):
+            s_, c_, pi = torch.sin, torch.cos, math.pi
+            X, Y, Z = x[..., 0], x[..., 1], x[..., 2]
+            return pi * torch.stack([c_(pi * X) * s_(pi * Y) * s_(pi * Z),
+                                     s_(pi * X) * c_(pi * Y) * s_(pi * Z),
+                                     s_(pi * X) * s_(pi * Y) * c_(pi * Z)], -1)
+
+    errs = []
+    for n in P14_WHITNEY_CELLS:
+        torch.cuda.reset_peak_memory_stats()
+        sm = pt.SimplexMesh.from_structured(pt.StructuredMesh([0.0] * 3, [1.0] * 3, (n,) * 3))
+        V = pt.FunctionSpace(sm, N0Simplex(3))
+        uniq, _ = sm.edges()
+        go = pt.GridOperator(V, CurlCurl(GradSin(nu=1.0, beta=1.0)),
+                             constraints=pt.DirichletConstraints(V.boundary_edge_mask(), device=dev))
+        x, its, s, ok, how = p14_cg(torch, pt, go, V, dev, 1e-12)
+        pv = np.prod(np.sin(np.pi * sm.vertices), axis=1)
+        exact = pv[uniq[:, 1]] - pv[uniq[:, 0]]
+        errs.append(float(np.linalg.norm(x.cpu().numpy() - exact) / np.linalg.norm(exact)))
+        log(f"[phase 14c] Whitney tets {n}^3 x 6 (N = {V.ndofs}): Jacobi-CG {its} iterations, "
+            f"{s:.2f} s, peak {peak_gib(torch):.3f} GiB; {how}")
+        if not ok:
+            raise AssertionError(f"phase 14c: Whitney {n} did not converge")
+    p14_order("14c", "Whitney tets edge DOFs", errs, 0.9)
+
+    n = P14_CAVITY_CELLS
+    V = pt.FunctionSpace(pt.StructuredMesh([0.0, 0.0], [1.0, 1.0], (n, n)), N0Cube(2))
+    zero = V.zero(torch.float64, dev)
+    t0 = time.perf_counter()
+    A = pt.GridOperator(V, CurlCurl(CurlCurlParameters(nu=1.0, beta=0.0))).jacobian(zero)
+    M = pt.GridOperator(V, CurlCurl(CurlCurlParameters(nu=0.0, beta=1.0))).jacobian(zero)
+    free = ~V.boundary_edge_mask()
+    A = A.to_dense().cpu().numpy()[np.ix_(free, free)]
+    M = M.to_dense().cpu().numpy()[np.ix_(free, free)]
+    t1 = time.perf_counter()
+    lam = np.sort(sla.eigh(A, M, eigvals_only=True))
+    nz = lam[lam > 1e-6] / np.pi ** 2
+    nker = int(np.sum(lam <= 1e-6))
+    log(f"[phase 14c] Maxwell cavity {n}^2 ({int(free.sum())} free edges): assembly on the card "
+        f"{t1 - t0:.2f} s, dense eigh {time.perf_counter() - t1:.2f} s; first nonzero "
+        f"lambda/pi^2 {np.round(nz[:5], 4).tolist()}, kernel dimension {nker}")
+    if not (np.allclose(nz[:5], [1.0, 1.0, 2.0, 4.0, 4.0], rtol=0.02) and nker == (n - 1) ** 2):
+        raise AssertionError(f"phase 14c: cavity eigenvalues {nz[:8]}, kernel {nker}")
+
+
+def mimetic_runs(torch, pt, dev):
+    """Phase 14d: DiffusionMFD on the convergence problem of
+    tests/test_mimetic.py:67 at P14_MFD_CELLS (Jacobi-CG to 1e-13, L2 order
+    > 1.8), the patch test (:53) at 7 x 5 (exact to 1e-10), the 3D operator
+    at P14_MFD_3D^3: seeded u^T A v = v^T A u to 1e-12, Jacobi-CG
+    converges."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.fe.mimetic import DiffusionMFD, MimeticFEM
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    class Sin(ConvectionDiffusionProblem):
+        def exact(self, q):
+            return torch.sin(math.pi * q[:, 0]) * torch.sin(math.pi * q[:, 1]) + q[:, 0]
+
+        def f(self, x):
+            return 2 * math.pi ** 2 * torch.sin(math.pi * x[..., 0]) * torch.sin(math.pi * x[..., 1])
+
+        def g(self, x):
+            return torch.sin(math.pi * x[..., 0]) * torch.sin(math.pi * x[..., 1]) + x[..., 0]
+
+    class Linear(ConvectionDiffusionProblem):
+        def f(self, x):
+            return 0.0 * x[..., 0]
+
+    def solve(V, p, x0, red):
+        cgm = pt.constraints(True, V, device=dev)
+        go = pt.GridOperator(V, DiffusionMFD(p), constraints=cgm)
+        backend = pt.SEQ_CG_Jacobi(maxiter=40000)
+        slp = pt.StationaryLinearProblemSolver(go, backend, reduction=red, verbose=0)
+        x, s = timed(torch, lambda: slp.apply(x0(cgm)))
+        return x, s, slp, backend, go
+
+    errs = []
+    p = Sin()
+    for n in P14_MFD_CELLS:
+        torch.cuda.reset_peak_memory_stats()
+        V = pt.FunctionSpace(pt.StructuredMesh([0.0, 0.0], [1.0, 1.0], (n, n)), MimeticFEM(2))
+        x, s, slp, backend, go = solve(
+            V, p, lambda c: pt.interpolate_dirichlet(p.g, V, c, V.zero(torch.float64, dev)), 1e-13)
+        errs.append(float(l2_difference(V, x, p.exact)))
+        its = slp.result.linear_solver_iterations
+        log(f"[phase 14d] DiffusionMFD {n}^2 (N = {V.ndofs}): Jacobi-CG {its} iterations, "
+            f"{s:.2f} s ({1e3 * s / max(its, 1):.2f} ms/iteration), peak {peak_gib(torch):.3f} GiB; "
+            f"{p14_tier(backend, go)}")
+        if not slp.result.converged:
+            raise AssertionError(f"phase 14d: {n} did not converge")
+    p14_order("14d", "mimetic L2", errs, 1.8)
+
+    V = pt.FunctionSpace(pt.StructuredMesh([0.0, 0.0], [1.0, 1.0], (7, 5)), MimeticFEM(2))
+
+    def gfun(q):
+        return 1.0 + 2.0 * q[..., 0] - q[..., 1]
+
+    x, s, slp, _, _ = solve(V, Linear(), lambda c: pt.interpolate_dirichlet(
+        gfun, V, c, V.zero(torch.float64, dev)), 1e-13)
+    perr = float((x - V.interpolate(gfun, dtype=torch.float64, device=dev)).abs().max())
+    log(f"[phase 14d] patch test 7 x 5: max error {perr:.2e}")
+    if not perr < 1e-10:
+        raise AssertionError(f"phase 14d: patch test {perr}")
+
+    n = P14_MFD_3D
+    torch.cuda.reset_peak_memory_stats()
+    V = pt.FunctionSpace(pt.StructuredMesh([0.0] * 3, [1.0] * 3, (n,) * 3), MimeticFEM(3))
+
+    class Source3(ConvectionDiffusionProblem):
+        def f(self, x):
+            return 1.0 + x[..., 0] * x[..., 1]
+
+    asym = p14_symmetry(torch, pt.GridOperator(V, DiffusionMFD(Source3())), V.ndofs, dev)
+    x, s, slp, backend, go = solve(V, Source3(), lambda c: V.zero(torch.float64, dev), 1e-10)
+    its = slp.result.linear_solver_iterations
+    log(f"[phase 14d] DiffusionMFD 3D {n}^3 (N = {V.ndofs}): u^T A v against v^T A u {asym:.2e}, "
+        f"Jacobi-CG {its} iterations, {s:.2f} s, converged {slp.result.converged}, peak "
+        f"{peak_gib(torch):.3f} GiB")
+    if not (asym < 1e-12 and slp.result.converged):
+        raise AssertionError(f"phase 14d: 3D asymmetry {asym}, converged {slp.result.converged}")
+
+
+def p14_poisson_factory(torch, pt):
+    """tests/test_differentiable.py:23-33: A = (t0 + t1 x + t2 y) I, f = 1."""
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM, ConvectionDiffusionProblem
+
+    def factory(theta):
+        class P(ConvectionDiffusionProblem):
+            def A(self, x):
+                a = theta[0] + theta[1] * x[..., 0] + theta[2] * x[..., 1]
+                return a[..., None, None] * torch.eye(2, dtype=x.dtype, device=x.device)
+
+            def f(self, x):
+                return 1.0 + 0.0 * x[..., 0]
+        return ConvectionDiffusionFEM(P())
+    return factory
+
+
+def p14_adjoint_grad(torch, pt, n, dev, theta0):
+    """The test_linear_adjoint_gradient_vs_fd problem at n^2 on `dev`:
+    (f, loss, gradient, forward s, backward s)."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.solvers import differentiable_stationary_solve
+
+    V = pt.FunctionSpace(pt.StructuredMesh([0.0, 0.0], [1.0, 1.0], (n, n)), pt.QkFEM(1, 2))
+    cons = pt.constraints(True, V, device=dev)
+    f = differentiable_stationary_solve(V, p14_poisson_factory(torch, pt), constraints=cons,
+                                        solver="cg", tol=1e-13)
+    x_t = torch.as_tensor(np.random.default_rng(0).standard_normal(V.ndofs) * 0.01, device=dev)
+
+    def loss(th):
+        return torch.sum((f(th) - x_t) ** 2)
+
+    th = torch.tensor(theta0, dtype=torch.float64, device=dev, requires_grad=True)
+    val, s_fwd = timed(torch, lambda: loss(th))
+    _, s_bwd = timed(torch, lambda: val.backward())
+    return f, loss, th.grad.cpu().numpy(), s_fwd, s_bwd
+
+
+def adjoint_runs(torch, pt, dev):
+    """Phase 14e: test_linear_adjoint_gradient_vs_fd (tests/test_differentiable.py:46)
+    at P14_ADJ_CELLS^2, directional FD within 1e-5; the same at
+    P14_ADJ_SMALL^2 on the card and the CPU, gradients within 1e-10;
+    differentiable_theta_rollout with Crank-Nicolson for P14_ROLL_STEPS
+    steps at P14_ROLL_CELLS^2, parameter and initial-condition gradients
+    against central FD within 1e-5 and checkpoint_steps=True within 1e-9;
+    the Stokes viscosity gradient (:202, slow tier in the reference) at its
+    5^2 against FD within 1e-5."""
+    import numpy as np
+
+    theta0, v, eps = [1.0, 0.4, -0.3], np.array([0.6, -0.3, 0.4]), 1e-6
+    f, loss, g, s_fwd, s_bwd = p14_adjoint_grad(torch, pt, P14_ADJ_CELLS, dev, theta0)
+    with torch.no_grad():
+        lp = float(loss(torch.as_tensor(np.array(theta0) + eps * v, device=dev)))
+        lm = float(loss(torch.as_tensor(np.array(theta0) - eps * v, device=dev)))
+    fd, ad = (lp - lm) / (2 * eps), float(g @ v)
+    rel = abs(fd - ad) / abs(fd)
+    log(f"[phase 14e] adjoint gradient {P14_ADJ_CELLS}^2: forward {s_fwd:.2f} s "
+        f"({f.info['forward'].iterations} CG iterations, {f.info['forward_apply']}), backward "
+        f"{s_bwd:.2f} s ({f.info['adjoint'].iterations} adjoint CG iterations, "
+        f"{f.info['adjoint_apply']}, converged {bool(f.info['adjoint'].converged)}), "
+        f"directional FD {fd:.10e} against {ad:.10e}: {rel:.2e}")
+    if not rel < 1e-5:
+        raise AssertionError(f"phase 14e: adjoint gradient against FD {rel}")
+    fc, _, gc, fc_s, bc_s = p14_adjoint_grad(torch, pt, P14_ADJ_SMALL, dev, theta0)
+    _, _, gh, fh_s, bh_s = p14_adjoint_grad(torch, pt, P14_ADJ_SMALL, torch.device("cpu"), theta0)
+    rel = float(np.abs(gc - gh).max() / np.abs(gh).max())
+    log(f"[phase 14e] adjoint gradient {P14_ADJ_SMALL}^2: card against CPU {rel:.2e}; card "
+        f"forward {fc_s:.2f} s, backward {bc_s:.2f} s ({fc.info['adjoint'].iterations} adjoint CG "
+        f"iterations; CPU {fh_s:.2f} / {bh_s:.2f} s)")
+    if not rel < 1e-10:
+        raise AssertionError(f"phase 14e: card and CPU gradients differ by {rel}")
+    rollout_gradients(torch, pt, dev)
+    stokes_viscosity_gradient(torch, pt, dev)
+
+
+def rollout_gradients(torch, pt, dev):
+    """Phase 14e (2): tests/test_differentiable_time.py's heat problem at
+    P14_ROLL_CELLS^2, Crank-Nicolson, P14_ROLL_STEPS steps of P14_ROLL_DT."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.instationary import differentiable_theta_rollout
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM, ConvectionDiffusionProblem
+
+    def factory(params):
+        class P(ConvectionDiffusionProblem):
+            def A(self, x):
+                return params[0]
+
+            def f(self, x):
+                return params[1] * torch.sin(math.pi * x[..., 0]) * torch.sin(math.pi * x[..., 1])
+        return ConvectionDiffusionFEM(P())
+
+    n = P14_ROLL_CELLS
+    V = pt.FunctionSpace(pt.StructuredMesh([0.0, 0.0], [1.0, 1.0], (n, n)), pt.QkFEM(1, 2))
+    cons = pt.constraints(True, V, device=dev)
+    x0 = torch.where(cons.mask, 0.0, V.interpolate(
+        lambda q: torch.sin(math.pi * q[..., 0]) * torch.sin(math.pi * q[..., 1]),
+        dtype=torch.float64, device=dev))
+    dt, steps = P14_ROLL_DT, P14_ROLL_STEPS
+    grads = {}
+    for cp in (False, True):
+        roll = differentiable_theta_rollout(V, factory, cons, theta=0.5, tol=1e-13,
+                                            checkpoint_steps=cp)
+        p = torch.tensor([0.8, 3.0], dtype=torch.float64, device=dev, requires_grad=True)
+        xx = x0.clone().requires_grad_(True)
+        val, s_fwd = timed(torch, lambda: torch.sum(roll(xx, p, dt, steps) ** 2))
+        _, s_bwd = timed(torch, lambda: val.backward())
+        fwd = [st for kind, st, _ in roll.stats if kind == "step"]
+        adj = [st for kind, st, _ in roll.stats if kind == "adjoint"]
+        how = roll.stats[0][2]
+        grads[cp] = (p.grad.cpu().numpy(), xx.grad.cpu().numpy())
+        log(f"[phase 14e] rollout {n}^2 CN {steps} steps{' (checkpointed)' if cp else ''}: "
+            f"forward {s_fwd:.2f} s ({sum(int(s.iterations) for s in fwd[:steps])} CG iterations "
+            f"over {steps} step solves, {how}), backward {s_bwd:.2f} s "
+            f"({sum(int(s.iterations) for s in adj)} adjoint CG iterations over {len(adj)} "
+            f"solves{', ' + str(len(fwd) - steps) + ' recomputed steps' if cp else ''})")
+        if cp:
+            continue
+        eps = 1e-6
+        with torch.no_grad():
+            def lossv(pp, xs):
+                return float(torch.sum(roll(xs, pp, dt, steps) ** 2))
+
+            fd = []
+            for i in range(2):
+                e = torch.zeros(2, dtype=torch.float64, device=dev)
+                e[i] = eps
+                fd.append((lossv(p.detach() + e, x0) - lossv(p.detach() - e, x0)) / (2 * eps))
+            vdir = torch.where(cons.mask, 0.0, torch.as_tensor(
+                np.random.default_rng(3).standard_normal(V.ndofs), device=dev))
+            fdx = (lossv(p.detach(), x0 + eps * vdir) - lossv(p.detach(), x0 - eps * vdir)) / (2 * eps)
+        gp, gx = grads[False]
+        rel_p = float(np.max(np.abs(gp - np.array(fd)) / np.abs(np.array(fd))))
+        adx = float(gx @ vdir.cpu().numpy())
+        rel_x = abs(fdx - adx) / abs(fdx)
+        log(f"[phase 14e] rollout gradients against central FD: params {rel_p:.2e}, x0 "
+            f"direction {rel_x:.2e}")
+        if not (rel_p < 1e-5 and rel_x < 1e-5):
+            raise AssertionError(f"phase 14e: rollout gradients against FD {rel_p}, {rel_x}")
+    rel_c = max(float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(grads[True], grads[False]))
+    log(f"[phase 14e] checkpoint_steps=True against plain gradients {rel_c:.2e}")
+    if not rel_c < 1e-9:
+        raise AssertionError(f"phase 14e: checkpointed gradients differ by {rel_c}")
+
+
+def stokes_viscosity_gradient(torch, pt, dev):
+    """Phase 14e (3): tests/test_differentiable.py:202, a velocity
+    functional of a Taylor-Hood Stokes solve (5^2, Q2/Q1, one pinned
+    pressure DOF) differentiated in the viscosity mu(x) = t0 + t1 x:
+    restarted GMRES(200) forward and GMRES(30) adjoint to 1e-12 within 5000
+    iterations (the reference test's settings: its adjoint stops at maxiter
+    short of 1e-12, in both packages, and the gradient holds all the same),
+    against the directional FD within 1e-5. Both solves' convergence is
+    printed."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.linalg.krylov import restarted_gmres
+    from dune_pdelab_tpu_torch.ops import NavierStokesParameters, TaylorHoodNavierStokes
+    from dune_pdelab_tpu_torch.solvers import implicit_solve, parametric_residual
+    from dune_pdelab_tpu_torch.solvers.differentiable import graphed
+    from dune_pdelab_tpu_torch.solvers.stokes import stokes_constraints, taylor_hood_space
+
+    W = taylor_hood_space(pt.StructuredMesh([0.0, 0.0], [1.0, 1.0], (5, 5)), degree=2)
+    cons = stokes_constraints(W, bctype=True, pin_pressure=True, device=dev)
+
+    class Cavity(NavierStokesParameters):
+        def f(self, x):
+            fx = torch.sin(math.pi * x[..., 0]) * torch.cos(math.pi * x[..., 1])
+            return torch.stack([fx, -fx], -1)
+
+    def factory(theta):
+        return TaylorHoodNavierStokes(Cavity(mu=lambda x: theta[0] + theta[1] * x[..., 0],
+                                             rho=0.0))
+
+    R = parametric_residual(W, factory, constraints=cons)
+    its = {}
+
+    def forward(theta):
+        go = pt.GridOperator(W, factory(theta), constraints=cons)
+        x0 = W.zero(torch.float64, dev)
+        z, st = restarted_gmres(graphed(lambda q: go.jacobian_apply(x0, q), x0),
+                                go.residual(x0), tol=1e-12, restart=200, maxiter=5000)
+        its["forward"] = st
+        return x0 - z
+
+    f = implicit_solve(R, forward, constraints=cons, adjoint_solver="gmres",
+                       adjoint_tol=1e-12, adjoint_maxiter=5000)
+
+    def loss(theta):
+        return torch.sum(W.restrict(f(theta), 0) ** 2)
+
+    th = torch.tensor([1.0, 0.5], dtype=torch.float64, device=dev, requires_grad=True)
+    val, s_fwd = timed(torch, lambda: loss(th))
+    _, s_bwd = timed(torch, lambda: val.backward())
+    v, eps = np.array([0.7, -0.4]), 1e-6
+    with torch.no_grad():
+        fd = (float(loss(torch.as_tensor(np.array([1.0, 0.5]) + eps * v, device=dev)))
+              - float(loss(torch.as_tensor(np.array([1.0, 0.5]) - eps * v, device=dev)))) / (2 * eps)
+    ad = float(th.grad.cpu().numpy() @ v)
+    rel = abs(fd - ad) / abs(fd)
+    fw, adj = its["forward"], f.info["adjoint"]
+    log(f"[phase 14e] Stokes viscosity gradient 5^2 (N = {W.ndofs}): forward {s_fwd:.2f} s "
+        f"({fw.iterations} GMRES(200) iterations, converged {bool(fw.converged)}, reduction "
+        f"{float(fw.reduction):.2e}), backward {s_bwd:.2f} s ({adj.iterations} adjoint GMRES(30) "
+        f"iterations, {f.info['adjoint_apply']}, converged {bool(adj.converged)}, reduction "
+        f"{float(adj.reduction):.2e}; the reference test's settings, tol 1e-12 and maxiter "
+        f"5000), directional FD {fd:.10e} against {ad:.10e}: {rel:.2e}")
+    if not rel < 1e-5:
+        raise AssertionError(f"phase 14e: Stokes viscosity gradient against FD {rel}")
+
+
+def p14_operator_case(pt, name, n, where):
+    """(GridOperator, ndofs) of a phase-14f case with every constraint mask
+    on `where` (the card or the CPU)."""
+    import torch
+    from dune_pdelab_tpu_torch.fe.hcurl import N0Cube, N0Simplex
+    from dune_pdelab_tpu_torch.fe.mimetic import DiffusionMFD, MimeticFEM
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem, CurlCurl, CurlCurlParameters
+    from dune_pdelab_tpu_torch.ops import DiffusionMixed
+
+    class Field(ConvectionDiffusionProblem):
+        def A(self, x):
+            return 1.0 + 0.5 * x[..., 0] + 0.25 * x[..., 1] ** 2
+
+        def f(self, x):
+            return torch.sin(3 * x[..., 0]) * torch.cos(2 * x[..., 1])
+
+        def g(self, x):
+            return x[..., 0] ** 2 - x[..., 1] + 0.5
+
+    class Source(CurlCurlParameters):
+        def f(self, x):
+            return torch.sin(2.0 * x + 0.3)
+
+    if name.startswith("mixed-"):
+        kind = name[len("mixed-"):]
+        dim = 3 if kind == "RT0tet" else 2
+        _, W, _, _ = p14_mixed_space(pt, kind, n if dim == 2 else n // 2, dim)
+        return pt.GridOperator(W, DiffusionMixed(Field())), W.ndofs
+    if name.startswith("curl-"):
+        dim = int(name[-1])
+        unit = pt.StructuredMesh([0.0] * dim, [1.0] * dim, ((n if dim == 2 else n // 2),) * dim)
+        V = (pt.FunctionSpace(unit, N0Cube(dim)) if "cube" in name else
+             pt.FunctionSpace(pt.SimplexMesh.from_structured(unit), N0Simplex(dim)))
+        cons = pt.DirichletConstraints(V.boundary_edge_mask(), device=where)
+        return pt.GridOperator(V, CurlCurl(Source(nu=1.3, beta=0.7)), constraints=cons), V.ndofs
+    V = pt.FunctionSpace(pt.StructuredMesh([0.0, 0.0], [1.0, 1.0], (n, n)), MimeticFEM(2))
+    return pt.GridOperator(V, DiffusionMFD(Field()),
+                           constraints=pt.constraints(True, V, device=where)), V.ndofs
+
+
+def card_vs_cpu(torch, pt, dev):
+    """Phase 14f: residual and J.v at a seeded x, z on the card and on the
+    CPU, at P14_SMALL^2 (half that per axis in 3D), fp64, within 1e-12 of
+    max|y|; the card's fp32 residual within 1e-5 of the fp64 one."""
+    import numpy as np
+
+    cpu = torch.device("cpu")
+    worst = {}
+    for name in P14_CASES:
+        got = []
+        for where in (dev, cpu):
+            go, nd = p14_operator_case(pt, name, P14_SMALL, where)
+            rng = np.random.default_rng(1)
+            x = torch.as_tensor(rng.standard_normal(nd), device=where)
+            z = torch.as_tensor(rng.standard_normal(nd), device=where)
+            got.append((go.residual(x).cpu(), go.jacobian_apply(x, z).cpu(),
+                        go.residual(x.float()).cpu()))
+        (r, j, r32), (rc, jc, _) = got
+        e_r = float((r - rc).abs().max() / rc.abs().max())
+        e_j = float((j - jc).abs().max() / jc.abs().max())
+        e_32 = float((r32.double() - r).abs().max() / r.abs().max())
+        worst[name] = (e_r, e_j, e_32)
+        if not (e_r <= 1e-12 and e_j <= 1e-12 and e_32 <= 1e-5):
+            raise AssertionError(f"phase 14f: {name}: residual {e_r}, J.v {e_j}, fp32 {e_32}")
+    log(f"[phase 14f] card against CPU (residual, J.v of max|y|; fp32 residual against fp64): "
+        + "; ".join(f"{k} {a:.1e}/{b:.1e}/{c:.1e}" for k, (a, b, c) in worst.items()))
+
+
+def phase_slice13bc(torch, pt, dev):
+    """Phase 14: slices 13b and 13c, fp64 unless stated; no kernel launches
+    (K1-K6 decline H(div), H(curl) and mimetic leaves)."""
+    for name, run in (("14a", mixed_cubes), ("14b", mixed_simplices), ("14c", hcurl_runs),
+                      ("14d", mimetic_runs), ("14e", adjoint_runs), ("14f", card_vs_cpu)):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        run(torch, pt, dev)
+        torch.cuda.synchronize()
+        log(f"[phase {name}] {time.perf_counter() - t0:.2f} s, peak {peak_gib(torch):.3f} GiB")
+        torch.cuda.empty_cache()
+
+
 def main():
     if not (ROOT / "dune_pdelab_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -4507,6 +5272,8 @@ def main():
         ("phase 12 (adaptivity, mesh breadth)", lambda: phase_adaptivity(torch, pt, dev), ()),
         ("phase 13 (slice 13a: P0, modal DG, CCFV, two-phase, waves)",
          lambda: phase_slice13a(torch, pt, dev), ("blockstencil_em", "blockstencil_mm")),
+        ("phase 14 (slices 13b/13c: H(div), H(curl), mimetic, adjoints)",
+         lambda: phase_slice13bc(torch, pt, dev), ()),
     ]
     totals = dict.fromkeys(counters, 0)
     for name, run, needed in paths:
@@ -4521,7 +5288,7 @@ def main():
             raise AssertionError(f"{name} never launched {missing}: {counts}")
         for k in totals:
             totals[k] += counts[k]
-    log(f"launch counts over phases 3-13: {totals}")
+    log(f"launch counts over phases 3-14: {totals}")
 
     meta = {
         "stencil27": ("dune_pdelab_tpu_torch/csrc/stencil27.cu",

@@ -32,8 +32,12 @@ transfers of adaptivity/; and the elements and operators of slice 13a:
 P0, Rannacher-Turek and the modal DG bases, variable-order constraints,
 cell-centered finite volumes (ops/ccfv.py) with Darcy post-processing,
 two-phase flow (ops/twophase.py), linear elasticity, the acoustics and
-Maxwell DG operators, and checkpoints and logging in utils/. See
-ROADMAP.md for what remains.
+Maxwell DG operators, and checkpoints and logging in utils/; and slices
+13b and 13c: the H(div), H(curl) and mimetic elements (fe/hdiv.py,
+fe/hcurl.py, fe/mimetic.py) with their face and edge DOF maps and Piola
+maps, the mixed Darcy and curl-curl operators, and adjoint-differentiable
+solves and rollouts (solvers/differentiable.py,
+instationary/differentiable.py). See ROADMAP.md for what remains.
 
 Entry points put their tensors on `default_device()`, the card, unless the
 caller names a device or calls `set_default_device` (the CPU tests do).

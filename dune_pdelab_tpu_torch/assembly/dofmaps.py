@@ -9,9 +9,9 @@ PyTorch port of dune_pdelab_tpu/assembly/dofmaps.py:
     transfer is one reshape.
   * IndexDofMap   - fallback: explicit index arrays. Gather is one
     indexing op; scatter-add is one gather through the transpose map
-    (each global DOF's local slots, built once per device) and one sum in
-    a fixed order, so it uses no floating-point atomic and gives the same
-    bits on every run (the reference's `.at[].add` is an atomic add on
+    (each touched global DOF's local slots, built once per device) and one
+    sum in a fixed order, so it uses no floating-point atomic and gives the
+    same bits on every run (the reference's `.at[].add` is an atomic add on
     the card).
 
 All expose gather(x) -> (E, nloc) and scatter_add(r, r_loc) -> r. Face
@@ -54,26 +54,37 @@ class IndexDofMap:
         return self._dofs[key]
 
     def _transpose(self, n, device):
-        """(n, K) slots of the flattened local array that add into each
-        global DOF, ascending; padding points at one slot past the end
-        (a zero appended at scatter time)."""
+        """(rows, slots): the global DOFs the map touches, ascending (None
+        when it touches all n), and for each its (K,) slots of the
+        flattened local array, ascending; padding points at one slot past
+        the end (a zero appended at scatter time). A face group touches a
+        few DOFs only: keeping its rows compact keeps the padding, and the
+        duplicate indices a reverse-mode pass through the gather
+        accumulates, to a few per row."""
         key = (device_key(device), int(n))
         if key not in self._tmaps:
             from dune_pdelab_tpu_torch.linalg.multigrid import transpose_map
 
-            idx = self._on(device).reshape(-1, 1)
-            ridx, rw = transpose_map(idx, torch.ones(idx.shape, dtype=torch.float64,
-                                                     device=idx.device), n)
-            self._tmaps[key] = torch.where(rw != 0, ridx, idx.shape[0])
+            idx = self._on(device).reshape(-1)
+            rows = torch.unique(idx)                       # sorted
+            local = torch.searchsorted(rows, idx)[:, None]
+            ridx, rw = transpose_map(local, torch.ones(local.shape, dtype=torch.float64,
+                                                       device=idx.device), len(rows))
+            self._tmaps[key] = (None if len(rows) == n else rows,
+                                torch.where(rw != 0, ridx, idx.shape[0]))
         return self._tmaps[key]
 
     def gather(self, x):
         return x[self._on(x.device)]
 
     def scatter_add(self, r, r_loc):
-        tmap = self._transpose(r.shape[0], r.device)
+        rows, tmap = self._transpose(r.shape[0], r.device)
         flat = r_loc.reshape(-1).to(r.dtype)
-        return r + torch.cat([flat, flat.new_zeros(1)])[tmap].sum(dim=1)
+        sums = torch.cat([flat, flat.new_zeros(1)])[tmap].sum(dim=1)
+        if rows is None:
+            return r + sums
+        # distinct rows: an index_put without accumulation, the same adds
+        return r.index_put((rows,), r[rows] + sums)
 
 
 class ReshapeDofMap:

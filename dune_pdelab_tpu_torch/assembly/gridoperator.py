@@ -36,10 +36,19 @@ geometry: `jac_inv_T` (E, nqp, d, d), physical gradients (E, nqp, nb, d)
 and the physical quadrature points `qp_phys`; face contexts carry per-face
 normals (F, 1 or nqp, d), factors (F, nqp) and h (F,).
 
+H(div) and H(curl) leaves are tabulated through the Piola maps
+(`_make_tabs`): contravariant (values J v / det J, divergence div / det J)
+and covariant (values J^-T v, curl / det J in 2D, J curl / det J in 3D),
+shared (nqp, nb, d) tensors on a uniform mesh, per element on a mapped cube
+mesh (the Q1 map's Jacobians at each point) and on a simplex mesh (with the
+space's orientation signs folded in).
+
 There is no jit: PyTorch runs eagerly. Context tensors (tabulations,
 factors, quadrature points) are built once per (dtype, device) and cached.
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -140,6 +149,7 @@ class GridOperator:
         self.space = space
         self.lop = lop
         self.cg = constraints
+        self._fixed_qorder = quad_order is not None
         self.leaves = space.leaves
         self.mesh = self.leaves[0].mesh
         if any(lf.mesh is not self.mesh for lf in self.leaves):
@@ -200,20 +210,64 @@ class GridOperator:
                     raise AssertionError("a face group repeats an element")
         self._ctx_cache = {}
 
+    def with_operator(self, lop):
+        """This GridOperator for another local operator with the same
+        kernels and quadrature order, on the same space and constraints: the
+        copy shares the index maps, face groups and the context cache
+        (geometry and tabulations only: every coefficient is evaluated from
+        `lop` inside the kernels, at each call)."""
+        degree = max(lf.fem.degree for lf in self.leaves)
+        if not (all(hasattr(lop, n) == hasattr(self.lop, n) for n in _KERNELS)
+                and (self._fixed_qorder or lop.quad_order(degree) == self.qorder)):
+            raise ValueError("with_operator: the local operator's kernels or quadrature "
+                             "order differ from this GridOperator's")
+        new = copy.copy(self)
+        new.lop = lop
+        return new
+
     # ------------------------------------------------------------------
     # setup of face groups
     # ------------------------------------------------------------------
     def _make_tabs(self, pts_ref, geo=None):
         """Per leaf: (values, physical gradients, reference gradients,
-        degree) at reference points: one shared gradient transform on a
-        uniform mesh, the per-element one of `geo` else."""
-        out = []
-        for lf in self.leaves:
-            vals, grads = lf.fem.tabulate(pts_ref)
-            gphys = (geo.transform_grad(grads) if geo is not None
-                     else (grads / self.mesh.h)[None])
-            out.append((vals, gphys, grads, lf.fem.degree))
-        return out
+        degree, vector values, divergence, curl) at reference points. Scalar
+        leaves: one shared gradient transform on a uniform mesh, the
+        per-element one of `geo` else. H(div)/H(curl) leaves: the Piola
+        maps, shared on a uniform mesh (h / det J contravariant, 1 / h
+        covariant), per element on a mapped or simplex mesh."""
+        return [self._vector_tab(lf, pts_ref) if lf.fem.continuity in ("Hdiv", "Hcurl")
+                else self._scalar_tab(lf, pts_ref, geo) for lf in self.leaves]
+
+    def _scalar_tab(self, lf, pts_ref, geo):
+        vals, grads = lf.fem.tabulate(pts_ref)
+        gphys = (geo.transform_grad(grads) if geo is not None
+                 else (grads / self.mesh.h)[None])
+        return (vals, gphys, grads, lf.fem.degree, None, None, None)
+
+    def _vector_tab(self, lf, pts_ref, elements=None):
+        """Piola-mapped tab of an H(div) or H(curl) leaf at reference points
+        (of `elements`, default all, on a mapped or simplex mesh)."""
+        fem, mesh = lf.fem, self.mesh
+        hdiv = fem.continuity == "Hdiv"
+        if not mesh.uniform:
+            if mesh.geometry_type == "simplex":
+                vec, dc = (self._simplex_piola(lf, pts_ref, elements) if hdiv
+                           else self._simplex_covariant(lf, pts_ref, elements))
+            else:
+                vec, dc = (self._mapped_cube_piola(fem, pts_ref, elements) if hdiv
+                           else self._mapped_cube_covariant(fem, pts_ref, elements))
+        else:
+            h = mesh.h
+            detJ = float(np.prod(h))
+            if hdiv:
+                vec = fem.tabulate_vector(pts_ref) * (h / detJ)     # contravariant
+                dc = fem.tabulate_div(pts_ref) / detJ
+            else:
+                vec = fem.tabulate_vector(pts_ref) / h              # covariant
+                c = fem.tabulate_curl(pts_ref)
+                dc = c / detJ if c.ndim == 2 else c * (h / detJ)    # 2D scalar / 3D
+        return ((None, None, None, fem.degree, vec, dc, None) if hdiv
+                else (None, None, None, fem.degree, vec, None, dc))
 
     # ------------------------------------------------------------------
     # lazy index arrays
@@ -340,10 +394,13 @@ class GridOperator:
             self.skel_groups.append(g)
 
     # -- mapped (multilinear) cube meshes ------------------------------------
-    def _mapped_cube_geometry(self, pts_ref, elements):
+    def _mapped_cube_geometry(self, pts_ref, elements=None):
         """Per-element Q1-map Jacobians at reference points on a mapped cube
-        mesh: J (F, q, d, d), detJ (F, q), for the given elements."""
-        corners = self.mesh.element_corner_coords()[elements]   # (F, C, d)
+        mesh: J (F, q, d, d), detJ (F, q), for the given elements (default:
+        all)."""
+        corners = self.mesh.element_corner_coords()
+        if elements is not None:
+            corners = corners[elements]                         # (F, C, d)
         _, dN = geometry_element("cube", self.mesh.dim).tabulate(pts_ref)
         J = np.einsum("eci,qcj->eqij", corners, dN)
         detJ = np.linalg.det(J)
@@ -352,16 +409,85 @@ class GridOperator:
                              "(flipped/degenerate elements)")
         return J, detJ
 
-    def _mapped_face_tabs(self, pts, invT):
+    def _mapped_face_tabs(self, pts, invT, elements):
         """Per-leaf per-face tabulations at embedded face points of a mapped
-        cube mesh (gradients transformed by the adjacent element's
+        cube mesh (gradients, or the Piola maps, by the adjacent element's
         Jacobians at those points)."""
         tabs = []
         for lf in self.leaves:
+            if lf.fem.continuity in ("Hdiv", "Hcurl"):
+                tabs.append(self._vector_tab(lf, pts, elements))
+                continue
             vals, gref = lf.fem.tabulate(pts)
             tabs.append((vals, np.einsum("fqij,qbj->fqbi", invT, gref), gref,
-                         lf.fem.degree))
+                         lf.fem.degree, None, None, None))
         return tabs
+
+    def _mapped_cube_piola(self, fem, pts_ref, elements=None):
+        """Contravariant Piola on multilinear cube elements: vec = J v_ref /
+        det J, div = div_ref / det J, exact for non-affine maps, so the
+        per-point Jacobians are all it needs. Orientation is the logical
+        lattice's, consistent without per-face signs because the map is
+        continuous and orientation preserving (det J > 0 is checked).
+        reference: raviartthomasfem.hh + common/geometrywrapper.hh."""
+        J, detJ = self._mapped_cube_geometry(pts_ref, elements)
+        vec = (np.einsum("eqij,qbj->eqbi", J, fem.tabulate_vector(pts_ref))
+               / detJ[:, :, None, None])
+        return vec, fem.tabulate_div(pts_ref)[None] / detJ[:, :, None]
+
+    def _mapped_cube_covariant(self, fem, pts_ref, elements=None):
+        """Covariant Piola (H(curl)) on multilinear cube elements: vec =
+        J^-T v_ref; curl = curl_ref / det J (2D scalar) or J curl_ref /
+        det J (3D vector), exact for general maps. reference:
+        edges0.5fem.hh + geometry wrappers."""
+        J, detJ = self._mapped_cube_geometry(pts_ref, elements)
+        invT = np.linalg.inv(J).transpose(0, 1, 3, 2)
+        vec = np.einsum("eqij,qbj->eqbi", invT, fem.tabulate_vector(pts_ref))
+        c_ref = fem.tabulate_curl(pts_ref)
+        if c_ref.ndim == 2:
+            return vec, c_ref[None] / detJ[:, :, None]
+        return vec, np.einsum("eqij,qbj->eqbi", J, c_ref) / detJ[:, :, None, None]
+
+    # -- affine simplices: Piola maps with the space's orientation signs -----
+    def _simplex_jacobians(self, elements):
+        """Affine Jacobians (E, d, d) in the P1 node order (node dim - i
+        moves xi_i) of `elements` (default: all)."""
+        cc = self.mesh.element_corner_coords()
+        if elements is not None:
+            cc = cc[elements]
+        dim = self.mesh.dim
+        return np.stack([cc[:, dim - i] - cc[:, 0] for i in range(dim)], axis=-1)
+
+    def _simplex_piola(self, lf, pts_ref, elements=None):
+        """Per-element contravariant Piola on affine simplices: vec (E, nqp,
+        nb, d) = sign J v_ref / det J, div = sign div_ref / det J, with the
+        global-normal signs of space._build_hdiv_map_simplex."""
+        fem = lf.fem
+        J = self._simplex_jacobians(elements)
+        detJ = np.linalg.det(J)
+        signs = lf._hdiv_signs if elements is None else lf._hdiv_signs[elements]
+        vec = (np.einsum("eij,qbj->eqbi", J, fem.tabulate_vector(pts_ref))
+               / detJ[:, None, None, None] * signs[:, None, :, None])
+        div = fem.tabulate_div(pts_ref)[None] / detJ[:, None, None] * signs[:, None, :]
+        return vec, div
+
+    def _simplex_covariant(self, lf, pts_ref, elements=None):
+        """Per-element covariant Piola on affine simplices (H(curl)): vec =
+        sign J^-T v_ref; curl = sign curl_ref / det J (2D) or sign J
+        curl_ref / det J (3D), with the global edge directions of
+        space._build_hcurl_map_simplex."""
+        fem = lf.fem
+        J = self._simplex_jacobians(elements)
+        detJ = np.linalg.det(J)
+        invT = np.swapaxes(np.linalg.inv(J), -1, -2)
+        signs = lf._hcurl_signs if elements is None else lf._hcurl_signs[elements]
+        vec = (np.einsum("eij,qbj->eqbi", invT, fem.tabulate_vector(pts_ref))
+               * signs[:, None, :, None])
+        c_ref = fem.tabulate_curl(pts_ref)
+        if c_ref.ndim == 2:
+            return vec, c_ref[None] / detJ[:, None, None] * signs[:, None, :]
+        return vec, (np.einsum("eij,qbj->eqbi", J, c_ref) / detJ[:, None, None, None]
+                     * signs[:, None, :, None])
 
     def _face_frame(self, g, pts, elements, n_ref):
         """Nanson's formula n dS = det J J^{-T} N dS_ref on the faces of
@@ -385,7 +511,7 @@ class GridOperator:
         n_ref[g.axis] = 2.0 * g.side - 1.0
         invT, area = self._face_frame(g, g.pts, elements, n_ref)
         g.h_in = np.asarray(self.vol_geo.cell_volume)[elements] / np.maximum(area, 1e-300)
-        g.tabs_in = self._mapped_face_tabs(g.pts, invT)
+        g.tabs_in = self._mapped_face_tabs(g.pts, invT, elements)
 
     def _mapped_skeleton_geometry(self, g, pts_out, ei, eo):
         """Two-sided face geometry on a mapped cube mesh: the shared face is
@@ -400,9 +526,10 @@ class GridOperator:
         cellvol = np.asarray(self.vol_geo.cell_volume)
         g.h_in = cellvol[ei] / np.maximum(area, 1e-300)
         g.h_out = cellvol[eo] / np.maximum(area, 1e-300)
-        g.tabs_in = self._mapped_face_tabs(g.pts, invT_in)
+        g.tabs_in = self._mapped_face_tabs(g.pts, invT_in, ei)
         J_out, _ = self._mapped_cube_geometry(pts_out, eo)
-        g.tabs_out = self._mapped_face_tabs(pts_out, np.linalg.inv(J_out).transpose(0, 1, 3, 2))
+        g.tabs_out = self._mapped_face_tabs(
+            pts_out, np.linalg.inv(J_out).transpose(0, 1, 3, 2), eo)
 
     # -- simplex meshes -------------------------------------------------------
     def _build_simplex_face_groups(self):
@@ -416,6 +543,8 @@ class GridOperator:
         fixes the local face."""
         mesh = self.mesh
         dim = mesh.dim
+        if any(lf.fem.continuity == "Hcurl" for lf in self.leaves):
+            raise NotImplementedError("simplex face integrals for H(curl) elements")
         qpf, wf = quadrature_rule("simplex", dim - 1, self.qorder)
         lam = np.concatenate([1.0 - qpf.sum(axis=1, keepdims=True), qpf], axis=1)
         # reference coordinates of local vertex v: the P1 geometry's node v
@@ -449,9 +578,12 @@ class GridOperator:
         def tabs_for(pts_ref, cellids):
             out = []
             for lf in self.leaves:
+                if lf.fem.continuity == "Hdiv":
+                    out.append(self._vector_tab(lf, pts_ref, cellids))
+                    continue
                 vals, gref = lf.fem.tabulate(pts_ref)
                 out.append((vals, np.einsum("fij,qbj->fqbi", jacT[cellids], gref),
-                            gref, lf.fem.degree))
+                            gref, lf.fem.degree, None, None, None))
             return out
 
         def transfers(el):
@@ -515,8 +647,12 @@ class GridOperator:
 
     @staticmethod
     def _leaf_tab(raws, t):
-        return tuple(LeafTab(phi=t(phi), grad=t(gphys), ref_grad=t(gref), degree=deg)
-                     for phi, gphys, gref, deg in raws)
+        def tn(a):
+            return None if a is None else t(a)
+
+        return tuple(LeafTab(phi=tn(phi), grad=tn(gphys), ref_grad=tn(gref), degree=deg,
+                             vec_phi=tn(vec), div=tn(dv), curl=tn(cl))
+                     for phi, gphys, gref, deg, vec, dv, cl in raws)
 
     def _volume_ctx(self, time, dtype, device) -> VolumeContext:
         vg = self.vol_geo

@@ -152,8 +152,10 @@ def _leaf_constraints(bctype, space: FunctionSpace) -> np.ndarray:
     callable evaluated at boundary DOF node coordinates (a float64 numpy
     array, as in the reference) returning a bool array (True = Dirichlet).
     """
-    if bctype is None or space.fem.continuity != "C0":
-        # DG boundary conditions are weak (face terms of the local operator)
+    if bctype is None or space.fem.continuity not in ("C0", "Mimetic"):
+        # nodal continuities take Dirichlet values by mask: C0 (vertex, edge
+        # and face nodes) and mimetic (face-centroid values); DG boundary
+        # conditions are weak (face terms of the local operator)
         return np.zeros(space.ndofs, dtype=bool)
     bmask = space.boundary_dof_mask()
     if bctype is True:

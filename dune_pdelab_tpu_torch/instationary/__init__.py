@@ -7,3 +7,6 @@ from dune_pdelab_tpu_torch.instationary.onestep import (  # noqa: F401
     CFLTimeController, ExplicitOneStepMethod, OneStepGridOperator, OneStepMethod,
     OneStepResult, StageContext, TimeControllerInterface,
 )
+from dune_pdelab_tpu_torch.instationary.differentiable import (  # noqa: F401
+    differentiable_theta_rollout,
+)

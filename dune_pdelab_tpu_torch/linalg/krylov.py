@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -163,45 +164,65 @@ def minres(A: Callable, b, x0=None, M: Callable = _identity, tol=1e-10,
     return x, SolverStats(it, defect <= target, defect0, defect)
 
 
+def _host_maximum(a, floor):
+    """_maximum of a numpy scalar and a floor of its type."""
+    if np.iscomplexobj(a):
+        keep = (a.real > floor.real) or (a.real == floor.real and a.imag > 0)
+    else:
+        keep = a > floor
+    return a if keep else floor
+
+
 def restarted_gmres(A: Callable, b, x0=None, M: Callable = _identity,
                     tol=1e-10, atol=0.0, maxiter=5000, restart=30,
                     dot=_default_dot):
     """Left-preconditioned restarted GMRES(m) with modified Gram-Schmidt
     (ISTL RestartedGMResSolver analog; note ISTL uses right preconditioning —
-    convergence is measured here on the preconditioned residual)."""
+    convergence is measured here on the preconditioned residual).
+
+    The Gram-Schmidt coefficients come to the host once per iteration (the
+    stop test's sync), and the Givens rotations of the small Hessenberg
+    system run there in numpy scalars of b's dtype, operation for operation
+    as the reference's, instead of as O(j) tiny kernels per iteration. For
+    real dtypes every operation is IEEE-rounded, as on the card. The
+    upper-triangular solve runs on b's device."""
     x = torch.zeros_like(b) if x0 is None else x0
     m = restart
     defect0 = _norm(dot, M(b - A(x)))
-    target = torch.clamp_min(tol * defect0, atol)
+    target = float(torch.clamp_min(tol * defect0, atol))
     tiny = 1e-300 if b.dtype == torch.float64 else 1e-30
-    small = dict(dtype=b.dtype, device=b.device)
+    np_dtype = torch.empty((), dtype=b.dtype).numpy().dtype
+    tiny_h = np_dtype.type(tiny)
 
     def arnoldi_cycle(x):
         r = M(b - A(x))
         beta = _norm(dot, r)
         V = [r / torch.clamp_min(beta, tiny)]
-        H = torch.zeros((m + 1, m), **small)
-        g = torch.zeros(m + 1, **small)
-        g[0] = beta
-        cs = torch.zeros(m, **small)
-        sn = torch.zeros(m, **small)
+        H = np.zeros((m + 1, m), np_dtype)
+        g = np.zeros(m + 1, np_dtype)
+        g[0] = beta.item()
+        cs = np.zeros(m, np_dtype)
+        sn = np.zeros(m, np_dtype)
         j = 0
-        while j < m and bool(g[j].abs() > target):
+        while j < m and abs(g[j]) > target:
             w = M(A(V[j]))
-            h = torch.zeros(m + 1, **small)
+            hs = []
             for i in range(j + 1):                    # modified Gram-Schmidt
-                h[i] = dot(V[i], w)
-                w = w - h[i] * V[i]
+                hi = dot(V[i], w)
+                w = w - hi * V[i]
+                hs.append(hi)
             hnext = _norm(dot, w)
-            h[j + 1] = hnext
+            hs.append(hnext.to(b.dtype))
             V.append(w / torch.clamp_min(hnext, tiny))
+            h = np.zeros(m + 1, np_dtype)
+            h[:j + 2] = torch.stack(hs).cpu().numpy()
             for i in range(j):                        # earlier Givens rotations
                 hi = cs[i] * h[i] + sn[i] * h[i + 1]
                 h[i + 1] = -sn[i] * h[i] + cs[i] * h[i + 1]
                 h[i] = hi
-            denom = torch.sqrt(h[j] ** 2 + h[j + 1] ** 2)
-            c = h[j] / _maximum(denom, tiny)
-            s = h[j + 1] / _maximum(denom, tiny)
+            denom = np.sqrt(h[j] * h[j] + h[j + 1] * h[j + 1])
+            c = h[j] / _host_maximum(denom, tiny_h)
+            s = h[j + 1] / _host_maximum(denom, tiny_h)
             h[j], h[j + 1] = denom, 0.0
             g[j + 1] = -s * g[j]
             g[j] = c * g[j]
@@ -209,13 +230,15 @@ def restarted_gmres(A: Callable, b, x0=None, M: Callable = _identity,
             cs[j], sn[j] = c, s
             j += 1
         # only the j used columns enter the upper-triangular solve
-        y = torch.linalg.solve_triangular(H[:j, :j], g[:j, None], upper=True)[:, 0]
+        Hd = torch.from_numpy(H).to(b.device)
+        gd = torch.from_numpy(g).to(b.device)
+        y = torch.linalg.solve_triangular(Hd[:j, :j], gd[:j, None], upper=True)[:, 0]
         for i in range(j):
             x = x + y[i] * V[i]
-        return x, g[j].abs(), j
+        return x, abs(g[j]), j
 
-    it, defect = 0, defect0
-    while it < maxiter and bool(defect > target):
+    it, defect = 0, float(defect0)
+    while it < maxiter and defect > target:
         x, defect, jstop = arnoldi_cycle(x)
         it += jstop
     defect = _norm(dot, M(b - A(x)))

@@ -30,3 +30,7 @@ from dune_pdelab_tpu_torch.ops.darcy import (  # noqa: F401
     DarcyVelocityFromHeadCCFV, DarcyVelocityFromHeadFEM, darcy_velocity_at_quadrature,
     diagonal_permeability_field, permeability_field,
 )
+from dune_pdelab_tpu_torch.ops.diffusionmixed import DiffusionMixed  # noqa: F401
+from dune_pdelab_tpu_torch.ops.electrodynamic import (  # noqa: F401
+    CurlCurl, CurlCurlParameters,
+)

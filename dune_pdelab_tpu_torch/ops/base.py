@@ -28,13 +28,18 @@ class LeafTab:
     """Per-leaf basis data at a set of reference points.
 
     On uniform meshes the element axis of `grad` is 1 (shared by every
-    element).
+    element). H(div) and H(curl) leaves carry Piola-mapped values instead of
+    phi/grad: shared (nqp, nb, dim) tensors on a uniform mesh, per-element
+    (E, nqp, nb, dim) ones on a mapped or simplex mesh.
     """
 
     phi: Any          # (nqp, nb)
     grad: Any         # (Eb, nqp, nb, dim) physical gradients
     ref_grad: Any     # (nqp, nb, dim) reference gradients
     degree: int = 1
+    vec_phi: Any = None   # H(div)/H(curl): (nqp, nb, dim) mapped values
+    div: Any = None       # H(div): (nqp, nb) physical divergence
+    curl: Any = None      # H(curl): (nqp, nb) in 2D, (nqp, nb, 3) in 3D
 
 
 @dataclass(frozen=True)
@@ -153,6 +158,61 @@ class LocalOperator:
         if tab.grad.shape[0] == 1:
             return torch.einsum("qbd,eqd->eb", tab.grad[0], wv)
         return torch.einsum("eqbd,eqd->eb", tab.grad, wv)
+
+    # -- H(div) vector-element helpers: vec_phi/div carry a leading element
+    #    axis on mapped and simplex meshes (per-element Piola) ---------------
+    @staticmethod
+    def hdiv_value_at_qp(tab: LeafTab, u):
+        """Vector value of an H(div) (or H(curl)) field: (E, nloc) -> (E, nqp, dim)."""
+        if tab.vec_phi.ndim == 4:
+            return torch.einsum("eqbd,eb->eqd", tab.vec_phi, u)
+        return torch.einsum("qbd,eb->eqd", tab.vec_phi, u)
+
+    @staticmethod
+    def div_at_qp(tab: LeafTab, u):
+        """Divergence of an H(div) field: (E, nloc) -> (E, nqp)."""
+        if tab.div.ndim == 3:
+            return torch.einsum("eqb,eb->eq", tab.div, u)
+        return torch.einsum("qb,eb->eq", tab.div, u)
+
+    @staticmethod
+    def accumulate_hdiv(tab: LeafTab, factor, wvec):
+        """sum_q wvec(E,nqp,dim) . phi_i * factor -> (E, nloc)."""
+        wv = wvec * factor[..., None]
+        if tab.vec_phi.ndim == 4:
+            return torch.einsum("eqbd,eqd->eb", tab.vec_phi, wv)
+        return torch.einsum("qbd,eqd->eb", tab.vec_phi, wv)
+
+    @staticmethod
+    def accumulate_div(tab: LeafTab, factor, w):
+        """sum_q w(E,nqp) * div phi_i * factor -> (E, nloc)."""
+        if tab.div.ndim == 3:
+            return torch.einsum("eqb,eq->eb", tab.div, w * factor)
+        return torch.einsum("qb,eq->eb", tab.div, w * factor)
+
+    # -- H(curl) edge-element helpers: a per-element tab is told by
+    #    vec_phi.ndim == 4 (the curl's shape alone is ambiguous for nb == 3)
+    @staticmethod
+    def curl_at_qp(tab: LeafTab, u):
+        """Curl of an H(curl) field: (E, nqp) in 2D, (E, nqp, 3) in 3D."""
+        if tab.vec_phi is not None and tab.vec_phi.ndim == 4:
+            if tab.curl.ndim == 3:
+                return torch.einsum("eqb,eb->eq", tab.curl, u)
+            return torch.einsum("eqbd,eb->eqd", tab.curl, u)
+        if tab.curl.ndim == 2:
+            return torch.einsum("qb,eb->eq", tab.curl, u)
+        return torch.einsum("qbd,eb->eqd", tab.curl, u)
+
+    @staticmethod
+    def accumulate_curl(tab: LeafTab, factor, w):
+        """Dual of curl_at_qp: weight w (E, nqp[, 3]) -> (E, nloc)."""
+        if tab.vec_phi is not None and tab.vec_phi.ndim == 4:
+            if tab.curl.ndim == 3:
+                return torch.einsum("eqb,eq->eb", tab.curl, w * factor)
+            return torch.einsum("eqbd,eqd->eb", tab.curl, w * factor[..., None])
+        if tab.curl.ndim == 2:
+            return torch.einsum("qb,eq->eb", tab.curl, w * factor)
+        return torch.einsum("qbd,eqd->eb", tab.curl, w * factor[..., None])
 
 
 class CombinedOperator(LocalOperator):

@@ -160,8 +160,12 @@ class TaylorHoodNavierStokes(LocalOperator):
         and DO_NOTHING faces contribute nothing."""
         dim = ctx.x.shape[-1]
         tab_v = ctx.tabs[0]
-        bct = torch.broadcast_to(torch.as_tensor(self.params.bctype(ctx.x),
-                                                 device=ctx.x.device), ctx.x.shape[:-1])
+        bct = self.params.bctype(ctx.x)
+        # a Python code is filled on the device (no host copy, so a residual
+        # can be captured into a CUDA graph)
+        bct = (torch.full(ctx.x.shape[:-1], bct, device=ctx.x.device) if isinstance(bct, int)
+               else torch.broadcast_to(torch.as_tensor(bct, device=ctx.x.device),
+                                       ctx.x.shape[:-1]))
         n = _field(ctx.normal, ctx.factor, ctx.x.shape)
         jv = _field(self.params.j(ctx.x, n), ctx.factor, ctx.x.shape)
         sel = bct == StokesBC.STRESS_NEUMANN

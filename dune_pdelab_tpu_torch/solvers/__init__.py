@@ -16,3 +16,6 @@ from dune_pdelab_tpu_torch.solvers.utilities import (  # noqa: F401
 from dune_pdelab_tpu_torch.solvers.direct import (  # noqa: F401
     DirectSolverBackend, SEQ_SuperLU, SEQ_UMFPack, SparseLU,
 )
+from dune_pdelab_tpu_torch.solvers.differentiable import (  # noqa: F401
+    differentiable_stationary_solve, implicit_solve, opaque_forward, parametric_residual,
+)

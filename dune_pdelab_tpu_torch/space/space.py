@@ -7,7 +7,11 @@ last DOF plane onto the first), Q1 on the vertices of an AdaptiveMesh
 numbered element-major, DOF e*nb + j for local basis function j of element
 e, and continuous Pk on a simplex mesh, numbered [vertices | edge
 interiors | face interiors | cell interiors] (`_build_simplex_c0_map`).
-H(div) and H(curl) layouts wait for ROADMAP slice 13.
+H(div) and mimetic leaves number their DOFs on faces (`_build_hdiv_map`:
+per axis a face lattice on cubes, the unique-face list with per-element
+orientation signs on simplices), H(curl) leaves on edges
+(`_build_hcurl_map`), with the reference's numbering, so vectors carry
+across between the packages.
 
 Composite spaces (reference: powergridfunctionspace.hh /
 compositegridfunctionspace.hh, e.g. Taylor-Hood = Composite(Power<dim>(Q2),
@@ -56,10 +60,8 @@ class FunctionSpace:
     def __init__(self, mesh: StructuredMesh, fem: FiniteElement, name: str = ""):
         if fem.geometry != mesh.geometry_type:
             raise ValueError(f"{fem} does not fit mesh geometry {mesh.geometry_type}")
-        if fem.continuity not in ("C0", "DG"):
-            raise NotImplementedError(
-                f"{fem.continuity} spaces are not ported yet (H(div)/H(curl): "
-                "ROADMAP slice 13)")
+        if fem.continuity not in ("C0", "DG", "Hdiv", "Mimetic", "Hcurl"):
+            raise ValueError(f"unknown continuity {fem.continuity!r}")
         self.mesh = mesh
         self.fem = fem
         self.name = name
@@ -73,6 +75,13 @@ class FunctionSpace:
             self._element_dofs = np.asarray(mesh.element_vertex_indices(), np.int64)
             self._dof_grid_dims = None
             self.ndofs = mesh.nvertices
+        elif fem.continuity in ("Hdiv", "Mimetic", "Hcurl"):
+            # mimetic face elements share the H(div) face numbering (scalar
+            # face DOFs, no orientation signs on cubes)
+            self._element_dofs = (self._build_hcurl_map() if fem.continuity == "Hcurl"
+                                  else self._build_hdiv_map()).astype(np.int64)
+            self._dof_grid_dims = None
+            self.ndofs = int(self._element_dofs.max()) + 1
         elif fem.continuity == "DG":
             self._dof_grid_dims = None
             self.ndofs = mesh.nelements * fem.nbasis
@@ -202,6 +211,161 @@ class FunctionSpace:
     def boundary_dof_mask(self) -> np.ndarray:
         """(ndofs,) bool mask of DOFs on the domain boundary."""
         return _leaf_boundary_dof_mask(self)
+
+    # -- face and edge DOF maps (H(div), mimetic, H(curl)) -------------------
+    def _face_lattice_dims(self):
+        """Per axis a: the lattice of faces normal to a, (cells[a] + 1 along
+        a, or cells[a] on a periodic axis) x cells[d] transverse."""
+        mesh = self.mesh
+        return [tuple((c if mesh.periodic[d] else c + 1) if d == a else c
+                      for d, c in enumerate(mesh.cells)) for a in range(mesh.dim)]
+
+    def _build_hdiv_map(self):
+        """Face-based DOF map of an H(div) or mimetic element.
+
+        Cubes: per axis a lattice of the faces normal to it, numbered
+        lexicographically (dim 0 fastest), axis after axis, m DOFs per face;
+        element-local DOFs in (axis, side[, moment]) order, then the
+        element-private interior DOFs (RT1 and up) after all face DOFs.
+        Simplices: `_build_hdiv_map_simplex`."""
+        mesh, fem = self.mesh, self.fem
+        if mesh.geometry_type == "simplex":
+            return self._build_hdiv_map_simplex()
+        dim = mesh.dim
+        m = getattr(fem, "ndofs_per_face", 1)
+        emi = mesh.element_multi_index()                  # (E, dim)
+        face_dims = self._face_lattice_dims()
+        offsets = np.concatenate([[0], np.cumsum([int(np.prod(fd)) * m
+                                                  for fd in face_dims])])
+        cols = []
+        for a in range(dim):
+            fd = face_dims[a]
+            strides = np.cumprod((1,) + fd[:-1]).astype(np.int64)
+            for s in (0, 1):
+                g = emi.copy()
+                g[:, a] = (g[:, a] + s) % fd[a]           # wraps on a periodic axis
+                fidx = g @ strides
+                for k in range(m):
+                    cols.append(offsets[a] + fidx * m + k)
+        ni = getattr(fem, "ndofs_interior", 0)
+        if ni:
+            eidx = np.arange(mesh.nelements, dtype=np.int64)
+            for k in range(ni):
+                cols.append(offsets[-1] + eidx * ni + k)
+        return np.stack(cols, axis=1)
+
+    def _build_hdiv_map_simplex(self):
+        """Face DOFs on the unique-face list of SimplexMesh.faces(), m per
+        face, then the element-private interior DOFs. The global orientation
+        of a face is the outward normal of its first-occurrence owner cell;
+        it enters as per-element diagonal signs `_hdiv_signs` (E, nbasis):
+        sigma for the even moments, sigma * tau for the tangent-odd ones,
+        with sign(det J) of the affine map folded in (the RT0Constraints
+        orientation, reference: dune/pdelab/constraints/raviartthomas0.hh)."""
+        mesh, fem = self.mesh, self.fem
+        m = getattr(fem, "ndofs_per_face", 1)
+        uniq, face_of, _ = mesh.faces()
+        E = mesh.nelements
+        d1 = mesh.dim + 1
+        if m > 1 and mesh.dim != 2:
+            raise NotImplementedError(
+                "tangent-odd face moments (BDM) on simplices: 2D only")
+        # first-occurrence owner of each unique face (the `inside` cell of
+        # SimplexMesh.interior_faces)
+        flat = face_of.ravel()
+        order = np.argsort(flat, kind="stable")
+        starts = np.searchsorted(flat[order], np.arange(len(uniq)))
+        owner_cell = order[starts] // d1
+        owner_loc = order[starts] % d1
+        locs = np.array([[v for v in range(d1) if v != lf] for lf in range(d1)])
+        cc = mesh.element_corner_coords()
+        # affine Jacobian columns in P1 node order (node dim - i moves xi_i)
+        J = np.stack([cc[:, d1 - 1 - i] - cc[:, 0] for i in range(mesh.dim)], axis=-1)
+        sdet = np.sign(np.linalg.det(J))
+        eidx = np.arange(E)
+        cols, signs = [], []
+        for lf in range(d1):
+            fid = face_of[:, lf]
+            sigma = np.where((owner_cell[fid] == eidx) & (owner_loc[fid] == lf),
+                             1.0, -1.0) * sdet
+            if m > 1:
+                la, lb = locs[lf]
+                tau = np.where(mesh.cells[:, la] < mesh.cells[:, lb], 1.0, -1.0)
+            for k in range(m):
+                cols.append(fid * m + k)
+                signs.append(sigma if k % 2 == 0 else sigma * tau)
+        # interior DOFs carry no orientation sign
+        ni = getattr(fem, "ndofs_interior", 0)
+        for k in range(ni):
+            cols.append(len(uniq) * m + eidx * ni + k)
+            signs.append(np.ones(E))
+        self._hdiv_signs = np.stack(signs, axis=1)
+        return np.stack(cols, axis=1).astype(np.int64)
+
+    def _build_hcurl_map(self):
+        """Edge-based DOF map of a Nedelec element: per edge direction a, a
+        lexicographic lattice of edges (cells[a] along a, cells[d] + 1
+        transverse, cells[d] on a periodic axis), axis after axis;
+        element-local ordering as N0Cube.edges. Simplices:
+        `_build_hcurl_map_simplex`."""
+        mesh, fem = self.mesh, self.fem
+        if mesh.geometry_type == "simplex":
+            return self._build_hcurl_map_simplex()
+        dim = mesh.dim
+        emi = mesh.element_multi_index()
+        edge_dims, offsets, off = [], [], 0
+        for a in range(dim):
+            ed = tuple(c if d == a or mesh.periodic[d] else c + 1
+                       for d, c in enumerate(mesh.cells))
+            edge_dims.append(ed)
+            offsets.append(off)
+            off += int(np.prod(ed))
+        cols = []
+        for a, tdims, bits in fem.edges:
+            ed = edge_dims[a]
+            strides = np.cumprod((1,) + ed[:-1]).astype(np.int64)
+            g = emi.copy()
+            for td, bit in zip(tdims, bits):
+                g[:, td] = (g[:, td] + bit) % ed[td]
+            cols.append(offsets[a] + g @ strides)
+        self._hcurl_edge_dims = edge_dims
+        self._hcurl_offsets = offsets
+        return np.stack(cols, axis=1)
+
+    def _build_hcurl_map_simplex(self):
+        """Whitney elements: the unique-edge list is the DOF set; per-element
+        diagonal signs `_hcurl_signs` give the global edge direction
+        (ascending global vertex id, the EdgeS0.5 convention)."""
+        mesh = self.mesh
+        _, cell_edges = mesh.edges()
+        signs = np.ones(cell_edges.shape)
+        for lf, (a, b) in enumerate(mesh._edge_pairs):
+            signs[:, lf] = np.where(mesh.cells[:, a] < mesh.cells[:, b], 1.0, -1.0)
+        self._hcurl_signs = signs
+        return np.asarray(cell_edges, np.int64)
+
+    def boundary_edge_mask(self) -> np.ndarray:
+        """(ndofs,) bool: the edges in a non-periodic boundary face of the
+        domain (the essential n x u = 0 constraints of an H(curl) space)."""
+        if self.fem.continuity != "Hcurl":
+            raise ValueError("boundary_edge_mask is for H(curl) spaces")
+        mesh = self.mesh
+        if mesh.geometry_type == "simplex":
+            return mesh.boundary_edge_mask()
+        dim = mesh.dim
+        mask = np.zeros(self.ndofs, dtype=bool)
+        for a in range(dim):
+            ed = self._hcurl_edge_dims[a]
+            n_a = int(np.prod(ed))
+            g = np.arange(n_a, dtype=np.int64)
+            onb = np.zeros(n_a, dtype=bool)
+            for d in range(dim):
+                md = g % ed[d]
+                g = g // ed[d]
+                if d != a and not mesh.periodic[d]:
+                    onb |= (md == 0) | (md == ed[d] - 1)
+            mask[self._hcurl_offsets[a]:self._hcurl_offsets[a] + n_a] = onb
+        return mask
 
     # -- tree protocol shared with CompositeSpace (used by the assembler) ------
     @property
@@ -517,7 +681,16 @@ def _leaf_boundary_dof_mask(space: FunctionSpace) -> np.ndarray:
     Face-slice writes on the nd view: O(surface) work, no O(N) index
     arithmetic.
     """
-    if space.mesh.geometry_type == "simplex" and space.fem.continuity == "C0":
+    cont = space.fem.continuity
+    if cont in ("Hdiv", "Hcurl") and space.mesh.geometry_type == "simplex":
+        # the reference's simplex branch returns a Pk vertex/edge mask here,
+        # which does not index face or edge DOFs
+        raise NotImplementedError(
+            f"boundary_dof_mask of a simplex {cont} space (H(curl): use "
+            "boundary_edge_mask)")
+    if cont in ("Hdiv", "Mimetic"):
+        return _face_boundary_dof_mask(space)
+    if space.mesh.geometry_type == "simplex" and cont == "C0":
         return _simplex_boundary_dof_mask(space)
     if hasattr(space.mesh, "hanging_constraints"):      # AdaptiveMesh (Q1)
         return space.mesh.boundary_vertex_mask()
@@ -557,4 +730,22 @@ def _simplex_boundary_dof_mask(space: FunctionSpace) -> np.ndarray:
         fm = mesh.boundary_face_mask()
         nfi = (k - 1) * (k - 2) // 2
         mask[base:base + len(fm) * nfi] = np.repeat(fm, nfi)
+    return mask
+
+
+def _face_boundary_dof_mask(space: FunctionSpace) -> np.ndarray:
+    """Boundary DOFs of a face-numbered (H(div), mimetic) cube space: the
+    faces at the extreme index along their own, non-periodic, axis."""
+    mesh = space.mesh
+    m = getattr(space.fem, "ndofs_per_face", 1)
+    mask = np.zeros(space.ndofs, dtype=bool)
+    off = 0
+    for a, fd in enumerate(space._face_lattice_dims()):
+        n_a = int(np.prod(fd))
+        if not mesh.periodic[a]:
+            fa = np.unravel_index(np.arange(n_a), fd, order="F")[a]
+            bnd = np.nonzero((fa == 0) | (fa == mesh.cells[a]))[0]
+            for k in range(m):
+                mask[off + bnd * m + k] = True
+        off += n_a * m
     return mask

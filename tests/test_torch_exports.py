@@ -7,7 +7,7 @@ of its modules (`from dune_pdelab_tpu.X.Y import a` or a submodule
 counterpart module (dune_pdelab_tpu_torch/X/Y.py). If it has, the name
 must import from the port's counterpart of the same subpackage; if it has
 not, the name must be in EXPECTED_MISSING, the names of the modules still
-to port (ROADMAP Queue 1: slices 12, 13b, 13c and 13d). Every name in
+to port (ROADMAP Queue 1: slices 12 and 13d). Every name in
 EXPECTED_MISSING must still be missing, so the list shrinks with each
 ported module.
 """
@@ -24,16 +24,6 @@ REF, PORT = "dune_pdelab_tpu", "dune_pdelab_tpu_torch"
 
 # (reference subpackage, name): modules not ported yet
 EXPECTED_MISSING = {
-    # 13b: H(div) and H(curl) operators
-    ("dune_pdelab_tpu.ops", "DiffusionMixed"),
-    ("dune_pdelab_tpu.ops", "CurlCurl"),
-    ("dune_pdelab_tpu.ops", "CurlCurlParameters"),
-    # 13c: differentiable solves and rollouts
-    ("dune_pdelab_tpu.instationary", "differentiable_theta_rollout"),
-    ("dune_pdelab_tpu.solvers", "parametric_residual"),
-    ("dune_pdelab_tpu.solvers", "implicit_solve"),
-    ("dune_pdelab_tpu.solvers", "opaque_forward"),
-    ("dune_pdelab_tpu.solvers", "differentiable_stationary_solve"),
     # 12: parallel
     *{("dune_pdelab_tpu.parallel", n) for n in (
         "ShardedGridOperator", "ShardedContextMixin", "WindowShardedGridOperator",

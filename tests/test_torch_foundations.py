@@ -194,9 +194,11 @@ def test_device_key_normalises_cuda_spellings():
 def test_unported_mesh_options_raise():
     """Periodic and mapped StructuredMesh construct (tests/
     test_torch_mapped.py holds them against the JAX package); a bad
-    coordinate array raises, and the H(curl) spaces whose covariant Piola
-    map serves mapped meshes name ROADMAP slice 13."""
+    coordinate array raises; an H(curl) space builds on a mapped mesh (its
+    covariant Piola map, ROADMAP slice 13b; tests/test_torch_hcurl.py holds
+    it against the JAX package) and an unknown continuity raises."""
     from dune_pdelab_tpu_torch.fe.basis import FiniteElement
+    from dune_pdelab_tpu_torch.fe.hcurl import N0Cube
 
     m = tpt.StructuredMesh([0, 0], [1, 1], (4, 4), periodic=(True, False))
     assert m.periodic == (True, False) and m.nvertices == 4 * 5
@@ -209,11 +211,14 @@ def test_unported_mesh_options_raise():
     with pytest.raises(ValueError, match="coords must cover"):
         tpt.StructuredMesh([0, 0], [1, 1], (1, 1), coords=np.zeros((3, 2)))
 
-    class Nedelec(FiniteElement):
-        geometry, continuity, dim, degree, nbasis, nodes = "cube", "Hcurl", 2, 1, 4, None
+    Ve = tpt.FunctionSpace(mapped, N0Cube(2))
+    assert Ve.ndofs == 4 and Ve.boundary_edge_mask().all()
 
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        tpt.FunctionSpace(mapped, Nedelec())
+    class Unknown(FiniteElement):
+        geometry, continuity, dim, degree, nbasis, nodes = "cube", "L2 only", 2, 1, 4, None
+
+    with pytest.raises(ValueError, match="continuity"):
+        tpt.FunctionSpace(mapped, Unknown())
 
 
 def test_lazy_mesh_and_space_at_scale():

@@ -242,10 +242,9 @@ def test_fast_paths_decline_simplex():
 
 def test_simplex_faces_and_stubs_raise():
     """Face kernels build on a simplex mesh (skip_boundary is no longer
-    needed), submesh and bisection run; the native MSH reader and the
-    H(div)/H(curl) spaces whose Piola maps serve simplex and mapped meshes
-    name ROADMAP slice 13."""
-    from dune_pdelab_tpu_torch.fe.basis import FiniteElement
+    needed), submesh and bisection run; the native MSH reader names ROADMAP
+    slice 13; an H(div) space builds on triangles."""
+    from dune_pdelab_tpu_torch.fe.hdiv import RT0Simplex2D
 
     _, tV = _spaces(2, 3, 1)
     go = tpt.GridOperator(tV, TFEM(TSrc()), constraints=tpt.constraints(True, tV))
@@ -260,10 +259,11 @@ def test_simplex_faces_and_stubs_raise():
     assert nv == tm.nvertices and len(mids) == len(ends) > 0
     assert fine.nelements >= 2 * tm.nelements and len(fine.parent_cells) == fine.nelements
 
-    class RT(FiniteElement):
-        geometry, continuity, dim, degree, nbasis, nodes = "simplex", "Hdiv", 2, 1, 3, None
-
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        tpt.FunctionSpace(tm, RT())
+    # H(div) on simplices (slice 13b): one DOF per unique face, signed per
+    # element; its boundary_dof_mask raises (tests/test_torch_hdiv.py)
+    V_rt = tpt.FunctionSpace(tm, RT0Simplex2D())
+    assert V_rt.ndofs == len(tm.faces()[0]) and set(np.unique(V_rt._hdiv_signs)) == {-1.0, 1.0}
+    with pytest.raises(NotImplementedError, match="boundary_dof_mask"):
+        V_rt.boundary_dof_mask()
     with pytest.raises(ValueError, match="geometry"):
         tpt.FunctionSpace(tm, tpt.QkFEM(1, 2))
