@@ -181,13 +181,26 @@ Phases (each passes or raises; there is no CPU path):
      forward and backward seconds and adjoint Krylov iterations; (f)
      residual and J.v of every new operator at 8^2 / 4^3 on the card against
      the CPU (1e-12) and in fp32 against fp64 (1e-5).
+ 15. slice 12, parallel/ with one process per rank on the card
+     (dune_pdelab_tpu_torch.parallel.launch): (a) the DOF-sharded stencil
+     apply (stencil27 on each rank's halo-extended block; a 1D rank mesh and
+     (2, 2)) against the sequential apply and ShardedLatticeGMG-CG at 256^3
+     cells in fp32 (the sequential LatticeGMG-CG's iterations on one NCCL
+     rank, within 1 on four gloo ranks sharing the card, the true defect);
+     (b) the config8 golden on eight ranks and a 256^2 SIPG residual and J.v
+     on four ranks against the one-rank operator (fp64); (c) ShardedAMG-CG
+     on phase 11b's simplex P1 problem at 1024^2 on four ranks against one
+     (fp64). Each sub-phase logs its wall seconds, rank 0's seconds and bytes
+     of communication and the ranks' stencil27 launches, which the ranks
+     count in their own processes and this process adds to its count.
 
-Launch counts are set to 0 before each of phases 3 to 14 and read after
+Launch counts are set to 0 before each of phases 3 to 15 and read after
 it; a kernel of that path that was never launched fails the run (the
-comparison launches of phases 6a, 6c, 7a, 9a, 9c and 13k are not counted).
-Prints phase results and times, the card's name and power limit, one JSON
-line {"kernels": [...]} with each kernel's launches over phases 3-14,
-error, times and bound, and as its last line {"ok": true, "device": {...}}.
+comparison launches of phases 6a, 6c, 7a, 9a, 9c, 13k and 15a are not
+counted). Prints phase results and times, the card's name and power limit,
+one JSON line {"kernels": [...]} with each kernel's launches over phases
+3-15, error, times and bound, and as its last line {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -395,6 +408,19 @@ P14_SMALL = 8                   # 14f: 8^2 (4^3 in 3D)
 P14_CASES = ("mixed-RT0", "mixed-BDM1", "mixed-RT1", "mixed-RT2", "mixed-RT0tri",
              "mixed-BDM1tri", "mixed-RT0tet", "mixed-annulus", "curl-cube2", "curl-cube3",
              "curl-simplex2", "curl-simplex3", "mfd")
+# phase 15 (slice 12, parallel/): ranks on the one card, one process each
+P15_CELLS = 256           # 15a: 3D Q1 Poisson, 257^3 = 16,974,593 DOFs, fp32
+P15_RANKS = 4             # 15a/15b/15c: ranks sharing the card over gloo
+P15_GMG_TOL = 1e-8        # 15a: GMG-CG recurrence reduction (phase 5a's)
+P15_TRUE_REL = 1e-5       # 15a: fp32 true relative defect after GMG-CG
+P15_GATHER_BELOW = 32 ** 3   # 15a: levels below this many DOFs run replicated
+# 15a: the sharded apply against the sequential one (fp32, of max|y|): the
+# same taps and order of sums reach every interior point, so any difference
+# is a fault; the bound allows fp32 rounding of a reordered sum anyway
+P15_APPLY_REL = 1e-6
+P15_DG_CELLS = 256        # 15b: 256^2 degree-1 SIPG, 262,144 DOFs, fp64
+P15_DG_REL = 1e-12        # 15b: sharded residual and J.v against one rank's (fp64)
+P15_AMG_CELLS = 1024      # 15c: phase 11b's simplex P1 problem, 1,050,625 DOFs, fp64
 CARD = "card not read yet"   # nvidia-smi name and power limit, set by main()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -2692,14 +2718,11 @@ def cavity_newton(torch, pt, dev):
         raise AssertionError("phase 10d: the cavity Newton solve failed")
 
 
-def dg_navier_stokes(torch, pt, dev):
-    """Phase 10d (2): DGNavierStokes of tests/test_dgstokes.py:20-43 (Q2dg/Q1dg,
-    one pinned pressure DOF) at DGNS_CELLS^2, fp64. The residual and J.v at
-    a seeded x on the card against the same operator on the CPU; then
-    DGNS_GMRES_ITS iterations of block-Jacobi GMRES (one cycle, from zero)
-    on the card and on the CPU, whose reductions must agree: a converged
-    solve takes block-Jacobi GMRES thousands of iterations at this size,
-    each one general-jvp DG apply."""
+def dgns_run(torch, pt, dev):
+    """10d's DGNavierStokes work on dev: the residual and J.v at a seeded x
+    (numpy), then DGNS_GMRES_ITS iterations of block-Jacobi GMRES from zero:
+    (residual, J.v, iterations, preconditioned reduction, true reduction,
+    wall s, N)."""
     import numpy as np
     from dune_pdelab_tpu_torch.ops import DGNavierStokes, NavierStokesParameters
     from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
@@ -2711,32 +2734,52 @@ def dg_navier_stokes(torch, pt, dev):
     mask[int(W.child_global(1, np.array([0]))[0])] = True
     go = pt.GridOperator(W, DGNavierStokes(stokes_params(NavierStokesParameters, stokes_f2d)),
                          constraints=pt.DirichletConstraints(mask, device=dev))
-    cpu = torch.device("cpu")
     rng = np.random.default_rng(12)
-    x_np, z_np = rng.standard_normal(W.ndofs), rng.standard_normal(W.ndofs)
-    errs = {}
-    for name, fn in (("residual", lambda x, z: go.residual(x)),
-                     ("J.v", lambda x, z: go.jacobian_apply(x, z))):
-        card = fn(torch.as_tensor(x_np, device=dev), torch.as_tensor(z_np, device=dev)).cpu()
-        host = fn(torch.from_numpy(x_np), torch.from_numpy(z_np))
-        errs[name] = float((card - host).abs().max() / host.abs().max())
-    runs = {}
-    for where in (dev, cpu):
-        ls = LinearSolverBackend(solver="gmres", precond="block_jacobi",
-                                 restart=DGNS_GMRES_ITS, maxiter=DGNS_GMRES_ITS)
-        x0 = W.zero(torch.float64, where)
-        b = go.residual(x0)
-        (z, st), wall = timed(torch, lambda: ls.solve(go, x0, b, 1e-9))
-        true = float(torch.linalg.norm(go.residual(x0 - z)) / torch.linalg.norm(b))
-        runs[where.type] = (int(st.iterations), float(st.reduction), true, wall)
-    (its, red, true, wall), (its_c, red_c, true_c, wall_c) = runs[dev.type], runs["cpu"]
+    x = torch.as_tensor(rng.standard_normal(W.ndofs), device=dev)
+    z = torch.as_tensor(rng.standard_normal(W.ndofs), device=dev)
+    r, jv = go.residual(x).cpu().numpy(), go.jacobian_apply(x, z).cpu().numpy()
+    ls = LinearSolverBackend(solver="gmres", precond="block_jacobi",
+                             restart=DGNS_GMRES_ITS, maxiter=DGNS_GMRES_ITS)
+    x0 = W.zero(torch.float64, dev)
+    b = go.residual(x0)
+    t0 = time.perf_counter()
+    zz, st = ls.solve(go, x0, b, 1e-9)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    true = float(torch.linalg.norm(go.residual(x0 - zz)) / torch.linalg.norm(b))
+    return r, jv, int(st.iterations), float(st.reduction), true, wall, W.ndofs
+
+
+def dgns_cpu(group):
+    """dgns_run on the CPU, in a process of its own (cpu_aside)."""
+    import torch
+    import dune_pdelab_tpu_torch as pt
+    return dgns_run(torch, pt, torch.device("cpu"))
+
+
+def dg_navier_stokes(torch, pt, dev, aside):
+    """Phase 10d (2): DGNavierStokes of tests/test_dgstokes.py:20-43 (Q2dg/Q1dg,
+    one pinned pressure DOF) at DGNS_CELLS^2, fp64. The residual and J.v at
+    a seeded x on the card against the same operator on the CPU; then
+    DGNS_GMRES_ITS iterations of block-Jacobi GMRES (one cycle, from zero)
+    on the card and on the CPU, whose reductions must agree: a converged
+    solve takes block-Jacobi GMRES thousands of iterations at this size,
+    each one general-jvp DG apply. The CPU side runs beside phase 10 in a
+    process of its own (`aside`)."""
+    import numpy as np
+
+    r, jv, its, red, true, wall, n = dgns_run(torch, pt, dev)
+    r_c, jv_c, its_c, red_c, true_c, wall_c, _ = aside_result(aside)
+    errs = {"residual": float(np.abs(r - r_c).max() / np.abs(r_c).max()),
+            "J.v": float(np.abs(jv - jv_c).max() / np.abs(jv_c).max())}
     gap = max(abs(red - red_c) / red_c, abs(true - true_c) / true_c)
-    log(f"[phase 10d] ({CARD}) DGNavierStokes Q2dg/Q1dg {DGNS_CELLS}^2 (N = {W.ndofs}) fp64: "
+    log(f"[phase 10d] ({CARD}) DGNavierStokes Q2dg/Q1dg {DGNS_CELLS}^2 (N = {n}) fp64: "
         f"card against CPU residual {errs['residual']:.2e}, J.v {errs['J.v']:.2e} of max|y|; "
         f"block-Jacobi GMRES, {its} iterations from zero: preconditioned reduction "
         f"{red:.6e} (CPU {red_c:.6e}), true reduction {true:.6e} (CPU {true_c:.6e}), "
         f"relative gap {gap:.2e}; {wall:.2f} s on the card = "
-        f"{1e3 * wall / max(its, 1):.1f} ms/iteration (CPU {wall_c:.2f} s)")
+        f"{1e3 * wall / max(its, 1):.1f} ms/iteration (CPU {wall_c:.2f} s, beside)")
     if not (max(errs.values()) <= DGNS_APPLY_REL and its == its_c == DGNS_GMRES_ITS
             and red < 1.0 and true < 1.0 and gap <= DGNS_GMRES_GAP):
         raise AssertionError("phase 10d: the DG Stokes operator or GMRES disagrees with the CPU")
@@ -2747,11 +2790,12 @@ def phase_stokes(torch, pt, dev):
     kernel: the Q2 velocity V-cycles run the plain k > 1 stencil form, the
     Taylor-Hood, pressure-mass and pressure-Laplacian applies the general
     torch.func.jvp."""
+    aside = cpu_aside(dgns_cpu)         # 10d's CPU side, beside 10a-10d on the card
     stokes_at_scale(torch, pt, dev)
     stokes_goldens(torch, pt, dev)
     cahouet_chabard(torch, pt, dev)
     cavity_newton(torch, pt, dev)
-    dg_navier_stokes(torch, pt, dev)
+    dg_navier_stokes(torch, pt, dev, aside)
 
 
 # ---------------------------------------------------------------------------
@@ -2794,6 +2838,27 @@ def cycle_profile(torch, fn, reps):
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kern = sum(e.self_device_time_total for e in rows)
     return 1e3 * wall / reps, kern / 1e3 / reps, sum(e.count for e in rows) / reps
+
+
+def cpu_aside(fn, *args):
+    """Start fn(group, *args) in a CPU process of its own (a one-rank gloo
+    RankPool on the CPU, dune_pdelab_tpu_torch.parallel.launch) and return
+    (pool, task) at once: a card-against-CPU comparison computes its CPU
+    side there while this process drives the card. `aside_result` waits,
+    stops the process and returns fn's result."""
+    import atexit
+    from dune_pdelab_tpu_torch.parallel.launch import RankPool
+    pool = RankPool(1, backend="gloo", device="cpu", threads=4, timeout=900)
+    atexit.register(pool.close)          # stopped even if a phase raises first
+    return pool, pool.submit(fn, *args)
+
+
+def aside_result(aside):
+    pool, task = aside
+    try:
+        return task.result()[0]
+    finally:
+        pool.close()
 
 
 def simplex_poisson(pt, dim, cells, problem, dev):
@@ -3000,7 +3065,7 @@ def amg_dg(torch, pt, dev):
     torch.cuda.empty_cache()
 
 
-def direct_eigen_geneo(torch, pt, dev):
+def direct_eigen_geneo(torch, pt, dev, aside):
     """Phase 11f: SEQ_SuperLU on 2D Q2 Poisson at DIRECT_CELLS^2 (fp64);
     lobpcg for the 4 smallest eigenpairs of the 2D Q1 Dirichlet Laplacian
     with mass at EIGEN_CELLS^2 (fp64, Jacobi preconditioned); GenEO
@@ -3054,48 +3119,74 @@ def direct_eigen_geneo(torch, pt, dev):
             and bool((res.residual_norms <= 1e-4).all())):
         raise AssertionError(f"11f lobpcg: {lam}, {res.residual_norms.tolist()}")
 
-    class HighContrast(ConvectionDiffusionProblem):
-        """tests/test_solver_utils.py HighContrast: layered 1 / 1e4 diffusion."""
+    its = []
+    for where, run in ((dev.type, geneo_solve(torch, pt, dev)), ("cpu", aside_result(aside))):
+        it, converged, setup_s, split, solve_s = run
+        its.append(it)
+        log(f"[phase 11f] GenEO ilu {GENEO_CELLS}^2 (N = {(GENEO_CELLS + 1) ** 2}) on {where}: "
+            f"{it} CG iterations, converged {converged}; setup {setup_s:.3f} s ({split} s), "
+            f"solve {solve_s:.3f} s{' (a CPU process of its own, run beside phase 11)' if where == 'cpu' else ''}; {CARD}")
+        if not converged:
+            raise AssertionError(f"11f GenEO on {where} did not converge")
+    if abs(its[0] - its[1]) > 1:
+        raise AssertionError(f"11f GenEO iterations card {its[0]} vs CPU {its[1]}")
 
+
+def geneo_solve(torch, pt, dev):
+    """11f's GenEO (method="ilu", boxes (4, 4)) CG solve of
+    tests/test_solver_utils.py's HighContrast problem (layered 1 / 1e4
+    diffusion) at GENEO_CELLS^2 on dev: (iterations, converged, setup s,
+    setup split, solve s)."""
+    from dune_pdelab_tpu_torch.linalg import cg
+    from dune_pdelab_tpu_torch.linalg.geneo import geneo_preconditioner_for
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM, ConvectionDiffusionProblem
+
+    class HighContrast(ConvectionDiffusionProblem):
         def A(self, x):
             return torch.where(torch.floor(x[..., 1] * 8) % 2 == 0, 1.0, 1e4)
 
         def f(self, x):
             return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
 
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
     mesh = pt.StructuredMesh([0, 0], [1, 1], (GENEO_CELLS,) * 2)
     V = pt.FunctionSpace(mesh, pt.QkFEM(1, 2))
-    its = []
-    for where in (dev, torch.device("cpu")):
-        go = pt.GridOperator(V, ConvectionDiffusionFEM(HighContrast()),
-                             constraints=pt.constraints(True, V, device=where))
-        z = V.zero(f64, where)
-        M, setup_s = timed(torch, lambda: geneo_preconditioner_for(
-            go, x_lin=z, boxes=(4, 4), nev=3, method="ilu"))
-        b = go.residual(z)
-        (_, st), solve_s = timed(torch, lambda: cg(lambda v: go.jacobian_apply(z, v), b, M=M,
-                                                   tol=1e-8, maxiter=2000))
-        its.append(st.iterations)
-        split = ", ".join(f"{k} {v:.3f}" for k, v in M.setup_times.items())
-        log(f"[phase 11f] GenEO ilu {GENEO_CELLS}^2 (N = {V.ndofs}) on {where.type}: "
-            f"{st.iterations} CG iterations, converged {bool(st.converged)}; setup "
-            f"{setup_s:.3f} s ({split} s), solve {solve_s:.3f} s; {CARD}")
-        if not bool(st.converged):
-            raise AssertionError(f"11f GenEO on {where.type} did not converge")
-    if abs(its[0] - its[1]) > 1:
-        raise AssertionError(f"11f GenEO iterations card {its[0]} vs CPU {its[1]}")
+    go = pt.GridOperator(V, ConvectionDiffusionFEM(HighContrast()),
+                         constraints=pt.constraints(True, V, device=dev))
+    z = V.zero(torch.float64, dev)
+    t0 = time.perf_counter()
+    M = geneo_preconditioner_for(go, x_lin=z, boxes=(4, 4), nev=3, method="ilu")
+    sync()
+    setup_s = time.perf_counter() - t0
+    b = go.residual(z)
+    t0 = time.perf_counter()
+    _, st = cg(lambda v: go.jacobian_apply(z, v), b, M=M, tol=1e-8, maxiter=2000)
+    sync()
+    split = ", ".join(f"{k} {v:.3f}" for k, v in M.setup_times.items())
+    return int(st.iterations), bool(st.converged), setup_s, split, time.perf_counter() - t0
+
+
+def geneo_cpu(group):
+    """geneo_solve on the CPU, in a process of its own (cpu_aside)."""
+    import torch
+    import dune_pdelab_tpu_torch as pt
+    return geneo_solve(torch, pt, torch.device("cpu"))
 
 
 def phase_algebraic(torch, pt, dev):
     """Phase 11: the algebraic solvers. No hand kernel of their own: the AMG
     cycle is plain-torch ELL SpMVs, its setup host scipy; 11d's Krylov
     operator is stencil27, 11e's smoother operator blockstencil_mm."""
+    aside = cpu_aside(geneo_cpu)       # 11f's CPU side, beside 11a-11f on the card
     amg_config12(torch, pt, dev)
     amg_simplex(torch, pt, dev)
     amg_tets(torch, pt, dev)
     amg_readme(torch, pt, dev)
     amg_dg(torch, pt, dev)
-    direct_eigen_geneo(torch, pt, dev)
+    direct_eigen_geneo(torch, pt, dev, aside)
 
 
 # ---------------------------------------------------------------------------
@@ -4000,13 +4091,33 @@ def twophase_config11(torch, pt, dev):
             raise AssertionError(f"13a config11 {key}: {got[key]!r} vs {gold[key]!r}")
 
 
-def twophase_at_size(torch, pt, dev):
+def twophase_small(torch, pt, dev):
+    """config11's first three steps at TP_SMALL_CELLS x 4 on dev: (Newton
+    iterations per step, failed steps, final state as numpy)."""
+    _, _, osm_s, _, xs = twophase_setup(torch, pt, (TP_SMALL_CELLS, 4), dev)
+    steps, t = [], 0.0
+    for _ in range(3):
+        n0 = osm_s.result.total_newton_iterations
+        t, xs = osm_s.solve(t, 1e-3, t + 1e-3, xs, max_step_retries=4)
+        steps.append(osm_s.result.total_newton_iterations - n0)
+    return steps, osm_s.result.failed_steps, xs.cpu().numpy()
+
+
+def twophase_small_cpu(group):
+    """twophase_small on the CPU, in a process of its own (cpu_aside)."""
+    import torch
+    import dune_pdelab_tpu_torch as pt
+    return twophase_small(torch, pt, torch.device("cpu"))
+
+
+def twophase_at_size(torch, pt, dev, aside):
     """Phase 13b: config11's problem on TP_CELLS (periodic in y),
     implicit Euler steps of 1e-3 to TP_TEND with config11's Newton and
     BiCGStab settings: every row of cells equal to the first (the problem
     is 1D in x) to 1e-8, s_l in [0, 1] to 1e-8; the wells problem;
     config11's first three steps at TP_SMALL_CELLS x 4 on the card against
-    the CPU."""
+    the CPU (computed beside it in a CPU process of its own, `aside`)."""
+    import numpy as np
     torch.cuda.reset_peak_memory_stats()
     mesh, W, osm, backend, x = twophase_setup(torch, pt, TP_CELLS, dev, (1.0, TP_HEIGHT),
                                               periodic=(False, True))
@@ -4038,17 +4149,9 @@ def twophase_at_size(torch, pt, dev):
     if not (row_gap <= 1e-8 and lo >= -1e-8 and hi <= 1 + 1e-8):
         raise AssertionError(f"13b: rows {row_gap}, s_l in [{lo}, {hi}]")
     twophase_wells(torch, pt, dev)
-    out = {}
-    for d in (dev, torch.device("cpu")):
-        _, _, osm_s, _, xs = twophase_setup(torch, pt, (TP_SMALL_CELLS, 4), d)
-        steps, t = [], 0.0
-        for _ in range(3):
-            n0 = osm_s.result.total_newton_iterations
-            t, xs = osm_s.solve(t, 1e-3, t + 1e-3, xs, max_step_retries=4)
-            steps.append(osm_s.result.total_newton_iterations - n0)
-        out[d.type] = (steps, osm_s.result.failed_steps, xs.cpu())
-    card, host = out[dev.type], out["cpu"]
-    gap = float((card[2] - host[2]).abs().max() / host[2].abs().max())
+    card = twophase_small(torch, pt, dev)
+    host = aside_result(aside)
+    gap = float(np.abs(card[2] - host[2]).max() / np.abs(host[2]).max())
     log(f"[phase 13b] config11 {TP_SMALL_CELLS}x4, 3 steps: Newton per step card "
         f"{card[0]} / CPU {host[0]}, failed {card[1]} / {host[1]}, states {gap:.3e} of max|x|")
     if card[:2] != host[:2] or not gap <= TP_SMALL_TOL:
@@ -4477,10 +4580,12 @@ def phase_slice13a(torch, pt, dev):
     nb = 1, 4, 6 and 9; two-phase flow, elasticity and the waves run the
     general torch.func.jvp or the residual."""
     import tempfile
+    aside = cpu_aside(twophase_small_cpu)   # 13b's CPU side, beside 13k-13b on the card
     p13_kernels(torch, pt, dev)
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        for name, run in (("13a", twophase_config11), ("13b", twophase_at_size),
+        for name, run in (("13a", twophase_config11),
+                          ("13b", lambda *a: twophase_at_size(*a, aside)),
                           ("13c", ccfv_solves), ("13d", modal_solves),
                           ("13e", elasticity_solves), ("13f", wave_runs),
                           ("13g", lambda *a: (projections(*a), checkpoints(*a, Path(tmp))))):
@@ -5205,6 +5310,273 @@ def phase_slice13bc(torch, pt, dev):
         torch.cuda.empty_cache()
 
 
+# ---- phase 15: parallel/ on torch.distributed ranks sharing the card -------
+# The p15_* functions run in the rank processes (dune_pdelab_tpu_torch.
+# parallel.launch starts them and imports this file there); each counts the
+# stencil27 launches of its sharded path in its own process and returns them.
+def _p15_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _p15_comm():
+    from dune_pdelab_tpu_torch.parallel import comm
+    st = comm.stats()
+    return {"seconds": sum(v["seconds"] for v in st.values()),
+            "bytes": sum(v["bytes"] for v in st.values()),
+            "calls": {k: v["calls"] for k, v in st.items()}}
+
+
+def p15_lattice(group, cells, tol, gather_below):
+    """15a on this rank: the DOF-sharded stencil apply (1D mesh, and (2, 2)
+    on four ranks) against the sequential one, and ShardedLatticeGMG-CG;
+    on one rank also the sequential LatticeGMG-CG iterations."""
+    import torch
+    import torch.distributed as dist
+    import dune_pdelab_tpu_torch as pt
+    from dune_pdelab_tpu_torch.assembly.stencil import compile_stencil
+    from dune_pdelab_tpu_torch.kernels import stencil27 as sk
+    from dune_pdelab_tpu_torch.linalg.gmg_lattice import LatticeGMG
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM, ConvectionDiffusionProblem
+    from dune_pdelab_tpu_torch.parallel import DofShardedStencil, comm
+    from dune_pdelab_tpu_torch.parallel.gmg_sharded import ShardedLatticeGMG
+
+    class Lap(ConvectionDiffusionProblem):
+        def A(self, x):
+            return 1.0
+
+    dev = pt.default_device()         # the rank's card (launch.py sets it)
+    n = dist.get_world_size(group)
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    mesh = pt.StructuredMesh([0.0] * 3, [1.0] * 3, (cells,) * 3)
+    V = pt.FunctionSpace(mesh, pt.QkFEM(1, 3))
+    lop = ConvectionDiffusionFEM(Lap())
+    # pure Dirichlet: no boundary kernels, so compile_stencil probes a proxy
+    # mesh (a full-size probe holds ~13 GiB a rank)
+    go = pt.GridOperator(V, lop, constraints=pt.constraints(True, V, device=dev),
+                         skip_boundary=True)
+    st = compile_stencil(go, dtype=f32, device=dev)
+    gmg = LatticeGMG(V, lop, fine_stencil=st, device=dev)
+    gen = torch.Generator(dev).manual_seed(15)
+    z = torch.randn(V.ndofs, dtype=f32, device=dev, generator=gen)
+    b = torch.where(st.mask, 0.0, torch.randn(V.ndofs, dtype=f32, device=dev, generator=gen))
+    y_seq = st(z)                                   # comparison: not counted
+    out = {"setup_s": time.perf_counter() - t0, "ndofs": V.ndofs}
+    if n == 1:
+        _, info = gmg.solve_host(b, tol=tol, maxiter=50)
+        out["seq_its"] = info["iterations"]
+    _p15_sync(torch, dev)
+    k0 = sk.launches
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    errs = {}
+    for shape in [(n,)] + ([(2, 2)] if n == 4 else []):
+        sh = DofShardedStencil(st, group=group, mesh_shape=shape, device=dev)
+        yb = sh(sh.device_put(z))
+        ref = sh.device_put(y_seq)
+        errs[shape] = float((yb - ref).abs().max() / y_seq.abs().max())
+    _p15_sync(torch, dev)
+    out["apply_s"] = time.perf_counter() - t0
+    sgmg = ShardedLatticeGMG(gmg, group=group, gather_below=gather_below, device=dev)
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    xg, info = sgmg.solve_host(b, tol=tol, maxiter=50)
+    _p15_sync(torch, dev)
+    out.update(solve_s=time.perf_counter() - t0, info=info, comm=_p15_comm(),
+               apply_err={str(k): v for k, v in errs.items()}, n_sharded=sgmg.n_sharded,
+               k2=sk.launches - k0)
+    return out
+
+
+def p15_dg(group, config8, cells):
+    """15b on this rank: config8 (models/configs.py config8_windowed_sharded)
+    through the window-sharded operator; or, config8=False, the 256^2
+    degree-1 SIPG residual and J.v against the one-rank operator."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import dune_pdelab_tpu_torch as pt
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionDG, DGMethod
+    from dune_pdelab_tpu_torch.parallel import WindowShardedGridOperator, comm
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    dev = pt.default_device()
+    f64 = torch.float64
+    p = sine2d_problem()
+    mesh = pt.StructuredMesh([0.0, 0.0], [1.0, 1.0], (cells, cells))
+    V = pt.FunctionSpace(mesh, pt.QkDGFEM(1, 2))
+    go = pt.GridOperator(V, ConvectionDiffusionDG(p, method=DGMethod.SIPG))
+    w = WindowShardedGridOperator(go, group=group, device=dev)
+    x0 = V.zero(f64, dev)
+    out = {"ndofs": V.ndofs, "ranks": dist.get_world_size(group)}
+    comm.reset_stats()
+    if config8:
+        b = go.residual(x0)
+        t0 = time.perf_counter()
+        zz, stats = w.solve_cg(x0, b, diag=go.jacobian_diagonal(x0),
+                               tol=1e-10 * float(torch.linalg.norm(b)), maxiter=5000)
+        _p15_sync(torch, dev)
+        out.update(solve_s=time.perf_counter() - t0, iterations=int(stats.iterations),
+                   l2_error=float(l2_difference(V, x0 - zz, p.exact)))
+    else:
+        rng = np.random.default_rng(15)
+        x = torch.as_tensor(rng.standard_normal(V.ndofs), device=dev)
+        zv = torch.as_tensor(rng.standard_normal(V.ndofs), device=dev)
+        r1, j1 = go.residual(x), go.jacobian_apply(x, zv)      # the one-rank operator
+        _p15_sync(torch, dev)
+        t0 = time.perf_counter()
+        r2, j2 = w.residual(x), w.jacobian_apply(x, zv)
+        _p15_sync(torch, dev)
+        out.update(apply_s=time.perf_counter() - t0,
+                   r_err=float((r2 - r1).abs().max() / r1.abs().max()),
+                   j_err=float((j2 - j1).abs().max() / j1.abs().max()))
+    out["comm"] = _p15_comm()
+    return out
+
+
+def p15_amg(group, cells):
+    """15c on this rank: ShardedAMG-CG (the distributed setup, one
+    partition per rank) on phase 11b's simplex P1 problem, fp64 to 1e-10."""
+    import torch
+    import torch.distributed as dist
+    import dune_pdelab_tpu_torch as pt
+    from dune_pdelab_tpu_torch.parallel import ShardedAMG, comm
+
+    dev = pt.default_device()
+    p = sine2d_problem()
+    t0 = time.perf_counter()
+    V, go = simplex_poisson(pt, 2, cells, p, dev)
+    x0 = pt.interpolate_dirichlet(p.g, V, go.cg, V.zero(torch.float64, dev))
+    # the coupled setup (setup_parts=1): every rank count cycles the one-rank
+    # hierarchy (the decoupled per-rank aggregation changes it: 17 against 15
+    # AMG-CG iterations at 64^2 on four ranks of the CPU)
+    samg = ShardedAMG.from_grid_operator(go, x0, group=group, device=dev, setup_parts=1)
+    r = go.residual(x0)
+    out = {"setup_s": time.perf_counter() - t0, "ndofs": V.ndofs,
+           "ranks": dist.get_world_size(group), "levels": samg.sizes}
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    zz, stats = samg.solve_cg(r, tol=1e-10)
+    _p15_sync(torch, dev)
+    out.update(solve_s=time.perf_counter() - t0, iterations=int(stats.iterations),
+               converged=bool(stats.converged),
+               true_rel=float(torch.linalg.norm(go.residual(x0 - zz))
+                              / torch.linalg.norm(r)), comm=_p15_comm())
+    return out
+
+
+def p15_warm(group):
+    """The first torch.func call of a process imports its machinery (~7 s
+    on the card's machine): every rank pays it at once here."""
+    import torch
+    import dune_pdelab_tpu_torch as pt
+    x = torch.ones(3, device=pt.default_device())
+    torch.func.jvp(torch.sin, (x,), (x,))
+    return str(x.device)
+
+
+def _p15_log(tag, res, wall, extra=""):
+    """One line per sub-phase: wall seconds, rank 0's communication
+    (seconds, bytes, calls) against its solve or apply, K2 launches."""
+    c = res[0]["comm"]
+    spent = res[0].get("solve_s", res[0].get("apply_s", 0.0))
+    k2 = sum(r.get("k2", 0) for r in res)
+    log(f"[{tag}] {len(res)} rank(s): {wall:.2f} s wall; rank 0 communication "
+        f"{c['seconds']:.3f} s of {spent:.3f} s ({100 * c['seconds'] / max(spent, 1e-9):.1f}%), "
+        f"{c['bytes']} bytes, calls {c['calls']}; stencil27 launches {k2}{extra}; {CARD}")
+    return k2
+
+
+def phase_parallel(torch, pt, dev):
+    """Phase 15: slice 12 (parallel/) with one process per rank. (a) the
+    DOF-sharded stencil (stencil27 on each rank's halo-extended block) and
+    ShardedLatticeGMG-CG at P15_CELLS^3 cells, fp32: one rank on NCCL, then
+    P15_RANKS ranks sharing the card over gloo (host-staged halos), with a
+    (2, 2) rank mesh for the apply; (b) config8 on 8 ranks and the
+    P15_DG_CELLS^2 SIPG residual and J.v on P15_RANKS ranks; (c)
+    ShardedAMG-CG on phase 11b's problem at P15_AMG_CELLS^2 on P15_RANKS
+    ranks against one rank. The ranks' stencil27 launches are added to this
+    process's count."""
+    from dune_pdelab_tpu_torch.kernels import _build
+    from dune_pdelab_tpu_torch.kernels import stencil27 as sk
+    from dune_pdelab_tpu_torch.parallel.launch import RankPool
+
+    _build.library()             # built once here, loaded by every rank
+    gold = json.loads((ROOT / "tests" / "golden_parity.json").read_text())[
+        "config8_windowed_sharded"]
+    k2 = 0
+    t0 = time.perf_counter()
+    with RankPool(8, backend="gloo", timeout=600) as pool:
+        warm = pool.submit(p15_warm)      # the eight ranks start beside the one-rank runs
+        with RankPool(1, backend="nccl", timeout=600) as one:
+            t = time.perf_counter()
+            a1 = one.run(p15_lattice, P15_CELLS, P15_GMG_TOL, P15_GATHER_BELOW)
+            k2 += _p15_log("phase 15a 1 rank, NCCL", a1, time.perf_counter() - t,
+                           f"; setup {a1[0]['setup_s']:.2f} s, GMG-CG "
+                           f"{a1[0]['info']['iterations']} iterations (sequential "
+                           f"{a1[0]['seq_its']}) in {a1[0]['solve_s']:.3f} s, apply error "
+                           f"{a1[0]['apply_err']}")
+            t = time.perf_counter()
+            c1 = one.run(p15_amg, P15_AMG_CELLS)
+            _p15_log("phase 15c 1 rank, NCCL", c1, time.perf_counter() - t,
+                     f"; {c1[0]['iterations']} AMG-CG iterations, setup {c1[0]['setup_s']:.2f} s")
+        log(f"[phase 15] one-rank pool (NCCL) {time.perf_counter() - t0:.2f} s")
+        devices = warm.result()
+        log(f"[phase 15] 8 gloo ranks on {sorted(set(devices))} ready "
+            f"{time.perf_counter() - t0:.2f} s after the phase began")
+        t = time.perf_counter()
+        a4 = pool.run(p15_lattice, P15_CELLS, P15_GMG_TOL, P15_GATHER_BELOW,
+                      nranks=P15_RANKS)
+        k2 += _p15_log(f"phase 15a {P15_RANKS} ranks, gloo", a4, time.perf_counter() - t,
+                       f"; GMG-CG {a4[0]['info']['iterations']} iterations in "
+                       f"{a4[0]['solve_s']:.3f} s, apply errors "
+                       f"{[r['apply_err'] for r in a4]}")
+        t = time.perf_counter()
+        b8 = pool.run(p15_dg, True, 16)
+        _p15_log("phase 15b config8, 8 ranks", b8, time.perf_counter() - t,
+                 f"; {b8[0]['iterations']} CG iterations (golden {gold['iterations']}), L2 "
+                 f"{b8[0]['l2_error']!r} (golden {gold['l2_error']!r})")
+        t = time.perf_counter()
+        b4 = pool.run(p15_dg, False, P15_DG_CELLS, nranks=P15_RANKS)
+        _p15_log(f"phase 15b SIPG {P15_DG_CELLS}^2, {P15_RANKS} ranks", b4,
+                 time.perf_counter() - t,
+                 f"; residual / J.v against one rank {[(r['r_err'], r['j_err']) for r in b4]}")
+        t = time.perf_counter()
+        c4 = pool.run(p15_amg, P15_AMG_CELLS, nranks=P15_RANKS)
+        _p15_log(f"phase 15c {P15_RANKS} ranks, gloo", c4, time.perf_counter() - t,
+                 f"; {c4[0]['iterations']} AMG-CG iterations (one rank {c1[0]['iterations']}), "
+                 f"true rel defect {c4[0]['true_rel']:.3e}, setup {c4[0]['setup_s']:.2f} s, "
+                 f"levels {c4[0]['levels']}")
+    sk.launches += k2
+    bad = []
+    for tag, res in (("15a 1 rank", a1), (f"15a {P15_RANKS} ranks", a4)):
+        for r in res:
+            info = r["info"]
+            if not (info["converged"] and info["true_defect"] <= P15_TRUE_REL * info["defect0"]):
+                bad.append(f"{tag}: GMG-CG {info}")
+            if max(r["apply_err"].values()) > P15_APPLY_REL:
+                bad.append(f"{tag}: apply error {r['apply_err']}")
+    if a1[0]["info"]["iterations"] != a1[0]["seq_its"]:
+        bad.append(f"15a: one rank {a1[0]['info']['iterations']} iterations, sequential "
+                   f"{a1[0]['seq_its']}")
+    if abs(a4[0]["info"]["iterations"] - a1[0]["seq_its"]) > 1:
+        bad.append(f"15a: {P15_RANKS} ranks {a4[0]['info']['iterations']} iterations")
+    if not (b8[0]["iterations"] == gold["iterations"] and b8[0]["ndofs"] == gold["ndofs"]
+            and b8[0]["ranks"] == gold["ndevices"]
+            and abs(b8[0]["l2_error"] / gold["l2_error"] - 1) <= 1e-8):
+        bad.append(f"15b config8: {b8[0]}")
+    if max(max(r["r_err"], r["j_err"]) for r in b4) > P15_DG_REL:
+        bad.append(f"15b SIPG: {[(r['r_err'], r['j_err']) for r in b4]}")
+    for tag, res in (("15c 1 rank", c1), (f"15c {P15_RANKS} ranks", c4)):
+        if not (res[0]["converged"] and res[0]["true_rel"] <= 1e-9):
+            bad.append(f"{tag}: {res[0]}")
+    if abs(c4[0]["iterations"] - c1[0]["iterations"]) > 1:
+        bad.append(f"15c: {c4[0]['iterations']} against {c1[0]['iterations']} iterations")
+    if bad:
+        raise AssertionError("phase 15: " + "; ".join(bad))
+
+
 def main():
     if not (ROOT / "dune_pdelab_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -5274,6 +5646,8 @@ def main():
          lambda: phase_slice13a(torch, pt, dev), ("blockstencil_em", "blockstencil_mm")),
         ("phase 14 (slices 13b/13c: H(div), H(curl), mimetic, adjoints)",
          lambda: phase_slice13bc(torch, pt, dev), ()),
+        ("phase 15 (slice 12: parallel/ on ranks sharing the card)",
+         lambda: phase_parallel(torch, pt, dev), ("stencil27",)),
     ]
     totals = dict.fromkeys(counters, 0)
     for name, run, needed in paths:
@@ -5288,7 +5662,7 @@ def main():
             raise AssertionError(f"{name} never launched {missing}: {counts}")
         for k in totals:
             totals[k] += counts[k]
-    log(f"launch counts over phases 3-14: {totals}")
+    log(f"launch counts over phases 3-15: {totals}")
 
     meta = {
         "stencil27": ("dune_pdelab_tpu_torch/csrc/stencil27.cu",

@@ -37,7 +37,12 @@ Maxwell DG operators, and checkpoints and logging in utils/; and slices
 fe/hcurl.py, fe/mimetic.py) with their face and edge DOF maps and Piola
 maps, the mixed Darcy and curl-curl operators, and adjoint-differentiable
 solves and rollouts (solvers/differentiable.py,
-instationary/differentiable.py). See ROADMAP.md for what remains.
+instationary/differentiable.py); and slice 12, distributed assembly and
+solvers on torch.distributed with one process per rank (parallel/: the
+halo exchange and reproducible global dots, the DOF-sharded stencil, the
+window-sharded GridOperator, sharded geometric, lattice and algebraic
+multigrid, load balancing and a rank launcher). See ROADMAP.md for what
+remains.
 
 Entry points put their tensors on `default_device()`, the card, unless the
 caller names a device or calls `set_default_device` (the CPU tests do).

@@ -93,6 +93,15 @@ class VolumeGeometry:
         self.qp_phys = N[None] @ corners                      # (E, nqp, d)
         self.qp_phys_offset = None
 
+    @property
+    def origins(self):
+        """(E, dim) float64 element origins of a uniform mesh (computed on
+        each access: the fast paths never hold them), else None."""
+        if not self.mesh.uniform:
+            return None
+        mesh = self.mesh
+        return mesh.lower + mesh.element_multi_index() * mesh.h
+
     def origins_tensor(self, dtype, device) -> torch.Tensor:
         """(E, dim) element origins lower + multi_index * h of a uniform
         mesh, computed on `device` in float64 (the reference's host

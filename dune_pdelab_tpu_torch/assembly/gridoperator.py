@@ -315,6 +315,13 @@ class GridOperator:
         shift = 1 if outside else 0
         return self._slab_elements(g.axis, g.lo + shift, g.hi + shift)
 
+    def group_leaf_dofs(self, g, outside=False):
+        """Per-leaf (F, nloc) global DOF maps of the inside (or outside)
+        elements of group g, materialised from the slab on a structured
+        mesh (the reference's `leaf_dofs_in` / `leaf_dofs_out`)."""
+        el = self.group_elements(g, outside)
+        return [m[el] for m in self._leaf_maps()]
+
     def _face_transfers(self, axis, lo, hi, roll=0):
         """Per-leaf face transfers of the slab [lo, hi) (rolled by `roll`):
         slices for a DG (reshape) leaf, index arrays else."""

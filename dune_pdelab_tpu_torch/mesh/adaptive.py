@@ -4,10 +4,12 @@ PyTorch port of dune_pdelab_tpu/mesh/adaptive.py (reference: local grid
 adaptation, dune/pdelab/adaptivity/adaptivity.hh:632 adapt_grid over UG/ALU
 grids; dune/pdelab/constraints/hangingnodemanager.hh shape regularity).
 Adaptation is a set-up act: `refine(marks)` returns a NEW mesh object.
-Everything here is integer lattice arithmetic in host numpy, as in the
-reference, whose per-element and per-vertex Python loops and dict lookups
-are kept as they are, so leaves, vertices and hanging rows come out equal
-to the reference's (chip_smoke.py phase 12d times them).
+Everything here is integer lattice arithmetic in host numpy. Leaves and
+vertices follow the reference's per-element loops and dict lookups; the
+hanging rows' per-vertex leaf search runs as array work
+(`_leaves_of`), with the reference's choice and tie-breaks, so leaves,
+vertices and hanging rows come out equal to the reference's
+(chip_smoke.py phase 12d times them).
 
 Representation: leaf cells of a forest over a coarse structured mesh. Each
 leaf = (level, origin) with origin in units of the *finest* lattice
@@ -192,41 +194,55 @@ class AdaptiveMesh:
             self._hanging_cache = self._hanging_rows()
         return tuple(a.copy() for a in self._hanging_cache)
 
+    def _leaves_of(self, cells):
+        """find_leaf for an (n, dim) array of finest-lattice cells at once:
+        the leaf element of each, -1 outside the lattice. The leaves
+        partition the lattice, so at most one level matches; as in
+        find_leaf, the finest match is taken."""
+        P = int(np.prod(self.res))
+        strides = np.cumprod(np.concatenate([[1], self.res[:-1]])).astype(np.int64)
+        keys = self.levels * P + self.origins @ strides
+        order = np.argsort(keys)
+        skeys = keys[order]
+        out = np.full(len(cells), -1, np.int64)
+        inside = np.all((cells >= 0) & (cells < self.res), axis=1)
+        for lvl in range(self.max_level, -1, -1):
+            s = self.cell_size(lvl)
+            k = lvl * P + ((cells // s) * s) @ strides
+            pos = np.minimum(np.searchsorted(skeys, k), len(skeys) - 1)
+            hit = inside & (out < 0) & (skeys[pos] == k)
+            out[hit] = order[pos[hit]]
+        return out
+
     def _hanging_rows(self):
         verts, ev = self.vertices()
         nv = len(verts)
         raw = {}   # vertex id -> list[(parent vertex lattice tuple, w)]
         vid = {tuple(p): i for i, p in enumerate(verts)}
 
-        corner_sets = [set() for _ in range(nv)]
-        for e in range(self.nelements):
-            for c in ev[e]:
-                corner_sets[c].add(e)
-
-        for i in range(nv):
+        # leaves incident to each vertex v: those containing one of the up
+        # to 2^dim finest-lattice cells around it (the reference's per-vertex
+        # find_leaf loop, as array work). Among the leaves for which v is not
+        # a corner, v is constrained against the COARSEST (largest) one, with
+        # the minimal entity (fewest mid-axes), then the lowest element, as
+        # tie-breaks: the reference's min over (-(cell size), n_mid, element).
+        doffs = np.array(list(itertools.product((-1, 0), repeat=self.dim)), np.int64)
+        cells = (verts[:, None, :] + doffs[None]).reshape(-1, self.dim)
+        el = self._leaves_of(cells).reshape(nv, len(doffs))
+        found = el >= 0
+        e = np.where(found, el, 0)
+        corner = (ev[e] == np.arange(nv)[:, None, None]).any(axis=2)
+        size = 2 ** (self.max_level - self.levels[e])                 # (nv, K)
+        rel2 = 2 * (verts[:, None, :] - self.origins[e])              # (nv, K, dim)
+        nmid = (rel2 == size[..., None]).sum(axis=2)
+        cand = found & ~corner & (nmid > 0)
+        E = max(self.nelements, 1)
+        key = ((2 ** self.max_level - size) * (self.dim + 1) + nmid) * E + e
+        key = np.where(cand, key, np.iinfo(np.int64).max)
+        pick = key.argmin(axis=1)
+        for i in np.nonzero(cand.any(axis=1))[0]:
             p = verts[i]
-            # leaves incident to v: containing one of the up-to-2^dim
-            # finest-lattice cells around it. Among cells for which v is
-            # not a corner, constrain against the COARSEST (largest) one,
-            # with the minimal entity (fewest mid-axes) as tie-break — the
-            # most-constraining choice.
-            best = None   # (-(cell size), n_mid, element)
-            for doff in itertools.product((-1, 0), repeat=self.dim):
-                cellp = p + np.array(doff, dtype=np.int64)
-                e = self.find_leaf(cellp)
-                if e is None or e in corner_sets[i]:
-                    continue
-                s = self.cell_size(self.levels[e])
-                rel2 = 2 * (p - self.origins[e])   # in units of s/2
-                nmid = int(np.sum(rel2 == s))
-                if nmid == 0:
-                    continue  # corner; defensive
-                key = (-s, nmid, e)
-                if best is None or key < best:
-                    best = key
-            if best is None:
-                continue
-            e = best[2]
+            e = int(el[i, pick[i]])
             s = self.cell_size(self.levels[e])
             rel2 = 2 * (p - self.origins[e])
             assert np.all(rel2 >= 0) and np.all(rel2 <= 2 * s)
@@ -244,7 +260,7 @@ class AdaptiveMesh:
                     else:
                         q[d] += s * fixed[d]
                 parents.append((tuple(q), w))
-            raw[i] = parents
+            raw[int(i)] = parents
 
         # transitive resolution: parents at coarser levels may themselves
         # be hanging (level chains across corners); substitute to fixpoint

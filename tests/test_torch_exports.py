@@ -7,7 +7,7 @@ of its modules (`from dune_pdelab_tpu.X.Y import a` or a submodule
 counterpart module (dune_pdelab_tpu_torch/X/Y.py). If it has, the name
 must import from the port's counterpart of the same subpackage; if it has
 not, the name must be in EXPECTED_MISSING, the names of the modules still
-to port (ROADMAP Queue 1: slices 12 and 13d). Every name in
+to port (ROADMAP Queue 1: slice 13d). Every name in
 EXPECTED_MISSING must still be missing, so the list shrinks with each
 ported module.
 """
@@ -24,13 +24,6 @@ REF, PORT = "dune_pdelab_tpu", "dune_pdelab_tpu_torch"
 
 # (reference subpackage, name): modules not ported yet
 EXPECTED_MISSING = {
-    # 12: parallel
-    *{("dune_pdelab_tpu.parallel", n) for n in (
-        "ShardedGridOperator", "ShardedContextMixin", "WindowShardedGridOperator",
-        "block_partition", "pad_partition", "DofShardedStencil", "sharded_cg_solve",
-        "NonoverlappingShardedGridOperator", "ShardedGeometricMultigrid",
-        "ShardedAMG", "allreduce", "exchange_planes", "masked_dot",
-        "partition_weighted", "imbalance", "rebalance", "redistribute")},
     # 13d: models and io
     *{("dune_pdelab_tpu.models", n) for n in (
         "StructuredGrid", "CGSpace", "DGSpace", "P0Space", "GalerkinGlobalAssembler",

@@ -8,7 +8,8 @@ phase_slice13bc (phase 14), phase_slice13a (13), phase_adaptivity (12),
 phase_algebraic (11), phase_stokes (10), or one of their sub-phases
 (mixed_cubes, adjoint_runs, ...). Prints the card's name and power limit
 first and the phase's seconds last; builds no kernel, so it suits the
-phases that launch none (10, 12, 14).
+phases that launch none (10, 12, 14) and phase_parallel (15), which builds
+the kernel library itself before its ranks load it.
 """
 from __future__ import annotations
 
