@@ -190,7 +190,9 @@ Phases (each passes or raises; there is no CPU path):
      (b) the config8 golden on eight ranks and a 256^2 SIPG residual and J.v
      on four ranks against the one-rank operator (fp64); (c) ShardedAMG-CG
      on phase 11b's simplex P1 problem at 1024^2 on four ranks against one
-     (fp64). Each sub-phase logs its wall seconds, rank 0's seconds and bytes
+     (fp64): the coupled setup (the one-rank hierarchy: iterations within
+     1 of one rank's) and the default one (a partition per rank: converged,
+     the true defect). Each sub-phase logs its wall seconds, rank 0's seconds and bytes
      of communication and the ranks' stencil27 launches, which the ranks
      count in their own processes and this process adds to its count.
 
@@ -5383,8 +5385,11 @@ def p15_lattice(group, cells, tol, gather_below):
     t0 = time.perf_counter()
     xg, info = sgmg.solve_host(b, tol=tol, maxiter=50)
     _p15_sync(torch, dev)
+    m = sgmg.padded[0][0] // sgmg.mesh_shape[0]      # fine planes a rank holds
+    c = sgmg.coords[0]
     out.update(solve_s=time.perf_counter() - t0, info=info, comm=_p15_comm(),
                apply_err={str(k): v for k, v in errs.items()}, n_sharded=sgmg.n_sharded,
+               padded=sgmg.padded[0][0], real_planes=max(0, min(cells + 1, (c + 1) * m) - c * m),
                k2=sk.launches - k0)
     return out
 
@@ -5435,9 +5440,12 @@ def p15_dg(group, config8, cells):
     return out
 
 
-def p15_amg(group, cells):
-    """15c on this rank: ShardedAMG-CG (the distributed setup, one
-    partition per rank) on phase 11b's simplex P1 problem, fp64 to 1e-10."""
+def p15_amg(group, cells, setups):
+    """15c on this rank: ShardedAMG-CG on phase 11b's simplex P1 problem,
+    fp64 to 1e-10, once for each hierarchy setup in `setups`: "coupled"
+    (setup_parts=1, the one-rank hierarchy on every rank count) and
+    "default" (from_grid_operator's own: one aggregation partition per rank,
+    the decoupled setup users get on several ranks)."""
     import torch
     import torch.distributed as dist
     import dune_pdelab_tpu_torch as pt
@@ -5448,21 +5456,23 @@ def p15_amg(group, cells):
     t0 = time.perf_counter()
     V, go = simplex_poisson(pt, 2, cells, p, dev)
     x0 = pt.interpolate_dirichlet(p.g, V, go.cg, V.zero(torch.float64, dev))
-    # the coupled setup (setup_parts=1): every rank count cycles the one-rank
-    # hierarchy (the decoupled per-rank aggregation changes it: 17 against 15
-    # AMG-CG iterations at 64^2 on four ranks of the CPU)
-    samg = ShardedAMG.from_grid_operator(go, x0, group=group, device=dev, setup_parts=1)
     r = go.residual(x0)
-    out = {"setup_s": time.perf_counter() - t0, "ndofs": V.ndofs,
-           "ranks": dist.get_world_size(group), "levels": samg.sizes}
-    comm.reset_stats()
-    t0 = time.perf_counter()
-    zz, stats = samg.solve_cg(r, tol=1e-10)
-    _p15_sync(torch, dev)
-    out.update(solve_s=time.perf_counter() - t0, iterations=int(stats.iterations),
-               converged=bool(stats.converged),
-               true_rel=float(torch.linalg.norm(go.residual(x0 - zz))
-                              / torch.linalg.norm(r)), comm=_p15_comm())
+    out = {"space_s": time.perf_counter() - t0, "ndofs": V.ndofs,
+           "ranks": dist.get_world_size(group)}
+    for name in setups:
+        t0 = time.perf_counter()
+        samg = ShardedAMG.from_grid_operator(go, x0, group=group, device=dev,
+                                             setup_parts=1 if name == "coupled" else None)
+        run = {"setup_s": time.perf_counter() - t0, "levels": samg.sizes}
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        zz, stats = samg.solve_cg(r, tol=1e-10)
+        _p15_sync(torch, dev)
+        run.update(solve_s=time.perf_counter() - t0, iterations=int(stats.iterations),
+                   converged=bool(stats.converged),
+                   true_rel=float(torch.linalg.norm(go.residual(x0 - zz))
+                                  / torch.linalg.norm(r)), comm=_p15_comm())
+        out[name] = run
     return out
 
 
@@ -5516,9 +5526,10 @@ def phase_parallel(torch, pt, dev):
                            f"; setup {a1[0]['setup_s']:.2f} s, GMG-CG "
                            f"{a1[0]['info']['iterations']} iterations (sequential "
                            f"{a1[0]['seq_its']}) in {a1[0]['solve_s']:.3f} s, apply error "
-                           f"{a1[0]['apply_err']}")
+                           f"{a1[0]['apply_err']}, fine planes {a1[0]['padded']} padded "
+                           f"for {P15_CELLS + 1}")
             t = time.perf_counter()
-            c1 = one.run(p15_amg, P15_AMG_CELLS)
+            c1 = [r["coupled"] for r in one.run(p15_amg, P15_AMG_CELLS, ("coupled",))]
             _p15_log("phase 15c 1 rank, NCCL", c1, time.perf_counter() - t,
                      f"; {c1[0]['iterations']} AMG-CG iterations, setup {c1[0]['setup_s']:.2f} s")
         log(f"[phase 15] one-rank pool (NCCL) {time.perf_counter() - t0:.2f} s")
@@ -5531,7 +5542,9 @@ def phase_parallel(torch, pt, dev):
         k2 += _p15_log(f"phase 15a {P15_RANKS} ranks, gloo", a4, time.perf_counter() - t,
                        f"; GMG-CG {a4[0]['info']['iterations']} iterations in "
                        f"{a4[0]['solve_s']:.3f} s, apply errors "
-                       f"{[r['apply_err'] for r in a4]}")
+                       f"{[r['apply_err'] for r in a4]}, fine planes {a4[0]['padded']} "
+                       f"padded for {P15_CELLS + 1}, real planes a rank "
+                       f"{[r['real_planes'] for r in a4]}")
         t = time.perf_counter()
         b8 = pool.run(p15_dg, True, 16)
         _p15_log("phase 15b config8, 8 ranks", b8, time.perf_counter() - t,
@@ -5543,11 +5556,14 @@ def phase_parallel(torch, pt, dev):
                  time.perf_counter() - t,
                  f"; residual / J.v against one rank {[(r['r_err'], r['j_err']) for r in b4]}")
         t = time.perf_counter()
-        c4 = pool.run(p15_amg, P15_AMG_CELLS, nranks=P15_RANKS)
-        _p15_log(f"phase 15c {P15_RANKS} ranks, gloo", c4, time.perf_counter() - t,
-                 f"; {c4[0]['iterations']} AMG-CG iterations (one rank {c1[0]['iterations']}), "
-                 f"true rel defect {c4[0]['true_rel']:.3e}, setup {c4[0]['setup_s']:.2f} s, "
-                 f"levels {c4[0]['levels']}")
+        c4all = pool.run(p15_amg, P15_AMG_CELLS, ("coupled", "default"), nranks=P15_RANKS)
+        wall = time.perf_counter() - t
+        c4, c4d = [r["coupled"] for r in c4all], [r["default"] for r in c4all]
+        for what, res in (("coupled setup", c4), ("default setup", c4d)):
+            _p15_log(f"phase 15c {P15_RANKS} ranks, gloo, {what}", res, wall,
+                     f"; {res[0]['iterations']} AMG-CG iterations (one rank "
+                     f"{c1[0]['iterations']}), true rel defect {res[0]['true_rel']:.3e}, "
+                     f"setup {res[0]['setup_s']:.2f} s, levels {res[0]['levels']}")
     sk.launches += k2
     bad = []
     for tag, res in (("15a 1 rank", a1), (f"15a {P15_RANKS} ranks", a4)):
@@ -5568,7 +5584,8 @@ def phase_parallel(torch, pt, dev):
         bad.append(f"15b config8: {b8[0]}")
     if max(max(r["r_err"], r["j_err"]) for r in b4) > P15_DG_REL:
         bad.append(f"15b SIPG: {[(r['r_err'], r['j_err']) for r in b4]}")
-    for tag, res in (("15c 1 rank", c1), (f"15c {P15_RANKS} ranks", c4)):
+    for tag, res in (("15c 1 rank", c1), (f"15c {P15_RANKS} ranks", c4),
+                     (f"15c {P15_RANKS} ranks, default setup", c4d)):
         if not (res[0]["converged"] and res[0]["true_rel"] <= 1e-9):
             bad.append(f"{tag}: {res[0]}")
     if abs(c4[0]["iterations"] - c1[0]["iterations"]) > 1:

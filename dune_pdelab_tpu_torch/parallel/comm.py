@@ -46,6 +46,11 @@ import torch.distributed as dist
 
 STATS: dict = {}
 
+# Extraction levels of `Comm.reproducible_sum`: each keeps 52 - t bits below
+# the bound (2^(t - 1) the global column count), three keep more than
+# float64's 53 for any column count below 2^32.
+_SUM_LEVELS = 3
+
 
 def reset_stats() -> None:
     STATS.clear()
@@ -228,14 +233,15 @@ class Comm:
             out = out[0]
         return out.to(torch.result_type(a, b))
 
-    def reproducible_sum(self, rows, levels=3):
+    def reproducible_sum(self, rows):
         """Row sums of a real float64 (k, n_local) tensor over every rank's
         columns, independent of how the columns are split (and of the order
         of any sum). Each level extracts q = (sigma + r) - sigma, the part
         of r on the grid of ulp(sigma) with sigma = 1.5 * 2^(e + t), 2^e
         bounding |r| and 2^(t - 1) the global column count: every sum of
         the q is exact in float64, in any order (Demmel and Nguyen's
-        reproducible summation), and the next level sums what is left. Two
+        reproducible summation), and the next of `_SUM_LEVELS` levels sums
+        what is left. Two
         small all-gathers (the bound, the level sums)."""
         k, n = rows.shape
         head = torch.cat([rows.abs().amax(dim=1) if n else rows.new_zeros(k),
@@ -248,7 +254,7 @@ class Comm:
         e = torch.ceil(torch.log2(torch.where(bound > 0, bound, 1.0)))[:, None]
         r = rows
         sums = []
-        for _ in range(levels):
+        for _ in range(_SUM_LEVELS):
             sigma = 1.5 * torch.exp2(e + t)
             q = (sigma + r) - sigma
             r = r - q
@@ -256,7 +262,7 @@ class Comm:
             e = e + t - 52
         total = self.allsum(torch.stack(sums))          # exact: any order
         out = total[0]
-        for lev in range(1, levels):
+        for lev in range(1, _SUM_LEVELS):
             out = out + total[lev]
         return out
 

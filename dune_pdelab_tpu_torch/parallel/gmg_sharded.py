@@ -11,9 +11,11 @@ novlpistlsolverbackend.hh:330-1128 + parallelhelper.hh:273-440):
   * transfers between sharded levels are neighbour-local for every order k:
     level paddings are 2:1 aligned (padded_f = 2 * padded_c along each
     sharded axis, the coarsest sharded level padded to a multiple of
-    nranks * k), so a rank's coarse rows depend on its own fine block plus
-    a few planes of its neighbours' (restriction: up to 2k - 1, prolongation:
-    one). Each transfer applies the sequential LatticeGMG's own 1D maps,
+    nranks * k, as the reference's), so a rank's coarse rows depend on its
+    own fine block plus a few planes of its neighbours' (restriction: up to
+    2k - 1, prolongation: one; the switch level's rank blocks are the
+    coarse rows of each rank's fine block, so it restricts the same way).
+    Each transfer applies the sequential LatticeGMG's own 1D maps,
     axis by axis in its order, to the halo-extended block: the same taps,
     weights and order of sums as the sequential transfer, whatever k. (The
     reference transfers Qk, k > 1, through a replicated full fine vector,
@@ -101,14 +103,18 @@ class ShardedLatticeGMG:
                              "sequential LatticeGMG")
         self.n_sharded = n_sharded
 
-        # 2:1-aligned paddings of the sharded axes, levels 0..n_sharded (the
-        # last: the layout the switch level restricts into)
-        grid_c = tuple(reversed(gmg.dims[n_sharded]))
+        # paddings of the sharded axes: 2:1 aligned from the coarsest sharded
+        # level up, as the reference's; then the layout the switch level
+        # restricts into (`_block_rows`: each rank the coarse rows of its own
+        # fine block)
+        coarsest = n_sharded - 1
+        grid_c = tuple(reversed(gmg.dims[coarsest]))
         padded = [None] * (n_sharded + 1)
-        padded[n_sharded] = tuple(_ceil_to(grid_c[a], nd * k)
-                                  for a, nd in enumerate(self.mesh_shape))
-        for l in range(n_sharded - 1, -1, -1):
+        padded[coarsest] = tuple(_ceil_to(grid_c[a], nd * k)
+                                 for a, nd in enumerate(self.mesh_shape))
+        for l in range(coarsest - 1, -1, -1):
             padded[l] = tuple(2 * p for p in padded[l + 1])
+        padded[n_sharded] = tuple(-(-p // 2) for p in padded[coarsest])
         self.padded = padded
         self.sstencils = [DofShardedStencil(gmg.stencils[l], group=self.group,
                                             mesh_shape=self.mesh_shape,
@@ -123,7 +129,13 @@ class ShardedLatticeGMG:
 
     # -- layouts ---------------------------------------------------------------
     def _block_rows(self, l, a, c):
-        """Rows [lo, hi) of block c along sharded axis a at level l."""
+        """Rows [lo, hi) of block c along sharded axis a at level l: equal
+        blocks on the sharded levels; on the switch level the coarse rows
+        (the even fine rows halved) of fine block c, which differ in length
+        by one at most."""
+        if l == self.n_sharded:
+            m = self.padded[l - 1][a] // self.mesh_shape[a]
+            return (c * m + 1) // 2, ((c + 1) * m + 1) // 2
         n = self.padded[l][a] // self.mesh_shape[a]
         return c * n, (c + 1) * n
 
@@ -149,8 +161,8 @@ class ShardedLatticeGMG:
                 need = _needed(idx, w, (f0, f1), nf)         # coarse planes
                 if need:
                     p_lo, p_hi = max(p_lo, c0 - need[0]), max(p_hi, need[1] - (c1 - 1))
-            if max(r_lo, r_hi) > self.padded[l][a] // nd or \
-                    max(p_lo, p_hi) > self.padded[l + 1][a] // nd:
+            if max(r_lo, r_hi) > self.padded[l][a] // nd or (
+                    l + 1 < self.n_sharded and max(p_lo, p_hi) > self.padded[l + 1][a] // nd):
                 raise ValueError("a transfer halo exceeds a neighbour's block; use "
                                  "fewer ranks along this axis or a larger gather_below")
             c = self.coords[a]
@@ -232,13 +244,17 @@ class ShardedLatticeGMG:
         """This rank's block of level l + 1 (the switch level) -> the whole
         level as a flat vector on every rank: one all-gather."""
         nax = len(self.mesh_shape)
-        parts = self.comm.allgather(rc.contiguous())
+        most = [-(-self.padded[l][a] // (2 * nd)) for a, nd in enumerate(self.mesh_shape)]
+        pad = [0, 0] * rc.ndim                   # equal shapes for the all-gather
+        for a in range(nax):
+            pad[2 * (rc.ndim - 1 - a) + 1] = most[a] - rc.shape[a]
+        parts = self.comm.allgather(torch.nn.functional.pad(rc, pad).contiguous())
         full = torch.zeros(self.padded[l + 1] + tuple(rc.shape[nax:]),
                            dtype=rc.dtype, device=rc.device)
         for r, p in enumerate(parts):
             c = np.unravel_index(r, self.mesh_shape)
-            sl = tuple(slice(*self._block_rows(l + 1, a, int(c[a]))) for a in range(nax))
-            full[sl] = p
+            rows = [self._block_rows(l + 1, a, int(c[a])) for a in range(nax)]
+            full[tuple(slice(*b) for b in rows)] = p[tuple(slice(0, hi - lo) for lo, hi in rows)]
         grid = tuple(reversed(self.seq.dims[l + 1]))
         return full[tuple(slice(0, n) for n in grid)].reshape(-1)
 

@@ -10,7 +10,9 @@ and J.v to 1e-10 relative, iteration counts equal, the reference tests'
 solution bounds. The renumbering and the windows are held index for index
 against the JAX package's WindowShardedGridOperator (built, not run), and
 the face groups' element arrays, leaf DOF maps and the volume origins the
-windowed operator reads against the JAX GridOperator's.
+windowed operator reads against the JAX GridOperator's. The JAX values are
+registered references (tests/torch_parallel_refs.py), computed ahead in
+worker threads while the tests wait for their ranks.
 """
 import json
 from pathlib import Path
@@ -30,19 +32,25 @@ from dune_pdelab_tpu_torch.parallel.launch import RankPool
 from dune_pdelab_tpu_torch.utils.common import set_default_device
 
 import torch_parallel_ranks as ranks
+from torch_parallel_refs import References
 
 pytestmark = pytest.mark.fast
 torch.set_num_threads(1)
 set_default_device("cpu")
 REL = 1e-10
 GOLDEN = json.loads((Path(__file__).parent / "golden_parity.json").read_text())
+REFS = References()
 
 
 @pytest.fixture(scope="module")
 def pool():
-    with RankPool(8, backend="gloo", device="cpu", timeout=600) as p:
-        p.run(ranks.warm_up)
-        yield p
+    REFS.start()
+    try:
+        with RankPool(8, backend="gloo", device="cpu", timeout=600) as p:
+            p.run(ranks.warm_up)
+            yield p
+    finally:
+        REFS.stop()
 
 
 def _rel(a, b):
@@ -146,23 +154,49 @@ def _twophase():
     return W, jpt.GridOperator(W, TwoPhaseCCFV(prm))
 
 
-def _reference(build, seed=0, x_dist=None, unconstrained=False):
-    """The JAX operator's residual and J.v at the rank test's seeded x, z."""
-    V, go = build()
+# the JAX operators of the parity tests, by the rank side's case names
+BUILDS = {
+    "cd": lambda: _cd_go(10, 2, 2),
+    "cd12q1": lambda: _cd_go(12, 2, 1),
+    "taylor_hood": _taylor_hood,
+    "outflow": _outflow,
+    "simplex_sipg": _simplex_sipg,
+    "adaptive": lambda: _adaptive((0, 5, 6), (0, 1)),
+    "ccfv": _ccfv,
+    "twophase": _twophase,
+    "adaptive_unit": lambda: _adaptive((0, 5), problem=Unit),
+}
+
+
+@REFS.reference(("cd", 0, None, False), ("cd12q1", 0, None, False),
+                ("taylor_hood", 0, None, False), ("outflow", 0, None, False),
+                ("simplex_sipg", 0, None, False), ("adaptive", 0, None, False),
+                ("ccfv", 0, None, True), ("twophase", 1, (0.5, 0.3), True),
+                ("adaptive_unit", 2, None, False), ("twophase", 5, (0.5, 0.3), True))
+def _reference(case, seed=0, x_dist=None, unconstrained=False):
+    """The JAX operator's residual and J.v at the rank test's seeded x, z
+    (the unconstrained CCFV and two-phase residuals jitted whole: they
+    compile faster so than op by op)."""
+    V, go = BUILDS[case]()
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal(V.ndofs) if x_dist is None
          else rng.normal(x_dist[0], x_dist[1], V.ndofs))
     z = rng.standard_normal(V.ndofs)
     x, z = jnp.asarray(x), jnp.asarray(z)
-    r = go.residual_unconstrained(x) if unconstrained else go.residual(x)
-    return np.asarray(r), np.asarray(go.jacobian_apply(x, z))
+    if unconstrained:
+        r, j = jax.jit(go.residual_unconstrained)(x), jax.jit(go.jacobian_apply)(x, z)
+    else:
+        r, j = go.residual(x), go.jacobian_apply(x, z)
+    return np.asarray(r), np.asarray(j)
 
 
-def _parity(pool, build, case, args=(), nranks=8, seed=0, x_dist=None,
-            unconstrained=False, owner=None, tol=REL):
+def _parity(pool, case, args=(), nranks=8, seed=0, x_dist=None,
+            unconstrained=False, owner=None, tol=REL, ref=None):
+    """The rank side's GOS[case](*args) against the JAX operator BUILDS[ref]
+    (default: the same name)."""
     task = pool.submit(ranks.residual_jvp, case, args, owner=owner, seed=seed, x_dist=x_dist,
                        nranks=nranks)
-    r, j = _reference(build, seed, x_dist, unconstrained)
+    r, j = _reference(ref or case, seed, x_dist, unconstrained)
     out = task.result()[0]
     assert _rel(out["r"], r) < tol
     assert _rel(out["j"], j) < tol
@@ -230,32 +264,39 @@ def test_window_renumbering_matches_reference(pool, case, build, args, n, owner)
 # ---- tests/test_windowed.py -----------------------------------------------------
 @pytest.mark.parametrize("ndev", [1, 3, 8])
 def test_windowed_cd_q2_parity(pool, ndev):
-    _parity(pool, _cd_go, "cd", (10, 2, 2), nranks=ndev)
+    _parity(pool, "cd", (10, 2, 2), nranks=ndev)
 
 
 def test_windowed_2d_device_mesh_block_partition(pool):
     """A (2, 4) rank grid with the block partition: halo-sized windows."""
     V, _ = _cd_go(12, 2, 1)
-    out = _parity(pool, lambda: _cd_go(12, 2, 1), "cd", (12, 2, 1), owner=(2, 4))
+    out = _parity(pool, "cd", (12, 2, 1), owner=(2, 4), ref="cd12q1")
     assert out["npeers"] >= 2
     assert out["W"] < V.ndofs
 
 
-def test_windowed_cg_iteration_parity(pool):
-    task = pool.submit(ranks.solve_windowed, "cd", (8, 2, 1), how="solve_cg")
-    V, go = _cd_go(8, 2, 1)
+@REFS.reference(("cd8q1",), ("adaptive510",))
+def _jacobi_cg(case):
+    """Jacobi-CG to 1e-12 at zero with the JAX operator: iterations and z."""
+    V, go = {"cd8q1": lambda: _cd_go(8, 2, 1), "adaptive510": lambda: _adaptive((5, 10))}[case]()
     x0 = V.zero()
     b = go.residual(x0)
     d = go.jacobian_diagonal(x0)
-    z1, s1 = jcg(lambda p: go.jacobian_apply(x0, p), b, M=lambda r: r / d, tol=1e-12)
+    z1, s1 = jcg(lambda q: go.jacobian_apply(x0, q), b, M=lambda r: r / d, tol=1e-12)
+    return int(s1.iterations), np.asarray(z1)
+
+
+def test_windowed_cg_iteration_parity(pool):
+    task = pool.submit(ranks.solve_windowed, "cd", (8, 2, 1), how="solve_cg")
+    its, z1 = _jacobi_cg("cd8q1")
     out = task.result()[0]
-    assert out["its"] == int(s1.iterations)
-    assert float(np.linalg.norm(out["z"] - np.asarray(z1))) < 1e-10
+    assert out["its"] == its
+    assert float(np.linalg.norm(out["z"] - z1)) < 1e-10
 
 
 def test_windowed_taylor_hood_stokes(pool):
     """A composite (Taylor-Hood) space under the window sharding."""
-    _parity(pool, _taylor_hood, "taylor_hood")
+    _parity(pool, "taylor_hood")
 
 
 def test_windowed_stokes_outflow_bc(pool):
@@ -263,30 +304,26 @@ def test_windowed_stokes_outflow_bc(pool):
     outflow): bctype-dependent alpha and lambda boundary terms land in the
     right windows. The dry run's mixed-BC mode is this problem at this
     size."""
-    _parity(pool, _outflow, "outflow")
+    _parity(pool, "outflow")
 
 
 def test_windowed_simplex_sipg(pool):
     """Simplex mesh + DG skeleton terms (per-face geometry and tabs)."""
-    _parity(pool, _simplex_sipg, "simplex_sipg")
+    _parity(pool, "simplex_sipg")
 
 
 def test_windowed_adaptive_hanging_nodes(pool):
     """Hanging-node (affine) constraints: window-local prolong and
     restrict-transpose reproduce the sequential P / P^T."""
-    _parity(pool, lambda: _adaptive((0, 5, 6), (0, 1)), "adaptive", ((0, 5, 6), (0, 1)))
+    _parity(pool, "adaptive", ((0, 5, 6), (0, 1)))
 
 
 def test_windowed_adaptive_solve_parity(pool):
     task = pool.submit(ranks.adaptive_solve)
-    V, go = _adaptive((5, 10))
-    x0 = V.zero()
-    b = go.residual(x0)
-    d = go.jacobian_diagonal(x0)
-    z1, s1 = jcg(lambda q: go.jacobian_apply(x0, q), b, M=lambda r: r / d, tol=1e-12)
+    its, z1 = _jacobi_cg("adaptive510")
     out = task.result()[0]
-    assert out["its"] == int(s1.iterations)
-    assert float(np.linalg.norm(out["z"] - np.asarray(z1))) < 1e-9
+    assert out["its"] == its
+    assert float(np.linalg.norm(out["z"] - z1)) < 1e-9
 
 
 def test_windowed_comm_is_halo_only(pool):
@@ -307,15 +344,16 @@ def test_sharded_alias_is_windowed(pool):
 
 
 def test_windowed_ccfv_p0_parity(pool):
-    _parity(pool, _ccfv, "ccfv", nranks=2, unconstrained=True)
+    _parity(pool, "ccfv", nranks=2, unconstrained=True)
 
 
 def test_windowed_twophase_parity(pool):
     """Two-phase CCFV on PowerSpace(P0, 2) (heterogeneous K, gravity,
     Dirichlet and no-flow) on 8 ranks."""
-    _parity(pool, _twophase, "twophase", seed=1, x_dist=(0.5, 0.3), unconstrained=True)
+    _parity(pool, "twophase", seed=1, x_dist=(0.5, 0.3), unconstrained=True)
 
 
+@REFS.reference((8, 1e-13, 2000), (6, 1e-7, 500))
 def _jax_adjoint(n, tol, maxiter):
     from dune_pdelab_tpu.solvers import implicit_solve
     V = jpt.FunctionSpace(jpt.StructuredMesh([0, 0], [1, 1], (n, n)), jpt.QkFEM(1, 2))
@@ -359,10 +397,9 @@ def test_windowed_adjoint_gradient_parity(pool, n, tol, maxiter):
     assert _rel(out["seq"], g) < (1e-10 if tol < 1e-10 else 1e-8)
 
 
-def test_windowed_instationary_trajectory_parity(pool):
-    """Three implicit-Euler steps of the heat equation through window-sharded
-    go0 / go1 (OneStepMethod + Newton + CG unchanged) reproduce the JAX
-    package's sequential trajectory."""
+@REFS.reference()
+def _jax_instationary():
+    """Three implicit-Euler steps of the JAX package's heat equation."""
     from dune_pdelab_tpu.instationary import OneStepMethod, implicit_euler
     from dune_pdelab_tpu.ops import L2
     from dune_pdelab_tpu.solvers import SEQ_CG_Jacobi
@@ -371,7 +408,6 @@ def test_windowed_instationary_trajectory_parity(pool):
         def g(self, x):
             return x[..., 0] * 0.0
 
-    task = pool.submit(ranks.instationary)
     p = Heat()
     V = jpt.FunctionSpace(jpt.StructuredMesh([0, 0], [1, 1], (8, 8)), jpt.QkFEM(1, 2))
     cgm = jpt.constraints(p.dirichlet_bctype(), V)
@@ -384,9 +420,18 @@ def test_windowed_instationary_trajectory_parity(pool):
     for _ in range(3):
         x = osm.apply(t, dt, x)
         t += dt
+    return np.asarray(x)
+
+
+def test_windowed_instationary_trajectory_parity(pool):
+    """Three implicit-Euler steps of the heat equation through window-sharded
+    go0 / go1 (OneStepMethod + Newton + CG unchanged) reproduce the JAX
+    package's sequential trajectory."""
+    task = pool.submit(ranks.instationary)
+    x = _jax_instationary()
     out = task.result()[0]
     assert np.abs(out["par"] - out["seq"]).max() < 1e-13
-    assert np.abs(out["par"] - np.asarray(x)).max() < 1e-12
+    assert np.abs(out["par"] - x).max() < 1e-12
 
 
 def test_config8_golden(pool):
@@ -399,28 +444,42 @@ def test_config8_golden(pool):
 
 
 # ---- __graft_entry__.dryrun_multichip modes at its sizes, 8 ranks ---------------
-def _th_true_rel(go, x0, bs, z):
+@REFS.memo
+def _th_graft():
+    """Modes 6 and 6b's JAX operator (8^2 Taylor-Hood), x0 = 0, the seeded
+    x and b = R(x)."""
+    W, go = _taylor_hood(8)
+    xr = jnp.asarray(np.random.default_rng(7).standard_normal(W.ndofs))
+    return go, W.zero(), xr, go.residual(xr)
+
+
+def _th_true_rel(z):
     """The true relative residual of a solution, taken with the JAX operator."""
+    go, x0, _, bs = _th_graft()
     return float(jnp.linalg.norm(go.jacobian_apply(x0, jnp.asarray(z)) - bs)
                  / jnp.linalg.norm(bs))
+
+
+@REFS.reference()
+def _jax_th_gmres():
+    """Mode 6's J.v at x and unpreconditioned GMRES(80) iterations."""
+    from dune_pdelab_tpu.linalg.krylov import restarted_gmres as jgmres
+    go, x0, xr, bs = _th_graft()
+    _, s1 = jax.jit(lambda b: jgmres(lambda p: go.jacobian_apply(x0, p), b, tol=1e-5,
+                                     maxiter=400, restart=80))(bs)
+    return np.asarray(go.jacobian_apply(x0, xr)), int(s1.iterations)
 
 
 def test_multichip_taylor_hood_gmres(pool):
     """Mode 6: the 8^2 Taylor-Hood J.v and unpreconditioned GMRES(80) to
     1e-5 through the sharded operator: the JAX package's 400 iterations,
     the true relative residual (with the JAX operator) under 1e-3."""
-    from dune_pdelab_tpu.linalg.krylov import restarted_gmres as jgmres
     task = pool.submit(ranks.graft_stokes, False)
-    W, go = _taylor_hood(8)
-    x0 = W.zero()
-    xr = jnp.asarray(np.random.default_rng(7).standard_normal(W.ndofs))
-    bs = go.residual(xr)
-    _, s1 = jax.jit(lambda b: jgmres(lambda p: go.jacobian_apply(x0, p), b, tol=1e-5,
-                                     maxiter=400, restart=80))(bs)
+    y, its = _jax_th_gmres()
     out = task.result()[0]
-    assert _rel(out["y"], np.asarray(go.jacobian_apply(x0, xr))) < REL
-    assert out["its"] == int(s1.iterations)
-    assert _th_true_rel(go, x0, bs, out["z"]) < 1e-3
+    assert _rel(out["y"], y) < REL
+    assert out["its"] == its
+    assert _th_true_rel(out["z"]) < 1e-3
 
 
 def test_multichip_gmg_schur_gmres(pool):
@@ -428,18 +487,15 @@ def test_multichip_gmg_schur_gmres(pool):
     operator: under 100 iterations, true relative residual (with the JAX
     operator) under 5e-5."""
     task = pool.submit(ranks.graft_stokes, True)
-    W, go = _taylor_hood(8)
-    x0 = W.zero()
-    bs = go.residual(jnp.asarray(np.random.default_rng(7).standard_normal(W.ndofs)))
     out = task.result()[0]
-    assert out["its"] < 100 and _th_true_rel(go, x0, bs, out["z"]) < 5e-5
+    assert out["its"] < 100 and _th_true_rel(out["z"]) < 5e-5
 
 
 def test_multichip_adaptive_and_twophase(pool):
     """Modes 8 and 11: the adaptive mesh refined at elements (0, 5) and the
     two-phase operator at x ~ N(0.5, 0.3) (seed 5), 8 ranks."""
-    _parity(pool, lambda: _adaptive((0, 5), problem=Unit), "adaptive_unit", ((0, 5),), seed=2)
-    _parity(pool, _twophase, "twophase", seed=5, x_dist=(0.5, 0.3), unconstrained=True)
+    _parity(pool, "adaptive_unit", ((0, 5),), seed=2)
+    _parity(pool, "twophase", seed=5, x_dist=(0.5, 0.3), unconstrained=True)
 
 
 def test_sharded_context_mixin_matches_reference():

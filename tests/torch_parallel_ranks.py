@@ -657,7 +657,8 @@ def lattice_gmg(group, cells, k=1, mesh_shape=None, gather_below=500, seed=0,
     pcomm.reset_stats()
     z = sh.apply_flat(b)
     out = {"z": _np(z), "z_seq": _np(gmg.apply(b)), "n_sharded": sh.n_sharded,
-           "fine": V.ndofs, "coarse_switch": int(np.prod(gmg.dims[sh.n_sharded]))}
+           "fine": V.ndofs, "coarse_switch": int(np.prod(gmg.dims[sh.n_sharded])),
+           "padded": [s.padded_shape for s in sh.sstencils]}
     pcomm.reset_stats()
     sh.apply(sh.device_put(b))
     out["vcycle_stats"] = pcomm.stats()
