@@ -195,13 +195,37 @@ Phases (each passes or raises; there is no CPU path):
      the true defect). Each sub-phase logs its wall seconds, rank 0's seconds and bytes
      of communication and the ranks' stencil27 launches, which the ranks
      count in their own processes and this process adds to its count.
+ 16. slice 13d, io, models and selective assembly: (a)
+     models.solve_stationary on phase 4's README problem at 127^3 in fp32
+     on the stencil tier (stencil27; phase 4's 149 Jacobi-CG iterations),
+     StationaryResultBundle.vtk through the native binary writer (2,097,152
+     vertices; the decoded payload equals the host copy bit for bit; write
+     seconds and MB/s), the ASCII .vtu of a 32^3 solution written from the
+     card equal to the one the CPU port writes from its host copy, and a
+     ParallelVTKWriter over four parts of parallel/'s load balancing that
+     covers every cell once; (b) a tetrahedral MSH 2 file written here,
+     read by the native and the Python parser (equal arrays and tags, the
+     seconds of each) and solved by P1 SEQ_CG_AMG (iterations, L2 error);
+     (c) read_dgf on a 512^2 Interval block: the Q1 solve equals the
+     StructuredGrid one bit for bit; (d) selective assembly in fp64: the
+     complementary skip_entity operators' residual and J.v sum to the full
+     operator's at 512^2 Q1, the skip_intersection partition identity at
+     256^2 SIPG (1e-12 of the largest entry), the card against the CPU at
+     16^2 (1e-12), and K3 declining a 64^3 selective operator; (e)
+     solve_instationary from tests/test_boilerplate_config.py's INI at
+     256^2 with its .pvd and checkpoints written from the card: t = 0.2,
+     the latest checkpoint step 8, the L2 error below that test's 0.01.
 
-Launch counts are set to 0 before each of phases 3 to 15 and read after
+The goldens of phases 5d, 6e, 7d, 8b, 9b, 10b, 11a, 12a, 13a and 15b run
+through the port's own configurations, dune_pdelab_tpu_torch.models.ALL_CONFIGS
+(config5's mass_cheby=0 variant through its recipe with that setting).
+
+Launch counts are set to 0 before each of phases 3 to 16 and read after
 it; a kernel of that path that was never launched fails the run (the
 comparison launches of phases 6a, 6c, 7a, 9a, 9c, 13k and 15a are not
 counted). Prints phase results and times, the card's name and power limit,
 one JSON line {"kernels": [...]} with each kernel's launches over phases
-3-15, error, times and bound, and as its last line {"ok": true, "device":
+3-16, error, times and bound, and as its last line {"ok": true, "device":
 {...}}.
 """
 from __future__ import annotations
@@ -423,6 +447,30 @@ P15_APPLY_REL = 1e-6
 P15_DG_CELLS = 256        # 15b: 256^2 degree-1 SIPG, 262,144 DOFs, fp64
 P15_DG_REL = 1e-12        # 15b: sharded residual and J.v against one rank's (fp64)
 P15_AMG_CELLS = 1024      # 15c: phase 11b's simplex P1 problem, 1,050,625 DOFs, fp64
+# phase 16 (slice 13d: io, models, selective assembly)
+P16_ASCII_CELLS = 32      # 16a: the ASCII .vtu written from the card and from the CPU
+P16_PARTS = 4             # 16a: ParallelVTKWriter pieces (parallel/ load balancing)
+P16_MSH_CELLS = 56        # 16b: 6 * 56^3 = 1,053,696 Kuhn tets (the Python parser
+                          #      takes ~7 s on an 8-core CPU box)
+P16_DGF_CELLS = 512       # 16c: a 512^2 Interval block, Q1
+P16_SEL_Q1 = 512          # 16d: complementary skip_entity, 2D Q1
+P16_SEL_DG = 256          # 16d: skip_intersection partition, 2D SIPG degree 1
+P16_SEL_CPU = 16          # 16d: card against the CPU
+P16_SEL_K3 = 64           # 16d: K3 declines a selective 3D Q1 operator
+P16_SEL_REL = 1e-12
+P16_HEAT_CELLS = 256      # 16e: the INI heat problem, CN dt 0.025 to 0.2
+P16_HEAT_L2_MAX = 0.01    # 16e: tests/test_boilerplate_config.py's bound
+P16_INI = """
+[time]
+scheme = crank_nicolson
+dt = 0.025
+tend = 0.2
+
+[linear_solver]
+type = cg
+preconditioner = jacobi
+maxiter = 4000
+"""
 CARD = "card not read yet"   # nvidia-smi name and power limit, set by main()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -1112,47 +1160,22 @@ def mg_varsolve(torch, pt, sizes, dev):
 
 
 def mg_config13(torch, pt, cells, dev):
-    """Phase 5 (d): config13_scale_lattice_gmg (models/configs.py:525-562,
+    """Phase 5 (d): the port's ALL_CONFIGS["config13"] (one process, so
     without the sharded cross-check) in fp64 on the card, held against
     tests/golden_parity.json."""
-    from dune_pdelab_tpu_torch.assembly.stencil import compile_stencil
-    from dune_pdelab_tpu_torch.linalg.gmg_lattice import LatticeGMG
-    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
-    from dune_pdelab_tpu_torch.space.functions import l2_difference
-
-    class Sine3D(ConvectionDiffusionProblem):
-        def exact(self, p):
-            return (torch.sin(math.pi * p[:, 0]) * torch.sin(math.pi * p[:, 1])
-                    * torch.sin(math.pi * p[:, 2]))
-
-        def f(self, x):
-            return 3 * math.pi**2 * (torch.sin(math.pi * x[..., 0])
-                                     * torch.sin(math.pi * x[..., 1])
-                                     * torch.sin(math.pi * x[..., 2]))
-
-        def g(self, x):
-            return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
 
     golden = json.loads((ROOT / "tests" / "golden_parity.json").read_text())[
         "config13_scale_lattice_gmg"]
-    p = Sine3D()
-    t0 = time.perf_counter()
-    V, cgm, lop, go = q1_operator(torch, pt, p, (cells,) * 3, dev)
-    x0 = pt.interpolate_dirichlet(p.g, V, cgm, V.zero(torch.float64, dev))
-    b = -go.residual(x0, 0.0)
-    st = compile_stencil(go, dtype=torch.float64, device=dev)
-    gmg = LatticeGMG(V, lop, fine_stencil=st)
-    z, info = gmg.solve_host(b, tol=1e-10, maxiter=60)
-    x = x0 + z
-    l2 = float(l2_difference(V, x, p.exact))
-    wall = time.perf_counter() - t0
+    got, wall = timed(torch, lambda: ALL_CONFIGS["config13"](cells=cells, device=dev))
+    l2 = got["l2_error"]
     rel = abs(l2 - golden["l2_error"]) / golden["l2_error"]
-    log(f"[phase 5d] config13 {cells}^3 fp64 (N = {V.ndofs}): {info['iterations']} "
-        f"iterations, {gmg.nlevels} levels, L2 error {l2:.16e} (golden "
+    log(f"[phase 5d] config13 {cells}^3 fp64 (N = {got['ndofs']}): {got['iterations']} "
+        f"iterations, {got['levels']} levels, L2 error {l2:.16e} (golden "
         f"{golden['l2_error']:.16e}, rel {rel:.2e}), true rel defect "
-        f"{info['true_defect'] / info['defect0']:.3e}, {wall:.2f} s")
-    if not (info["iterations"] == golden["iterations"] and gmg.nlevels == golden["levels"]
-            and V.ndofs == golden["ndofs"] and rel <= 1e-6):
+        f"{got['true_rel_defect']:.3e}, {wall:.2f} s")
+    if not (got["iterations"] == golden["iterations"] and got["levels"] == golden["levels"]
+            and got["ndofs"] == golden["ndofs"] and rel <= 1e-6):
         raise AssertionError("config13 golden mismatch")
 
 
@@ -1435,49 +1458,24 @@ def asm_solve(torch, pt, go, b, cells_small, dev):
 
 
 def asm_ilu(torch, pt, dev):
-    """Phase 6e: the config9_assembled_ilu golden in fp64 on the card, and
-    SEQ_CG_ILU0 on the assembled-path problem next to Jacobi-CG."""
+    """Phase 6e: the config9_assembled_ilu golden through the port's
+    ALL_CONFIGS in fp64 on the card, and SEQ_CG_ILU0 on the assembled-path
+    problem next to Jacobi-CG."""
     from dune_pdelab_tpu_torch.linalg.ilu import ilu0_preconditioner
-    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
     from dune_pdelab_tpu_torch.solvers import LinearSolverBackend, SEQ_CG_ILU0
-    from dune_pdelab_tpu_torch.space.functions import l2_difference
-
-    pi = math.pi
-
-    class Var3D(ConvectionDiffusionProblem):
-        """models/configs.py:320-362 config9_assembled_ilu."""
-
-        def exact(self, p):
-            return (torch.sin(pi * p[:, 0]) * torch.sin(pi * p[:, 1])
-                    * torch.sin(pi * p[:, 2]))
-
-        def A(self, x):
-            a = 1.0 + 0.5 * torch.sin(2 * x[..., 0]) * x[..., 1]
-            return a[..., None, None] * torch.eye(3, dtype=x.dtype, device=x.device)
-
-        def f(self, x):
-            xx, yy, zz = x[..., 0], x[..., 1], x[..., 2]
-            sx, sy, sz = torch.sin(pi * xx), torch.sin(pi * yy), torch.sin(pi * zz)
-            a = 1.0 + 0.5 * torch.sin(2 * xx) * yy
-            ux = pi * torch.cos(pi * xx) * sy * sz
-            uy = pi * sx * torch.cos(pi * yy) * sz
-            return (3 * pi**2 * a * sx * sy * sz - torch.cos(2 * xx) * yy * ux
-                    - 0.5 * torch.sin(2 * xx) * uy)
 
     golden = json.loads((ROOT / "tests" / "golden_parity.json").read_text())[
         "config9_assembled_ilu"]
-    p = Var3D()
-    V, cgm, _, go = q1_operator(torch, pt, p, (C9_CELLS,) * 3, dev)
-    ls = SEQ_CG_ILU0(use_stencil=False)
-    slp = pt.StationaryLinearProblemSolver(go, ls, reduction=1e-10, verbose=0)
-    x, wall = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
-    l2 = float(l2_difference(V, x, p.exact))
-    its = slp.result.linear_solver_iterations
+    info = {}
+    got, wall = timed(torch, lambda: ALL_CONFIGS["config9"](cells=C9_CELLS, device=dev,
+                                                            info=info))
+    l2, its = got["l2_error"], got["iterations"]
     rel = abs(l2 - golden["l2_error"]) / golden["l2_error"]
-    log(f"[phase 6e] config9 {C9_CELLS}^3 fp64 (N = {V.ndofs}): {its} iterations, L2 "
+    log(f"[phase 6e] config9 {C9_CELLS}^3 fp64 (N = {got['ndofs']}): {its} iterations, L2 "
         f"{l2:.16e} (golden {golden['l2_error']:.16e}, rel {rel:.2e}), {wall:.2f} s; "
-        f"{ls.report(go).splitlines()[0]}")
-    if not (its == golden["iterations"] and V.ndofs == golden["ndofs"] and rel <= 1e-6):
+        f"{info['ls'].report(info['go']).splitlines()[0]}")
+    if not (its == golden["iterations"] and got["ndofs"] == golden["ndofs"] and rel <= 1e-6):
         raise AssertionError("config9 golden mismatch")
 
     _, _, _, go = q1_operator(torch, pt, varcoeff_problem(), (ILU_CELLS,) * 3, dev)
@@ -1784,60 +1782,28 @@ def dgmg_half(torch, pt, cells, dev, runs=1):
 
 def dg_goldens(torch, pt, dev):
     """Phase 7d: config3 (BiCGStab + Jacobi on the element-major block
-    stencil) and config7 (CG + DGTwoLevel) in fp64 on the card, against
-    tests/golden_parity.json and the JAX package's CPU numbers."""
+    stencil) and config7 (CG + DGTwoLevel) through the port's ALL_CONFIGS in
+    fp64 on the card, against tests/golden_parity.json and the JAX
+    package's CPU numbers."""
     from dune_pdelab_tpu_torch.kernels import blockstencil as bk
-    from dune_pdelab_tpu_torch.linalg import DGTwoLevel
-    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionDG, ConvectionDiffusionFEM
-    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem
-    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend, SEQ_BCGS_Jacobi
-    from dune_pdelab_tpu_torch.space.functions import l2_difference
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
 
-    pi = math.pi
     golden = json.loads((ROOT / "tests" / "golden_parity.json").read_text())
-
-    class Sine2D(ConvectionDiffusionProblem):
-        """models/configs.py _Sine2D."""
-
-        def exact(self, p):
-            return torch.sin(pi * p[:, 0]) * torch.cos(2 * pi * p[:, 1]) + p[:, 0]
-
-        def f(self, x):
-            return 5 * pi**2 * torch.sin(pi * x[..., 0]) * torch.cos(2 * pi * x[..., 1])
-
-        def g(self, x):
-            return torch.sin(pi * x[..., 0]) * torch.cos(2 * pi * x[..., 1]) + x[..., 0]
-
-    class CD(Sine2D):
-        """config3's convection (models/configs.py:85-110)."""
-
-        def b(self, x):
-            return torch.broadcast_to(torch.tensor([1.0, 0.5], dtype=x.dtype,
-                                                   device=x.device), x.shape)
-
-        def f(self, x):
-            gx = pi * torch.cos(pi * x[..., 0]) * torch.cos(2 * pi * x[..., 1]) + 1.0
-            gy = -2 * pi * torch.sin(pi * x[..., 0]) * torch.sin(2 * pi * x[..., 1])
-            return super().f(x) + 1.0 * gx + 0.5 * gy
-
     want = golden["config3_convdiff_sipg"]
-    p = CD()
     for red in (1e-10, 1e-13):
-        V = pt.FunctionSpace(pt.StructuredMesh([0, 0], [1, 1], (32, 32)), pt.QkDGFEM(2, 2))
-        go = pt.GridOperator(V, ConvectionDiffusionDG(p))
-        ls = SEQ_BCGS_Jacobi()
-        slp = pt.StationaryLinearProblemSolver(go, ls, reduction=red, verbose=0)
+        info = {}
         em0 = bk.launches_em
-        x, wall = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
-        l2 = float(l2_difference(V, x, p.exact))
-        its = slp.result.linear_solver_iterations
-        rep = ls.report(go).splitlines()[0] + f"; block_stencil_em launches {bk.launches_em - em0}"
+        got, wall = timed(torch, lambda: ALL_CONFIGS["config3"](reduction=red, device=dev,
+                                                                info=info))
+        l2, its = got["l2_error"], got["iterations"]
+        rep = (info["ls"].report(info["go"]).splitlines()[0]
+               + f"; block_stencil_em launches {bk.launches_em - em0}")
         ref = want["l2_error"] if red == 1e-10 else CONFIG3_L2_TIGHT
         rel = abs(l2 - ref) / ref
         log(f"[phase 7d] config3 fp64 to {red:.0e}: {its} BiCGStab steps, L2 {l2:.16e} "
             f"(rel {rel:.2e} to {'the golden' if red == 1e-10 else 'the JAX package at 1e-13'}"
             f"), {wall:.2f} s; {rep}")
-        if "blockstencil CUDA kernel" not in rep or not slp.result.converged:
+        if "blockstencil CUDA kernel" not in rep or not got["converged"]:
             raise AssertionError("config3 did not run the element-major block stencil kernel")
         if red == 1e-10 and not (abs(its - want["iterations"]) <= CONFIG3_STEPS_BAND
                                  and rel <= CONFIG3_L2_BAND):
@@ -1846,21 +1812,14 @@ def dg_goldens(torch, pt, dev):
             raise AssertionError("config3 converged L2 differs from the JAX package's")
 
     want = golden["config7_dg_twolevel"]
-    p = Sine2D()
-    V = pt.FunctionSpace(pt.StructuredMesh([0, 0], [1, 1], (32, 32)), pt.QkDGFEM(1, 2))
-    go = pt.GridOperator(V, ConvectionDiffusionDG(p))
-    pre = DGTwoLevel(go, ConvectionDiffusionFEM(p), bctype=p.dirichlet_bctype())
-    ls = LinearSolverBackend(solver="cg", precond=pre, use_stencil=False)
-    slp = pt.StationaryLinearProblemSolver(go, ls, reduction=1e-10, verbose=0)
     em0 = bk.launches_em
-    x, wall = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
-    l2 = float(l2_difference(V, x, p.exact))
-    its = slp.result.linear_solver_iterations
+    got, wall = timed(torch, lambda: ALL_CONFIGS["config7"](device=dev))
+    l2, its = got["l2_error"], got["iterations"]
     rel = abs(l2 - want["l2_error"]) / want["l2_error"]
     log(f"[phase 7d] config7 fp64: {its} CG steps (the JAX package: {CONFIG7_STEPS}), L2 "
         f"{l2:.16e} (golden {want['l2_error']:.16e}, rel {rel:.2e}), {wall:.2f} s; "
         f"block_stencil_em launches {bk.launches_em - em0}")
-    if not (slp.result.converged and its == CONFIG7_STEPS and rel <= 1e-8):
+    if not (got["converged"] and its == CONFIG7_STEPS and rel <= 1e-8):
         raise AssertionError("config7 golden mismatch")
 
 
@@ -1971,24 +1930,20 @@ def gmg_solve(torch, pt, cells, dev, instrument=False):
 
 
 def gmg_config2(torch, pt, dev):
-    """Phase 8b: the config2_poisson_3d_gmg golden at C2_CELLS^3 in fp64."""
-    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
-    from dune_pdelab_tpu_torch.space.functions import l2_difference
+    """Phase 8b: the config2_poisson_3d_gmg golden at C2_CELLS^3 through the
+    port's ALL_CONFIGS in fp64."""
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
 
     want = json.loads((ROOT / "tests" / "golden_parity.json").read_text())[
         "config2_poisson_3d_gmg"]
-    V, go, gmg, p = gmg_poisson(torch, pt, C2_CELLS, dev)
-    slp = pt.StationaryLinearProblemSolver(
-        go, LinearSolverBackend(solver="cg", precond=gmg), reduction=1e-10, verbose=0)
-    x, wall = timed(torch, lambda: slp.apply(V.zero(torch.float64, dev)))
-    l2 = float(l2_difference(V, x, p.exact))
-    its = slp.result.linear_solver_iterations
+    got, wall = timed(torch, lambda: ALL_CONFIGS["config2"](cells=C2_CELLS, device=dev))
+    l2, its = got["l2_error"], got["iterations"]
     rel = abs(l2 - want["l2_error"]) / want["l2_error"]
-    log(f"[phase 8b] config2 fp64 {C2_CELLS}^3 (ndofs {V.ndofs}): {its} CG iterations on "
-        f"{gmg.nlevels} levels, L2 {l2:.16e} (golden {want['l2_error']:.16e}, rel "
+    log(f"[phase 8b] config2 fp64 {C2_CELLS}^3 (ndofs {got['ndofs']}): {its} CG iterations "
+        f"on {got['levels']} levels, L2 {l2:.16e} (golden {want['l2_error']:.16e}, rel "
         f"{rel:.2e}), {wall:.2f} s")
-    if not (slp.result.converged and its == want["iterations"]
-            and gmg.nlevels == want["levels"] and V.ndofs == want["ndofs"] and rel <= 1e-8):
+    if not (got["converged"] and its == want["iterations"] and got["levels"] == want["levels"]
+            and got["ndofs"] == want["ndofs"] and rel <= 1e-8):
         raise AssertionError("config2 golden mismatch")
 
 
@@ -2171,16 +2126,20 @@ def newton_heat(torch, pt, dev):
 
 def newton_config4(torch, pt, dev):
     """Phase 9b: the config4_heat_theta_newton golden (2D 16^2 Q1, fp64,
-    general-jvp tier) on the card."""
+    general-jvp tier) through the port's ALL_CONFIGS on the card."""
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
+
     want = json.loads((ROOT / "tests" / "golden_parity.json").read_text())[
         "config4_heat_theta_newton"]
-    (l2, nits, rec, rep, N, _), wall = timed(torch, lambda: heat_run(
-        torch, pt, 2, 16, torch.float64, dev, matrix_free=True))
+    info = {}
+    got, wall = timed(torch, lambda: ALL_CONFIGS["config4"](device=dev, info=info))
+    l2, nits = got["l2_error"], got["newton_iterations"]
     rel = abs(l2 - want["l2_error"]) / want["l2_error"]
-    log(f"[phase 9b] config4 fp64 (ndofs {N}): {nits} Newton iterations, L2 {l2:.16e} "
-        f"(golden {want['l2_error']:.16e}, rel {rel:.2e}), {wall:.2f} s; "
-        f"{rep.splitlines()[0]}")
-    if not (nits == want["newton_iterations"] and N == want["ndofs"] and rel <= 1e-8):
+    log(f"[phase 9b] config4 fp64 (ndofs {got['ndofs']}): {nits} Newton iterations, L2 "
+        f"{l2:.16e} (golden {want['l2_error']:.16e}, rel {rel:.2e}), {wall:.2f} s; "
+        f"{info['ls'].report().splitlines()[0]}")
+    if not (nits == want["newton_iterations"] and got["ndofs"] == want["ndofs"]
+            and rel <= 1e-8):
         raise AssertionError("config4 golden mismatch")
 
 
@@ -2503,7 +2462,8 @@ def stokes_at_scale(torch, pt, dev):
 
 
 def config5_run(torch, pt, dev, mass_cheby):
-    """models/configs.py config5_stokes_taylor_hood on the port, fp64."""
+    """models/configs.py config5_stokes_taylor_hood's recipe on the port,
+    fp64, with StokesGMGSchur's pressure-mass Chebyshev degree set."""
     from dune_pdelab_tpu_torch.ops import NavierStokesParameters, TaylorHoodNavierStokes
     from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
     from dune_pdelab_tpu_torch.solvers.stokes import (
@@ -2519,52 +2479,9 @@ def config5_run(torch, pt, dev, mass_cheby):
                                                     device=dev))
     slp = pt.StationaryLinearProblemSolver(go, ls, reduction=1e-9, verbose=0)
     x = slp.apply(W.zero(torch.float64, dev))
-    return (slp.result.converged, slp.result.linear_solver_iterations, W.ndofs,
-            velocity_l2(W, x, stokes_u2d))
-
-
-def config10_run(torch, pt, dev):
-    """models/configs.py config10_stokes_outflow on the port, fp64."""
-    from dune_pdelab_tpu_torch.ops import (
-        NavierStokesParameters, StokesBC, TaylorHoodNavierStokes,
-    )
-    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
-    from dune_pdelab_tpu_torch.solvers.stokes import StokesBlockJacobi, taylor_hood_space
-    from dune_pdelab_tpu_torch.space.functions import l2_difference
-
-    MU, L, P0 = 0.7, 2.0, 1.3
-
-    def u_exact(p):
-        return torch.stack([p[:, 1] * (1 - p[:, 1]), torch.zeros_like(p[:, 0])], dim=-1)
-
-    class Poiseuille(NavierStokesParameters):
-        def g(self, x):
-            return torch.stack([x[..., 1] * (1 - x[..., 1]), torch.zeros_like(x[..., 0])],
-                               dim=-1)
-
-        def bctype(self, x):
-            on_wall = (x[..., 1] < 1e-10) | (x[..., 1] > 1 - 1e-10)
-            return torch.where(on_wall, StokesBC.VELOCITY_DIRICHLET,
-                               torch.where(x[..., 0] > L - 1e-10, StokesBC.STRESS_NEUMANN,
-                                           StokesBC.VELOCITY_DIRICHLET))
-
-        def j(self, x, normal):
-            return P0 * normal
-
-    prm = Poiseuille(mu=MU, rho=0.0)
-    W = taylor_hood_space(pt.StructuredMesh([0.0, 0.0], [L, 1.0], (12, 6)), degree=2)
-    cgm = pt.constraints((prm.velocity_bctype(), None), W, device=dev)
-    go = pt.GridOperator(W, TaylorHoodNavierStokes(prm), constraints=cgm)
-    ls = LinearSolverBackend(solver="gmres", precond=StokesBlockJacobi(W, MU, device=dev),
-                             restart=150, maxiter=40000)
-    slp = pt.StationaryLinearProblemSolver(go, ls, reduction=1e-11, verbose=0)
-    xg = W.interpolate((u_exact, lambda p: torch.zeros(len(p), dtype=torch.float64)),
-                       dtype=torch.float64, device=dev)
-    x = slp.apply(torch.where(cgm.mask, xg, 0.0))
-    l2_p = float(l2_difference(W.children[1], W.restrict(x, 1),
-                               lambda p: 2 * MU * (L - p[:, 0]) + P0))
-    return (slp.result.converged, slp.result.linear_solver_iterations, W.ndofs,
-            velocity_l2(W, x, u_exact), l2_p)
+    return {"converged": slp.result.converged,
+            "iterations": slp.result.linear_solver_iterations, "ndofs": W.ndofs,
+            "velocity_l2_error": velocity_l2(W, x, stokes_u2d)}
 
 
 def interleaved_residual(torch, pt, dev):
@@ -2608,23 +2525,32 @@ def interleaved_residual(torch, pt, dev):
 
 
 def stokes_goldens(torch, pt, dev):
-    """Phase 10b: config5 and config10 in fp64 on the card, and the
-    interleaved residual's repeatability."""
+    """Phase 10b: config5 and config10 through the port's ALL_CONFIGS in fp64
+    on the card (and config5's recipe with the Jacobi pressure-mass Schur,
+    mass_cheby=0, that the golden was recorded with), and the interleaved
+    residual's repeatability."""
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
+
     gold = json.loads((ROOT / "tests" / "golden_parity.json").read_text())
     c5, c10 = gold["config5_stokes_taylor_hood"], gold["config10_stokes_outflow"]
-    for mass_cheby, want_its in ((4, JAX_CONFIG5_ITS), (0, c5["iterations"])):
-        (conv, its, n, l2), wall = timed(torch, lambda: config5_run(torch, pt, dev, mass_cheby))
+    runs = ((4, JAX_CONFIG5_ITS, lambda: ALL_CONFIGS["config5"](device=dev)),
+            (0, c5["iterations"], lambda: config5_run(torch, pt, dev, 0)))
+    for mass_cheby, want_its, run in runs:
+        got, wall = timed(torch, run)
+        its, l2 = got["iterations"], got["velocity_l2_error"]
         rel = abs(l2 - c5["velocity_l2_error"]) / c5["velocity_l2_error"]
-        log(f"[phase 10b] ({CARD}) config5 fp64 (ndofs {n}), mass_cheby={mass_cheby}: {its} "
-            f"GMRES iterations (want {want_its}), velocity L2 {l2:.16e} (golden rel "
-            f"{rel:.2e}), {wall:.2f} s")
-        if not (conv and its == want_its and n == c5["ndofs"] and rel <= 1e-8):
+        log(f"[phase 10b] ({CARD}) config5 fp64 (ndofs {got['ndofs']}), mass_cheby="
+            f"{mass_cheby}: {its} GMRES iterations (want {want_its}), velocity L2 {l2:.16e} "
+            f"(golden rel {rel:.2e}), {wall:.2f} s")
+        if not (got["converged"] and its == want_its and got["ndofs"] == c5["ndofs"]
+                and rel <= 1e-8):
             raise AssertionError("config5 golden mismatch")
-    (conv, its, n, l2v, l2p), wall = timed(torch, lambda: config10_run(torch, pt, dev))
-    log(f"[phase 10b] ({CARD}) config10 fp64 (ndofs {n}): {its} GMRES iterations (golden "
-        f"{c10['iterations']}), l2_v {l2v:.3e}, l2_p {l2p:.3e} (golden {c10['l2_v_error']:.3e}"
-        f", {c10['l2_p_error']:.3e}), {wall:.2f} s")
-    if not (conv and its == c10["iterations"] and n == c10["ndofs"]
+    got, wall = timed(torch, lambda: ALL_CONFIGS["config10"](device=dev))
+    its, l2v, l2p = got["iterations"], got["l2_v_error"], got["l2_p_error"]
+    log(f"[phase 10b] ({CARD}) config10 fp64 (ndofs {got['ndofs']}): {its} GMRES iterations "
+        f"(golden {c10['iterations']}), l2_v {l2v:.3e}, l2_p {l2p:.3e} (golden "
+        f"{c10['l2_v_error']:.3e}, {c10['l2_p_error']:.3e}), {wall:.2f} s")
+    if not (got["converged"] and its == c10["iterations"] and got["ndofs"] == c10["ndofs"]
             and abs(l2v - c10["l2_v_error"]) <= 1e-9 and abs(l2p - c10["l2_p_error"]) <= 1e-9):
         raise AssertionError("config10 golden mismatch")
     interleaved_residual(torch, pt, dev)
@@ -2916,30 +2842,18 @@ def amg_solve(torch, pt, V, go, problem, dev, tag, dtype=None, amg=None, red=1e-
 
 
 def amg_config12(torch, pt, dev):
-    """Phase 11a: config12_simplex_amg (models/configs.py:490-522) at 32^2
+    """Phase 11a: config12_simplex_amg at 32^2 through the port's ALL_CONFIGS
     in fp64 on the card, held against tests/golden_parity.json."""
-    from dune_pdelab_tpu_torch.linalg.amg import AlgebraicMultigrid
-    from dune_pdelab_tpu_torch.solvers import LinearSolverBackend, StationaryLinearProblemSolver
-    from dune_pdelab_tpu_torch.space.functions import l2_difference
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
 
     want = json.loads((ROOT / "tests" / "golden_parity.json").read_text())[
         "config12_simplex_amg"]
-    p = sine2d_problem()
-    V, go = simplex_poisson(pt, 2, 32, p, dev)
-    amg = AlgebraicMultigrid()
-    slp = StationaryLinearProblemSolver(
-        go, LinearSolverBackend(solver="cg", precond=amg, use_stencil=False), reduction=1e-10)
-    x = slp.apply(pt.interpolate_dirichlet(p.g, V, go.cg, V.zero(torch.float64, dev)))
-    info = amg.hierarchy_info()
-    l2 = float(l2_difference(V, x, p.exact))
-    got = {"iterations": slp.result.linear_solver_iterations, "levels": len(info["sizes"]),
-           "operator_complexity": info["operator_complexity"], "l2_error": l2,
-           "ndofs": V.ndofs}
+    got = ALL_CONFIGS["config12"](device=dev)
     log(f"[phase 11a] config12 on the card: {got} (golden {want}); {CARD}")
     ok = (got["iterations"] == want["iterations"] and got["levels"] == want["levels"]
-          and got["ndofs"] == want["ndofs"] and slp.result.converged
+          and got["ndofs"] == want["ndofs"] and got["converged"]
           and abs(got["operator_complexity"] / want["operator_complexity"] - 1) <= 1e-12
-          and abs(l2 / want["l2_error"] - 1) <= 1e-8)
+          and abs(got["l2_error"] / want["l2_error"] - 1) <= 1e-8)
     if not ok:
         raise AssertionError(f"config12 golden not reproduced: {got} vs {want}")
 
@@ -3258,31 +3172,15 @@ def adapt_solve(torch, pt, V, problem, dev, solver="amg", reduction=1e-10):
 
 
 def adapt_config6(torch, pt, dev):
-    """Phase 12a: config6_adaptive_lshape (models/configs.py:206-265) on the
-    card in fp64: P1 on the L-shape of an 8^2 square, Doerfler 0.5 on the
-    edge-jump indicator, four bisection cycles, Jacobi-CG to 1e-12, held
-    against tests/golden_parity.json."""
-    from dune_pdelab_tpu_torch.adaptivity import (
-        adapt_local_simplex, error_fraction, mark_elements, p1_edge_jump_indicator,
-    )
-    from dune_pdelab_tpu_torch.space.functions import l2_difference
+    """Phase 12a: config6_adaptive_lshape through the port's ALL_CONFIGS on
+    the card in fp64: P1 on the L-shape of an 8^2 square, Doerfler 0.5 on
+    the edge-jump indicator, four bisection cycles, Jacobi-CG to 1e-12,
+    held against tests/golden_parity.json."""
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
 
     want = json.loads((ROOT / "tests" / "golden_parity.json").read_text())[
         "config6_adaptive_lshape"]
-    p = lshape_problem()
-    V = pt.FunctionSpace(lshape_mesh(pt, 8), pt.PkFEM(1, 2))
-    x, its, _, _, _ = adapt_solve(torch, pt, V, p, dev, "jacobi", 1e-12)
-    got = {}
-    for cyc in range(4):
-        got[f"ndofs_cycle{cyc}"] = V.ndofs
-        got[f"l2_cycle{cyc}"] = float(l2_difference(V, x, p.exact))
-        eta2 = p1_edge_jump_indicator(V, x)
-        marks, _ = mark_elements(eta2, error_fraction(eta2, 0.5))
-        V, x = adapt_local_simplex(V, x, marks)
-        x, its, _, _, _ = adapt_solve(torch, pt, V, p, dev, "jacobi", 1e-12)
-    got["ndofs"] = V.ndofs
-    got["l2_error"] = float(l2_difference(V, x, p.exact))
-    got["iterations"] = its
+    got = ALL_CONFIGS["config6"](device=dev)
     log(f"[phase 12a] config6 on the card: {got} (golden {want}); {CARD}")
     bad = [k for k in want if (abs(got[k] / want[k] - 1) > 1e-10 if k.startswith("l2")
                                else got[k] != want[k])]
@@ -4060,29 +3958,25 @@ def s_liquid(W, x):
 
 
 def twophase_config11(torch, pt, dev):
-    """Phase 13a: config11 (models/configs.py:440-487) on the card, held
+    """Phase 13a: config11 through the port's ALL_CONFIGS on the card, held
     to tests/golden_parity.json: 34 Newton iterations, 2 failed steps, 96
     DOFs, t_final 0.008, s_inlet / s_outlet to 1e-8, its Krylov applies
     replayed from CUDA graphs (solvers/linear.py GraphedApply)."""
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
+
     gold = json.loads((ROOT / "tests" / "golden_parity.json").read_text())[
         "config11_twophase_displacement"]
     torch.cuda.reset_peak_memory_stats()
-    mesh, W, osm, backend, x0 = twophase_setup(torch, pt, (TP_C11_CELLS, 2), dev)
-    (t, x), s = timed(torch, lambda: osm.solve(0.0, 1e-3, 0.008, x0, max_step_retries=4))
-    s_l = s_liquid(W, x).cpu().numpy()
-    centers = mesh.element_centers()
-    row = abs(centers[:, 1] - centers[0, 1]) < 1e-12
-    s_row = s_l[row][centers[row][:, 0].argsort()]
-    got = {"newton_iterations": osm.result.total_newton_iterations,
-           "failed_steps": osm.result.failed_steps, "ndofs": W.ndofs, "t_final": float(t),
-           "s_inlet": float(s_row[0]), "s_outlet": float(s_row[-1])}
-    log(f"[phase 13a] config11 fp64 (N = {W.ndofs}): {got['newton_iterations']} Newton "
+    info = {}
+    got, s = timed(torch, lambda: ALL_CONFIGS["config11"](device=dev, info=info))
+    osm = info["solver"]
+    path = info["ls"].report(osm.igos)
+    log(f"[phase 13a] config11 fp64 (N = {got['ndofs']}): {got['newton_iterations']} Newton "
         f"iterations, {got['failed_steps']} failed steps, "
-        f"{osm.result.total_linear_iterations} BiCGStab iterations, t_final {t}, s_inlet "
-        f"{got['s_inlet']!r} (golden {gold['s_inlet']!r}), s_outlet {got['s_outlet']!r} "
-        f"(golden {gold['s_outlet']!r}), {s:.2f} s, peak {peak_gib(torch):.3f} GiB; "
-        f"{'; '.join(backend.report(osm.igos).splitlines())}")
-    path = backend.report(osm.igos)
+        f"{osm.result.total_linear_iterations} BiCGStab iterations, t_final "
+        f"{got['t_final']}, s_inlet {got['s_inlet']!r} (golden {gold['s_inlet']!r}), "
+        f"s_outlet {got['s_outlet']!r} (golden {gold['s_outlet']!r}), {s:.2f} s, peak "
+        f"{peak_gib(torch):.3f} GiB; {'; '.join(path.splitlines())}")
     if dev.type == "cuda" and ("CUDA graph replay" not in path or "graph declined" in path):
         raise AssertionError(f"13a: the general-jvp apply was not replayed from a graph: {path}")
     for key in ("newton_iterations", "failed_steps", "ndofs", "t_final"):
@@ -5395,36 +5289,34 @@ def p15_lattice(group, cells, tol, gather_below):
 
 
 def p15_dg(group, config8, cells):
-    """15b on this rank: config8 (models/configs.py config8_windowed_sharded)
-    through the window-sharded operator; or, config8=False, the 256^2
-    degree-1 SIPG residual and J.v against the one-rank operator."""
+    """15b on this rank: config8 through the port's ALL_CONFIGS (the
+    window-sharded operator over the world group of the eight ranks); or,
+    config8=False, the 256^2 degree-1 SIPG residual and J.v on `group`
+    against the one-rank operator."""
     import numpy as np
     import torch
     import torch.distributed as dist
     import dune_pdelab_tpu_torch as pt
     from dune_pdelab_tpu_torch.ops import ConvectionDiffusionDG, DGMethod
     from dune_pdelab_tpu_torch.parallel import WindowShardedGridOperator, comm
-    from dune_pdelab_tpu_torch.space.functions import l2_difference
 
     dev = pt.default_device()
-    f64 = torch.float64
-    p = sine2d_problem()
-    mesh = pt.StructuredMesh([0.0, 0.0], [1.0, 1.0], (cells, cells))
-    V = pt.FunctionSpace(mesh, pt.QkDGFEM(1, 2))
-    go = pt.GridOperator(V, ConvectionDiffusionDG(p, method=DGMethod.SIPG))
-    w = WindowShardedGridOperator(go, group=group, device=dev)
-    x0 = V.zero(f64, dev)
-    out = {"ndofs": V.ndofs, "ranks": dist.get_world_size(group)}
     comm.reset_stats()
     if config8:
-        b = go.residual(x0)
+        from dune_pdelab_tpu_torch.models import ALL_CONFIGS
         t0 = time.perf_counter()
-        zz, stats = w.solve_cg(x0, b, diag=go.jacobian_diagonal(x0),
-                               tol=1e-10 * float(torch.linalg.norm(b)), maxiter=5000)
+        got = ALL_CONFIGS["config8"](cells=cells, device=dev)
         _p15_sync(torch, dev)
-        out.update(solve_s=time.perf_counter() - t0, iterations=int(stats.iterations),
-                   l2_error=float(l2_difference(V, x0 - zz, p.exact)))
+        out = {"ndofs": got["ndofs"], "ranks": got["ndevices"],
+               "config_s": time.perf_counter() - t0, "iterations": got["iterations"],
+               "l2_error": got["l2_error"]}
     else:
+        p = sine2d_problem()
+        mesh = pt.StructuredMesh([0.0, 0.0], [1.0, 1.0], (cells, cells))
+        V = pt.FunctionSpace(mesh, pt.QkDGFEM(1, 2))
+        go = pt.GridOperator(V, ConvectionDiffusionDG(p, method=DGMethod.SIPG))
+        w = WindowShardedGridOperator(go, group=group, device=dev)
+        out = {"ndofs": V.ndofs, "ranks": dist.get_world_size(group)}
         rng = np.random.default_rng(15)
         x = torch.as_tensor(rng.standard_normal(V.ndofs), device=dev)
         zv = torch.as_tensor(rng.standard_normal(V.ndofs), device=dev)
@@ -5490,7 +5382,7 @@ def _p15_log(tag, res, wall, extra=""):
     """One line per sub-phase: wall seconds, rank 0's communication
     (seconds, bytes, calls) against its solve or apply, K2 launches."""
     c = res[0]["comm"]
-    spent = res[0].get("solve_s", res[0].get("apply_s", 0.0))
+    spent = res[0].get("solve_s", res[0].get("apply_s", res[0].get("config_s", 0.0)))
     k2 = sum(r.get("k2", 0) for r in res)
     log(f"[{tag}] {len(res)} rank(s): {wall:.2f} s wall; rank 0 communication "
         f"{c['seconds']:.3f} s of {spent:.3f} s ({100 * c['seconds'] / max(spent, 1e-9):.1f}%), "
@@ -5594,6 +5486,320 @@ def phase_parallel(torch, pt, dev):
         raise AssertionError("phase 15: " + "; ".join(bad))
 
 
+# ---- phase 16: slice 13d (io, models, selective assembly) ------------------
+def p16_vtk(torch, pt, dev, tmp):
+    """16a: models.solve_stationary on phase 4's problem, its binary .vtu,
+    a 32^3 ASCII .vtu from the card against the CPU port's, and .pvtu
+    pieces from parallel/'s load balancing."""
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+    from dune_pdelab_tpu_torch.io import ParallelVTKWriter, VTKWriter
+    from dune_pdelab_tpu_torch.io.vtk_binary import read_vtu_binary
+    from dune_pdelab_tpu_torch.kernels import stencil27 as sk
+    from dune_pdelab_tpu_torch.models import CGSpace, StructuredGrid, solve_stationary
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
+    from dune_pdelab_tpu_torch.parallel.loadbalance import partition_weighted
+    from dune_pdelab_tpu_torch.solvers import SEQ_CG_Jacobi
+
+    prob = unit_source_problem()
+    V = CGSpace(StructuredGrid(3, README_CELLS), 1)
+    ls = SEQ_CG_Jacobi()
+    before = sk.launches
+    res, wall = timed(torch, lambda: solve_stationary(
+        V, ConvectionDiffusionFEM(prob), bctype=prob.dirichlet_bctype(), linear_solver=ls,
+        reduction=1e-6, device=dev, dtype=torch.float32))
+    rep = ls.report(res.solver.go)
+    log(f"[phase 16a] ({CARD}) models.solve_stationary {README_CELLS}^3 fp32 (N = "
+        f"{V.ndofs}): {res.iterations} Jacobi-CG iterations (phase 4: {README_JACOBI_ITS}), "
+        f"{wall:.2f} s, stencil27 launches {sk.launches - before}; {rep.splitlines()[0]}")
+    if not ("stencil27 CUDA kernel" in rep and res.iterations == README_JACOBI_ITS
+            and res.solver.result.converged and bool(torch.isfinite(res.x).all())):
+        raise AssertionError(f"16a: solve_stationary left the stencil tier or phase 4's "
+                             f"count: {res.iterations} iterations, {rep}")
+    written, w_s = timed(torch, lambda: res.vtk(str(tmp / "readme")))
+    size = Path(written).stat().st_size
+    binary = b'format="appended"' in Path(written).read_bytes()[:4096]
+    host = VTKWriter(V.mesh).add_field(V, res.x, "u").point_data["u"]
+    dec = read_vtu_binary(written)
+    Path(written).unlink()
+    same = (np.array_equal(dec["PointData"]["u"], host)
+            and np.array_equal(dec["Points"][:, :3], V.mesh.vertex_coords()))
+    log(f"[phase 16a] ({CARD}) StationaryResultBundle.vtk: binary .vtu {binary} of "
+        f"{V.mesh.nvertices} vertices, {size} bytes in {w_s:.3f} s ({size / 1e6 / w_s:.1f} "
+        f"MB/s, the host copy and the native write); the decoded payload bit-equal to the "
+        f"host copy: {same}")
+    if not (binary and same):
+        raise AssertionError("16a: the binary .vtu is missing or differs from the host copy")
+
+    V32 = CGSpace(StructuredGrid(3, P16_ASCII_CELLS), 1)
+    r32 = solve_stationary(V32, ConvectionDiffusionFEM(prob), bctype=prob.dirichlet_bctype(),
+                           linear_solver=SEQ_CG_Jacobi(), reduction=1e-10, device=dev,
+                           dtype=torch.float64)
+    files = {}
+    for where, x in (("card", r32.x), ("cpu", r32.x.cpu())):
+        w = VTKWriter(V32.mesh).add_field(V32, x, "u").add_field(V32, x, "u_mean", mode="cell")
+        means = w.cell_data.pop("u_mean")
+        files[where] = (w.write(str(tmp / f"{where}32"), binary=False), means)
+    text_equal = Path(files["card"][0]).read_bytes() == Path(files["cpu"][0]).read_bytes()
+    mean_err = float(np.abs(files["card"][1] - files["cpu"][1]).max()
+                     / np.abs(files["cpu"][1]).max())
+    mesh = V32.mesh
+    centers = mesh.element_centers()
+    ranges = partition_weighted(1.0 + centers[:, 0], P16_PARTS)
+    owner = np.concatenate([np.full(hi - lo, r) for r, (lo, hi) in enumerate(ranges)])
+    pvtu = ParallelVTKWriter(mesh, torch.as_tensor(owner, device=dev)).add_field(
+        V32, r32.x, "u").write(str(tmp / "par32"))
+    cents, counts = [], []
+    for pc in ET.parse(pvtu).findall(".//Piece"):
+        piece = ET.parse(str(tmp / pc.get("Source")))
+        pts = np.array(piece.find(".//Points/DataArray").text.split(), float).reshape(-1, 3)
+        conn = np.array(piece.find(".//Cells/DataArray[@Name='connectivity']").text.split(),
+                        np.int64).reshape(-1, 8)
+        cents.append(pts[conn].mean(axis=1))
+        counts.append(len(conn))
+    cents = np.concatenate(cents)
+    covered = (len(cents) == mesh.nelements and np.abs(
+        cents[np.lexsort(cents.T[::-1])] - centers[np.lexsort(centers.T[::-1])]).max() < 1e-9)
+    log(f"[phase 16a] ({CARD}) {P16_ASCII_CELLS}^3 ASCII .vtu written from the card equal "
+        f"to the CPU port's: {text_equal}; cell means card vs CPU {mean_err:.2e} of max; "
+        f".pvtu over {P16_PARTS} load-balanced parts of {counts} cells, every cell once: "
+        f"{covered}")
+    if not (text_equal and mean_err <= 1e-12 and covered
+            and counts == [hi - lo for lo, hi in ranges]):
+        raise AssertionError("16a: the ASCII or the partitioned VTK output is wrong")
+
+
+def p16_write_msh(path, verts, tets):
+    """A tetrahedral MSH 2.2 ASCII file (node ids from 1, physical tag 7)."""
+    import numpy as np
+    nv, nt = len(verts), len(tets)
+    nodes = np.column_stack([np.arange(1, nv + 1), verts]).ravel().tolist()
+    els = np.column_stack([np.arange(1, nt + 1), np.full(nt, 4), np.full(nt, 2),
+                           np.full(nt, 7), np.ones(nt, np.int64), tets + 1]).ravel().tolist()
+    with open(path, "w") as f:
+        f.write(f"$MeshFormat\n2.2 0 8\n$EndMeshFormat\n$Nodes\n{nv}\n")
+        f.write(("%d %r %r %r\n" * nv) % tuple(nodes))
+        f.write(f"$EndNodes\n$Elements\n{nt}\n")
+        f.write(("%d %d %d %d %d %d %d %d %d\n" * nt) % tuple(els))
+        f.write("$EndElements\n")
+
+
+def p16_msh(torch, pt, dev, tmp):
+    """16b: the native MSH reader against the Python parser on a written
+    tetrahedral file, and a P1 SEQ_CG_AMG solve on the mesh read."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.io import msh_native
+    from dune_pdelab_tpu_torch.models import solve_stationary
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+
+    n = P16_MSH_CELLS
+    sm = pt.SimplexMesh.from_structured(pt.StructuredMesh([0] * 3, [1] * 3, (n,) * 3))
+    path = str(tmp / "tets.msh")
+    t0 = time.perf_counter()
+    p16_write_msh(path, sm.vertices, sm.cells)
+    w_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = msh_native.parse_msh(path)
+    n_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = pt.SimplexMesh._parse_msh_py(path)
+    p_s = time.perf_counter() - t0
+    equal = all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(nat, py))
+    t0 = time.perf_counter()
+    mesh = pt.SimplexMesh.from_gmsh(path)
+    m_s = time.perf_counter() - t0
+    log(f"[phase 16b] ({CARD}) MSH 2.2 file of {len(sm.cells)} tets, {sm.nvertices} nodes "
+        f"({Path(path).stat().st_size} bytes, written in {w_s:.2f} s): native parse "
+        f"{n_s:.3f} s, Python parse {p_s:.3f} s ({p_s / n_s:.1f}x), arrays and tags equal: "
+        f"{equal}; from_gmsh took the {mesh.msh_reader} reader, {m_s:.2f} s with the mesh "
+        f"setup")
+    if not (equal and mesh.msh_reader == "native" and mesh.nelements == len(sm.cells)
+            and np.array_equal(mesh.vertices, sm.vertices)
+            and np.all(mesh.cell_tags == 7)):
+        raise AssertionError("16b: the native and Python MSH parses differ")
+    prob = sine3d_problem()
+    V = pt.FunctionSpace(mesh, pt.PkFEM(1, 3))
+    ls = pt.SEQ_CG_AMG()
+    res, s = timed(torch, lambda: solve_stationary(
+        V, ConvectionDiffusionFEM(prob), bctype=prob.dirichlet_bctype(), linear_solver=ls,
+        reduction=1e-10, device=dev, dtype=torch.float64))
+    l2 = float(l2_difference(V, res.x, prob.exact))
+    bound = 3.0 / n**2             # P1's h^2 rate (4.2e-2 measured at n = 6)
+    log(f"[phase 16b] ({CARD}) P1 SEQ_CG_AMG on the mesh read (N = {V.ndofs}): "
+        f"{res.iterations} iterations, L2 error {l2:.6e} (bound {bound:.2e}), {s:.2f} s "
+        f"with the AMG setup")
+    if not (res.solver.result.converged and l2 < bound):
+        raise AssertionError(f"16b: the P1 AMG solve failed: L2 {l2}")
+
+
+def p16_dgf(torch, pt, dev, tmp):
+    """16c: read_dgf on an Interval block; its Q1 solve equals the
+    StructuredGrid one."""
+    from dune_pdelab_tpu_torch.io import read_dgf
+    from dune_pdelab_tpu_torch.models import CGSpace, StructuredGrid, solve_stationary
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
+    from dune_pdelab_tpu_torch.solvers import SEQ_CG_Jacobi
+
+    n = P16_DGF_CELLS
+    path = tmp / "block.dgf"
+    path.write_text(f"DGF\n% unit square\nInterval\n0 0\n1 1\n{n} {n}\n#\n"
+                    "Boundarydomain\ndefault 1\n#\n")
+    mesh = read_dgf(str(path))
+    prob = sine2d_problem()
+    out = {}
+    for tag, m in (("dgf", mesh), ("grid", StructuredGrid(2, n))):
+        res, s = timed(torch, lambda: solve_stationary(
+            CGSpace(m, 1), ConvectionDiffusionFEM(prob), bctype=prob.dirichlet_bctype(),
+            dirichlet=prob.g, linear_solver=SEQ_CG_Jacobi(), reduction=1e-8, device=dev,
+            dtype=torch.float64))
+        out[tag] = (res.x, res.iterations, s)
+    equal = torch.equal(out["dgf"][0], out["grid"][0])
+    log(f"[phase 16c] ({CARD}) read_dgf {n}^2 Interval block ({type(mesh).__name__}, "
+        f"boundary domain {mesh.boundary_domain_default}): Q1 Jacobi-CG {out['dgf'][1]} "
+        f"iterations in {out['dgf'][2]:.2f} s, the StructuredGrid solve {out['grid'][1]} in "
+        f"{out['grid'][2]:.2f} s, solutions bit-equal: {equal}")
+    if not (equal and out["dgf"][1] == out["grid"][1] and mesh.cells == (n, n)
+            and mesh.boundary_domain_default == 1):
+        raise AssertionError("16c: the DGF mesh's solve differs from the StructuredGrid one")
+
+
+def p16_selective(torch, pt, dev, tmp):
+    """16d: selective assembly in fp64 on the card."""
+    import numpy as np
+    from dune_pdelab_tpu_torch.assembly.structured_fused import make_fused_residual
+    from dune_pdelab_tpu_torch.ops import (
+        ConvectionDiffusionDG, ConvectionDiffusionFEM, ConvectionDiffusionProblem,
+    )
+
+    f64 = torch.float64
+
+    class Prob(ConvectionDiffusionProblem):
+        """tests/test_selective.py's problem: A = 1 + x, c = 0.5, Dirichlet
+        on x = 0, Neumann j = 0.3 elsewhere."""
+
+        def A(self, x):
+            return 1.0 + x[..., 0]
+
+        def c(self, x):
+            return 0.5
+
+        def f(self, x):
+            return torch.sin(3 * x[..., 0]) + x[..., 1]
+
+        def bctype(self, x):
+            return 1 * (x[..., 0] < 1e-12)
+
+        def g(self, x):
+            return x[..., 1]
+
+        def j(self, x):
+            return 0.3
+
+    def select(base, entity=None, intersection=None):
+        attrs = {}
+        if entity is not None:
+            attrs["skip_entity"] = lambda self, c: entity(c)
+        if intersection is not None:
+            attrs["skip_intersection"] = lambda self, m: intersection(m)
+        return type("Selective" + base.__name__, (base,), attrs)(Prob())
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def rand(n, seed):
+        return torch.as_tensor(np.random.default_rng(seed).standard_normal(n), dtype=f64,
+                               device=dev)
+
+    left, right = (lambda c: c[..., 0] >= 0.5), (lambda c: c[..., 0] < 0.5)
+    V = pt.FunctionSpace(pt.StructuredMesh([0, 0], [1, 1], (P16_SEL_Q1,) * 2), pt.QkFEM(1, 2))
+    cons = pt.constraints(Prob().dirichlet_bctype(), V, device=dev)
+    x, z = rand(V.ndofs, 3), rand(V.ndofs, 4)
+    gos = [pt.GridOperator(V, lop, constraints=cons) for lop in (
+        ConvectionDiffusionFEM(Prob()), select(ConvectionDiffusionFEM, left),
+        select(ConvectionDiffusionFEM, right))]
+    (rf, rl, rr), t_r = timed(torch, lambda: [go.residual(x) for go in gos])
+    # J.v is the identity on constrained rows: the halves hold z there twice
+    free = ~cons.mask_on(dev)
+    jf, jl, jr = (go.jacobian_apply(x, z)[free] for go in gos)
+    e_cg = (rel(rl + rr, rf), rel(jl + jr, jf))
+
+    V = pt.FunctionSpace(pt.StructuredMesh([0, 0], [1, 1], (P16_SEL_DG,) * 2),
+                         pt.QkDGFEM(1, 2))
+    x = rand(V.ndofs, 5)
+    preds = (None, lambda m: m[..., 0] >= 0.5, lambda m: m[..., 0] < 0.5,
+             lambda m: torch.ones(m.shape[:-1], dtype=torch.bool, device=m.device))
+    r_full, r_a, r_b, r_none = (pt.GridOperator(V, ConvectionDiffusionDG(Prob()) if p is None
+                                                else select(ConvectionDiffusionDG, None, p)
+                                                ).residual(x) for p in preds)
+    e_dg = rel(r_a + r_b, r_full + r_none)
+    skel = rel(r_none, r_full)
+
+    V = pt.FunctionSpace(pt.StructuredMesh([0, 0], [1, 1], (P16_SEL_CPU,) * 2),
+                         pt.QkDGFEM(1, 2))
+    go = pt.GridOperator(V, select(ConvectionDiffusionDG, lambda c: c[..., 1] > 0.7,
+                                   lambda m: m[..., 0] < 0.3))
+    x, z = rand(V.ndofs, 6), rand(V.ndofs, 7)
+    e_dev = max(rel(go.residual(x).cpu(), go.residual(x.cpu())),
+                rel(go.jacobian_apply(x, z).cpu(), go.jacobian_apply(x.cpu(), z.cpu())))
+
+    V = pt.FunctionSpace(pt.StructuredMesh([0] * 3, [1] * 3, (P16_SEL_K3,) * 3),
+                         pt.QkFEM(1, 3))
+    cons = pt.constraints(True, V, device=dev)
+    k3 = [make_fused_residual(pt.GridOperator(V, lop, constraints=cons, skip_boundary=True))
+          for lop in (ConvectionDiffusionFEM(Prob()), select(ConvectionDiffusionFEM, left))]
+    log(f"[phase 16d] ({CARD}) selective assembly fp64: {P16_SEL_Q1}^2 Q1 complementary "
+        f"skip_entity, residual {e_cg[0]:.2e} and J.v {e_cg[1]:.2e} of the full operator's "
+        f"(three residuals {t_r:.3f} s); {P16_SEL_DG}^2 SIPG skip_intersection partition "
+        f"{e_dg:.2e} (the skeleton's share {skel:.2e}); card vs CPU at {P16_SEL_CPU}^2 "
+        f"{e_dev:.2e}; K3 at {P16_SEL_K3}^3: plain {'taken' if k3[0] else 'declined'}, "
+        f"selective {'taken' if k3[1] else 'declined'}")
+    if not (max(e_cg) <= P16_SEL_REL and e_dg <= P16_SEL_REL and skel > 1e-6
+            and e_dev <= P16_SEL_REL and k3[0] is not None and k3[1] is None):
+        raise AssertionError("16d: selective assembly identities or K3's decline failed")
+
+
+def p16_instationary(torch, pt, dev, tmp):
+    """16e: solve_instationary from tests/test_boilerplate_config.py's INI
+    with its .pvd and checkpoints written from the card."""
+    import xml.etree.ElementTree as ET
+
+    from dune_pdelab_tpu_torch.models import CGSpace, StructuredGrid, solve_instationary
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM
+    from dune_pdelab_tpu_torch.space.functions import l2_difference
+    from dune_pdelab_tpu_torch.utils import CheckpointManager, ParameterTree
+
+    prob = heat_problem(2)
+    V = CGSpace(StructuredGrid(2, P16_HEAT_CELLS), 1)
+    x0 = V.interpolate(prob.u_exact(0.0), dtype=torch.float64, device=dev)
+    (t, x, osm), s = timed(torch, lambda: solve_instationary(
+        V, ConvectionDiffusionFEM(prob), bctype=prob.dirichlet_bctype(), x0=x0,
+        ptree=ParameterTree.from_ini(P16_INI), vtk_basename=str(tmp / "heat"),
+        checkpoint_dir=str(tmp / "ck")))
+    l2 = float(l2_difference(V, x, prob.u_exact(t)))
+    step = CheckpointManager(str(tmp / "ck")).latest_step()
+    sets = len(ET.parse(str(tmp / "heat.pvd")).findall(".//DataSet"))
+    log(f"[phase 16e] ({CARD}) solve_instationary from the INI at {P16_HEAT_CELLS}^2 (N = "
+        f"{V.ndofs}): t = {t!r}, {osm.result.steps} steps, latest checkpoint step {step}, "
+        f".pvd with {sets} data sets, L2 error {l2:.6e} (bound {P16_HEAT_L2_MAX}), {s:.2f} s")
+    if not (abs(t - 0.2) < 1e-12 and step == 8 and sets == 9 and l2 < P16_HEAT_L2_MAX):
+        raise AssertionError("16e: the INI instationary run failed")
+
+
+def phase_slice13d(torch, pt, dev):
+    """Phase 16: slice 13d (io, models, selective assembly)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p16_") as d:
+        for tag, fn in (("16a", p16_vtk), ("16b", p16_msh), ("16c", p16_dgf),
+                        ("16d", p16_selective), ("16e", p16_instationary)):
+            t0 = time.perf_counter()
+            fn(torch, pt, dev, Path(d))
+            torch.cuda.empty_cache()
+            log(f"[phase {tag}] {time.perf_counter() - t0:.2f} s")
+
+
 def main():
     if not (ROOT / "dune_pdelab_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -5665,6 +5871,8 @@ def main():
          lambda: phase_slice13bc(torch, pt, dev), ()),
         ("phase 15 (slice 12: parallel/ on ranks sharing the card)",
          lambda: phase_parallel(torch, pt, dev), ("stencil27",)),
+        ("phase 16 (slice 13d: io, models, selective assembly)",
+         lambda: phase_slice13d(torch, pt, dev), ("stencil27",)),
     ]
     totals = dict.fromkeys(counters, 0)
     for name, run, needed in paths:
@@ -5679,7 +5887,7 @@ def main():
             raise AssertionError(f"{name} never launched {missing}: {counts}")
         for k in totals:
             totals[k] += counts[k]
-    log(f"launch counts over phases 3-15: {totals}")
+    log(f"launch counts over phases 3-16: {totals}")
 
     meta = {
         "stencil27": ("dune_pdelab_tpu_torch/csrc/stencil27.cu",

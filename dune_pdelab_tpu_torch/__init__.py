@@ -41,8 +41,12 @@ instationary/differentiable.py); and slice 12, distributed assembly and
 solvers on torch.distributed with one process per rank (parallel/: the
 halo exchange and reproducible global dots, the DOF-sharded stencil, the
 window-sharded GridOperator, sharded geometric, lattice and algebraic
-multigrid, load balancing and a rank launcher). See ROADMAP.md for what
-remains.
+multigrid, load balancing and a rank launcher); and slice 13d: io/ (the
+VTK writers with .pvd and .pvtu output, the native binary .vtu writer and
+MSH parser built from csrc/ with g++, the DGF reader), models/ (the
+boilerplate entry points and ALL_CONFIGS) and selective assembly
+(skip_entity/skip_intersection) in the GridOperator. Every module of the
+JAX package has its counterpart here.
 
 Entry points put their tensors on `default_device()`, the card, unless the
 caller names a device or calls `set_default_device` (the CPU tests do).

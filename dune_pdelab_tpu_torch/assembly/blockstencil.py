@@ -152,6 +152,7 @@ def compile_block_stencil(go, x_lin=None, time=0.0, check=True, dtype=None,
     device = resolve_device(device)
 
     if (mesh.nelements > _stencil.PROXY_MIN_ELEMENTS and x_lin is None
+            and not go.selective   # masks are not translation invariant
             and _stencil._coefficients_spatially_constant(go.lop, mesh)):
         from dune_pdelab_tpu_torch.assembly.gridoperator import GridOperator
         from dune_pdelab_tpu_torch.space.space import FunctionSpace

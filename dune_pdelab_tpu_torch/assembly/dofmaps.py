@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dune_pdelab_tpu_torch.utils.common import device_key
+from dune_pdelab_tpu_torch.utils.common import device_key, plain_tensors
 
 
 class IndexDofMap:
@@ -50,7 +50,8 @@ class IndexDofMap:
     def _on(self, device):
         key = device_key(device)
         if key not in self._dofs:
-            self._dofs[key] = torch.as_tensor(self._dofs_np, device=device)
+            with plain_tensors():
+                self._dofs[key] = torch.as_tensor(self._dofs_np, device=device)
         return self._dofs[key]
 
     def _transpose(self, n, device):
@@ -65,13 +66,14 @@ class IndexDofMap:
         if key not in self._tmaps:
             from dune_pdelab_tpu_torch.linalg.multigrid import transpose_map
 
-            idx = self._on(device).reshape(-1)
-            rows = torch.unique(idx)                       # sorted
-            local = torch.searchsorted(rows, idx)[:, None]
-            ridx, rw = transpose_map(local, torch.ones(local.shape, dtype=torch.float64,
-                                                       device=idx.device), len(rows))
-            self._tmaps[key] = (None if len(rows) == n else rows,
-                                torch.where(rw != 0, ridx, idx.shape[0]))
+            with plain_tensors():
+                idx = self._on(device).reshape(-1)
+                rows = torch.unique(idx)                       # sorted
+                local = torch.searchsorted(rows, idx)[:, None]
+                ridx, rw = transpose_map(local, torch.ones(local.shape, dtype=torch.float64,
+                                                           device=idx.device), len(rows))
+                self._tmaps[key] = (None if len(rows) == n else rows,
+                                    torch.where(rw != 0, ridx, idx.shape[0]))
         return self._tmaps[key]
 
     def gather(self, x):

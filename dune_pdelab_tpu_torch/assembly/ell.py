@@ -211,6 +211,8 @@ def assemble_ell_direct(go, x_lin=None, time=0.0, check=False):
         return None                      # face jacobian terms: use probing
     if go.cg is not None and go.cg.has_affine:
         return None                      # affine constraints: use probing
+    if go._sel_elem is not None:
+        return None                      # selective assembly: use probing
     if x_lin is None:
         x_lin = _default_x_lin(go)
     dtype, device = x_lin.dtype, x_lin.device

@@ -43,6 +43,10 @@ shared (nqp, nb, d) tensors on a uniform mesh, per element on a mapped cube
 mesh (the Q1 map's Jacobians at each point) and on a simplex mesh (with the
 space's orientation signs folded in).
 
+Selective local operators (`skip_entity`, `skip_intersection`) get static
+0/1 element and face weights (`_select`), multiplied into every local
+contribution and probed block before the scatter.
+
 There is no jit: PyTorch runs eagerly. Context tensors (tabulations,
 factors, quadrature points) are built once per (dtype, device) and cached.
 """
@@ -65,8 +69,9 @@ from dune_pdelab_tpu_torch.fe.quadrature import quadrature_rule
 from dune_pdelab_tpu_torch.ops.base import (
     FaceContext, LeafTab, SkeletonContext, VolumeContext,
 )
+from dune_pdelab_tpu_torch.space.space import to_numpy
 from dune_pdelab_tpu_torch.utils.common import (
-    default_float, device_key, full_fp32_on_cuda, resolve_device,
+    default_float, device_key, full_fp32_on_cuda, plain_tensors, resolve_device,
 )
 
 _KERNELS = ("alpha_volume", "lambda_volume", "alpha_boundary",
@@ -142,6 +147,11 @@ class GridOperator:
       element_diagonal_blocks(x) -> (E, n, n) element blocks incl. faces
     """
 
+    # reverse mode sees through jacobian_apply (plain torch operations
+    # only), so a Krylov solve on the CPU may transpose it twice
+    # (solvers/linear.py transposed_twice)
+    reverse_mode_apply = True
+
     def __init__(self, space, lop, constraints=None, quad_order=None,
                  face_transfer: str = "auto", skip_boundary: bool = False):
         if face_transfer not in ("auto", "index"):
@@ -189,10 +199,6 @@ class GridOperator:
                 f"{type(self.mesh).__name__} provides no face lists; boundary/"
                 "skeleton kernels need a structured or simplex mesh (for "
                 "pure-Dirichlet problems pass skip_boundary=True)")
-        if hasattr(lop, "skip_entity") or hasattr(lop, "skip_intersection"):
-            raise NotImplementedError(
-                "selective assembly (skip_entity/skip_intersection) is not "
-                "ported yet")
         self.bnd_groups: list[_FaceGroupData] = []
         self.skel_groups: list[_FaceGroupData] = []
         if self.mesh.geometry_type == "simplex":
@@ -209,6 +215,7 @@ class GridOperator:
                 if el is not None and len(np.unique(el)) != len(el):
                     raise AssertionError("a face group repeats an element")
         self._ctx_cache = {}
+        self._select(lop)
 
     def with_operator(self, lop):
         """This GridOperator for another local operator with the same
@@ -223,7 +230,104 @@ class GridOperator:
                              "order differ from this GridOperator's")
         new = copy.copy(self)
         new.lop = lop
+        new._select(lop)
         return new
+
+    # ------------------------------------------------------------------
+    # selective assembly (skip_entity / skip_intersection)
+    # ------------------------------------------------------------------
+    def _select(self, lop):
+        """Static 0/1 element and face weights of a selective local operator
+        (reference: localoperator/interface.hh:121,137, dispatched by
+        default/assembler.hh:123,161; realised as in the reference's
+        gridoperator.py:191-242). A skipped element drops its volume and
+        boundary terms; a skeleton face counts only when both sides are
+        active, further masked by skip_intersection at the face midpoints,
+        which also masks boundary faces. The weights multiply the local
+        contributions before the fixed-order scatter, and the probed
+        Jacobian blocks and diagonals, so those stay exact derivatives of
+        the masked residual. A selective operator alone has zero blocks on
+        skipped elements: it is meant to be summed with its complement.
+
+        The predicates receive float64 CPU tensors of points (E or F, dim)
+        and return booleans (True: skip)."""
+        self.selective = hasattr(lop, "skip_entity") or hasattr(lop, "skip_intersection")
+        self._sel_elem = None
+        self._sel_bnd = [None] * len(self.bnd_groups)
+        self._sel_skel = [None] * len(self.skel_groups)
+        self._sel_cache = {}
+        if not self.selective:
+            return
+        mesh = self.mesh
+        if not hasattr(mesh, "element_centers"):
+            raise NotImplementedError(
+                "skip_entity/skip_intersection need element centers; "
+                f"{type(mesh).__name__} provides none")
+        centers = np.asarray(mesh.element_centers(), np.float64)
+
+        def kept(pred, pts):
+            skip = np.asarray(to_numpy(pred(torch.as_tensor(pts))), dtype=bool)
+            return (~np.broadcast_to(skip, (len(pts),))).astype(np.float64)
+
+        def weight(w):
+            return None if np.all(w == 1.0) else w
+
+        if hasattr(lop, "skip_entity"):
+            act = kept(lop.skip_entity, centers)
+            self._sel_elem = weight(act)
+        else:
+            act = np.ones(mesh.nelements)
+        cut = getattr(lop, "skip_intersection", None)
+        for i, g in enumerate(self.bnd_groups):
+            w = act[self.group_elements(g)]
+            if cut is not None:
+                w = w * kept(cut, self._boundary_face_midpoints(g))
+            self._sel_bnd[i] = weight(w)
+        for i, g in enumerate(self.skel_groups):
+            ei, eo = self.group_elements(g), self.group_elements(g, True)
+            w = act[ei] * act[eo]
+            if cut is not None:
+                w = w * kept(cut, 0.5 * (centers[ei] + centers[eo]))
+            self._sel_skel[i] = weight(w)
+
+    def _boundary_face_midpoints(self, g):
+        """(F, dim) physical midpoints of a boundary group's faces: the mean
+        of the face quadrature points in float64, as the reference's
+        _boundary_face_midpoints (gridoperator.py:645-661) takes them
+        (uniform structured groups: element origin + embedded points * h)."""
+        if g.x is not None:
+            return np.asarray(g.x, np.float64).mean(axis=1)
+        mesh = self.mesh
+        org = (mesh.lower + mesh.element_multi_index() * mesh.h)[self.group_elements(g)]
+        return (org[:, None, :] + (g.pts * mesh.h)[None]).mean(axis=1)
+
+    def _weights(self, key, w, dtype, device):
+        """The 0/1 weights w as a tensor of `dtype` on `device` (cached),
+        or None where nothing is skipped."""
+        if w is None:
+            return None
+        k = (key, dtype, device_key(device))
+        if k not in self._sel_cache:
+            with plain_tensors():
+                self._sel_cache[k] = torch.as_tensor(w, dtype=dtype, device=device)
+        return self._sel_cache[k]
+
+    def _elem_w(self, dtype, device):
+        return self._weights("elem", self._sel_elem, dtype, device)
+
+    def _bnd_w(self, i, dtype, device):
+        return self._weights(("bnd", i), self._sel_bnd[i], dtype, device)
+
+    def _skel_w(self, i, dtype, device):
+        return self._weights(("skel", i), self._sel_skel[i], dtype, device)
+
+    @staticmethod
+    def _masked(parts, w):
+        """Per-leaf local contributions (B, ...) times per-item weights w
+        (B,), or unchanged where w is None."""
+        if w is None:
+            return parts
+        return tuple(p * w.reshape((-1,) + (1,) * (p.ndim - 1)) for p in parts)
 
     # ------------------------------------------------------------------
     # setup of face groups
@@ -645,11 +749,14 @@ class GridOperator:
     # context construction (cached per dtype and device)
     # ------------------------------------------------------------------
     def _cached(self, key, build, dtype, device):
+        """build() once per key, dtype and device, outside torch.func's
+        transforms (utils/common.plain_tensors)."""
         key = key + (dtype, device_key(device))
         if key not in self._ctx_cache:
             if torch.device(device).type == "cuda":
                 full_fp32_on_cuda()
-            self._ctx_cache[key] = build()
+            with plain_tensors():
+                self._ctx_cache[key] = build()
         return self._ctx_cache[key]
 
     @staticmethod
@@ -738,27 +845,34 @@ class GridOperator:
         dtype, device = x.dtype, x.device
         r = torch.zeros_like(x)
         vctx = self._volume_ctx(time, dtype, device)
+        we = self._elem_w(dtype, device)
         if self.has["alpha_volume"]:
             u = self._uarg([dm.gather(x) for dm in self.dof_maps])
-            r = self._scatter(r, self.dof_maps, self._pack(lop.alpha_volume(vctx, u)))
+            r = self._scatter(r, self.dof_maps,
+                              self._masked(self._pack(lop.alpha_volume(vctx, u)), we))
         if lambdas and self.has["lambda_volume"]:
-            r = self._scatter(r, self.dof_maps, self._pack(lop.lambda_volume(vctx)))
-        for g in self.bnd_groups:
+            r = self._scatter(r, self.dof_maps,
+                              self._masked(self._pack(lop.lambda_volume(vctx)), we))
+        for i, g in enumerate(self.bnd_groups):
             if not (self.has["alpha_boundary"] or lambdas):
                 continue
             fctx = self._face_ctx(g, time, dtype, device)
+            wb = self._bnd_w(i, dtype, device)
             if self.has["alpha_boundary"]:
                 u = self._uarg([tr.gather(x) for tr in g.trs_in])
-                r = self._scatter(r, g.trs_in, self._pack(lop.alpha_boundary(fctx, u)))
+                r = self._scatter(r, g.trs_in,
+                                  self._masked(self._pack(lop.alpha_boundary(fctx, u)), wb))
             if lambdas and self.has["lambda_boundary"]:
-                r = self._scatter(r, g.trs_in, self._pack(lop.lambda_boundary(fctx)))
-        for g in self.skel_groups:
+                r = self._scatter(r, g.trs_in,
+                                  self._masked(self._pack(lop.lambda_boundary(fctx)), wb))
+        for i, g in enumerate(self.skel_groups):
             sctx = self._skel_ctx(g, time, dtype, device)
             r_in, r_out = lop.alpha_skeleton(
                 sctx, self._uarg([tr.gather(x) for tr in g.trs_in]),
                 self._uarg([tr.gather(x) for tr in g.trs_out]))
-            r = self._scatter(r, g.trs_in, self._pack(r_in))
-            r = self._scatter(r, g.trs_out, self._pack(r_out))
+            ws = self._skel_w(i, dtype, device)
+            r = self._scatter(r, g.trs_in, self._masked(self._pack(r_in), ws))
+            r = self._scatter(r, g.trs_out, self._masked(self._pack(r_out), ws))
         return r
 
     def residual(self, x, time=0.0):
@@ -797,9 +911,10 @@ class GridOperator:
         lop = self.lop.set_time(time)
         eta = torch.zeros(self.mesh.nelements, dtype=dtype, device=device)
 
-        def dots(r_loc, w_list):
-            return sum(torch.sum(rl.to(dtype) * wl, dim=tuple(range(1, rl.ndim)))
-                       for rl, wl in zip(self._pack(r_loc), w_list))
+        def dots(r_loc, w_list, sel=None):
+            d = sum(torch.sum(rl.to(dtype) * wl, dim=tuple(range(1, rl.ndim)))
+                    for rl, wl in zip(self._pack(r_loc), w_list))
+            return d if sel is None else d * sel
 
         def add(eta, g, vals, outside=False):
             el = torch.as_tensor(self.group_elements(g, outside), device=device)
@@ -808,25 +923,28 @@ class GridOperator:
         vctx = self._volume_ctx(time, dtype, device)
         u = self._uarg([dm.gather(x) for dm in self.dof_maps])
         wv = [dm.gather(w) for dm in self.dof_maps]
+        we = self._elem_w(dtype, device)
         if self.has["alpha_volume"]:
-            eta = eta + dots(lop.alpha_volume(vctx, u), wv)
+            eta = eta + dots(lop.alpha_volume(vctx, u), wv, we)
         if self.has["lambda_volume"]:
-            eta = eta + dots(lop.lambda_volume(vctx), wv)
-        for g in self.bnd_groups:
+            eta = eta + dots(lop.lambda_volume(vctx), wv, we)
+        for i, g in enumerate(self.bnd_groups):
             fctx = self._face_ctx(g, time, dtype, device)
             wf = [tr.gather(w) for tr in g.trs_in]
+            wb = self._bnd_w(i, dtype, device)
             if self.has["alpha_boundary"]:
                 uf = self._uarg([tr.gather(x) for tr in g.trs_in])
-                eta = add(eta, g, dots(lop.alpha_boundary(fctx, uf), wf))
+                eta = add(eta, g, dots(lop.alpha_boundary(fctx, uf), wf, wb))
             if self.has["lambda_boundary"]:
-                eta = add(eta, g, dots(lop.lambda_boundary(fctx), wf))
-        for g in self.skel_groups:
+                eta = add(eta, g, dots(lop.lambda_boundary(fctx), wf, wb))
+        for i, g in enumerate(self.skel_groups):
             sctx = self._skel_ctx(g, time, dtype, device)
             r_in, r_out = lop.alpha_skeleton(
                 sctx, self._uarg([tr.gather(x) for tr in g.trs_in]),
                 self._uarg([tr.gather(x) for tr in g.trs_out]))
-            eta = add(eta, g, dots(r_in, [tr.gather(w) for tr in g.trs_in]))
-            eta = add(eta, g, dots(r_out, [tr.gather(w) for tr in g.trs_out]), True)
+            ws = self._skel_w(i, dtype, device)
+            eta = add(eta, g, dots(r_in, [tr.gather(w) for tr in g.trs_in], ws))
+            eta = add(eta, g, dots(r_out, [tr.gather(w) for tr in g.trs_out], ws), True)
         return eta
 
     # ------------------------------------------------------------------
@@ -925,7 +1043,8 @@ class GridOperator:
             return torch.zeros((E, nloc, nloc), dtype=x.dtype, device=x.device)
         lop = self.lop.set_time(time)
         vctx = self._volume_ctx(time, x.dtype, x.device)
-        return self._probe(self._flat(lambda v: lop.alpha_volume(vctx, v)), u)
+        J = self._probe(self._flat(lambda v: lop.alpha_volume(vctx, v)), u)
+        return self._masked((J,), self._elem_w(x.dtype, x.device))[0]
 
     def element_diagonal_blocks(self, x, time=0.0):
         """Per-element diagonal Jacobian blocks including the boundary and
@@ -938,15 +1057,17 @@ class GridOperator:
         lop = self.lop.set_time(time)
         dev = x.device
         if self.has["alpha_boundary"]:
-            for g in self.bnd_groups:
+            for i, g in enumerate(self.bnd_groups):
                 fctx = self._face_ctx(g, time, x.dtype, dev)
                 Jb = self._probe(self._flat(lambda u: lop.alpha_boundary(fctx, u)),
                                  self._cat(g.trs_in, x))
+                Jb, = self._masked((Jb,), self._bnd_w(i, x.dtype, dev))
                 J = J.index_add(0, torch.as_tensor(self.group_elements(g), device=dev), Jb)
-        for g in self.skel_groups:
+        for i, g in enumerate(self.skel_groups):
             lop, sctx, ui, uo = self._skeleton_inputs(g, x, time)
             Jii = self._probe(self._skeleton_side(lop, sctx, ui, uo, 0), ui)
             Joo = self._probe(self._skeleton_side(lop, sctx, ui, uo, 1), uo)
+            Jii, Joo = self._masked((Jii, Joo), self._skel_w(i, x.dtype, dev))
             J = J.index_add(0, torch.as_tensor(self.group_elements(g), device=dev), Jii)
             J = J.index_add(0, torch.as_tensor(self.group_elements(g, True),
                                                device=dev), Joo)
@@ -968,15 +1089,17 @@ class GridOperator:
             out.append((ed, self.element_jacobians(x, time)))
         if self.has["alpha_boundary"]:
             lop = self.lop.set_time(time)
-            for g in self.bnd_groups:
+            for i, g in enumerate(self.bnd_groups):
                 fctx = self._face_ctx(g, time, x.dtype, x.device)
                 Jb = self._probe(self._flat(lambda u: lop.alpha_boundary(fctx, u)),
                                  self._cat(g.trs_in, x))
-                out.append((ed[self.group_elements(g)], Jb))
-        for g in self.skel_groups:
+                out.append((ed[self.group_elements(g)],
+                            self._masked((Jb,), self._bnd_w(i, x.dtype, x.device))[0]))
+        for i, g in enumerate(self.skel_groups):
             gd = np.concatenate([ed[self.group_elements(g)],
                                  ed[self.group_elements(g, True)]], axis=1)
-            out.append((gd, self._skeleton_blocks(g, x, time)))
+            out.append((gd, self._masked((self._skeleton_blocks(g, x, time),),
+                                         self._skel_w(i, x.dtype, x.device))[0]))
         return out
 
     def jacobian(self, x, time=0.0):
@@ -1055,21 +1178,25 @@ class GridOperator:
                 del col
             return torch.split(out, self.local_sizes, dim=1)
 
+        dt, dev = x.dtype, x.device
         if self.has["alpha_volume"]:
-            vctx = self._volume_ctx(time, x.dtype, x.device)
-            d = self._scatter(d, self.dof_maps, diag_of(
-                self._flat(lambda v: lop.alpha_volume(vctx, v)), self._cat(self.dof_maps, x)))
+            vctx = self._volume_ctx(time, dt, dev)
+            d = self._scatter(d, self.dof_maps, self._masked(diag_of(
+                self._flat(lambda v: lop.alpha_volume(vctx, v)), self._cat(self.dof_maps, x)),
+                self._elem_w(dt, dev)))
         if self.has["alpha_boundary"]:
-            for g in self.bnd_groups:
-                fctx = self._face_ctx(g, time, x.dtype, x.device)
-                d = self._scatter(d, g.trs_in, diag_of(
-                    self._flat(lambda u: lop.alpha_boundary(fctx, u)), self._cat(g.trs_in, x)))
-        for g in self.skel_groups:
+            for i, g in enumerate(self.bnd_groups):
+                fctx = self._face_ctx(g, time, dt, dev)
+                d = self._scatter(d, g.trs_in, self._masked(diag_of(
+                    self._flat(lambda u: lop.alpha_boundary(fctx, u)), self._cat(g.trs_in, x)),
+                    self._bnd_w(i, dt, dev)))
+        for i, g in enumerate(self.skel_groups):
             lop, sctx, ui, uo = self._skeleton_inputs(g, x, time)
-            d = self._scatter(d, g.trs_in, diag_of(
-                self._skeleton_side(lop, sctx, ui, uo, 0), ui))
-            d = self._scatter(d, g.trs_out, diag_of(
-                self._skeleton_side(lop, sctx, ui, uo, 1), uo))
+            ws = self._skel_w(i, dt, dev)
+            d = self._scatter(d, g.trs_in, self._masked(diag_of(
+                self._skeleton_side(lop, sctx, ui, uo, 0), ui), ws))
+            d = self._scatter(d, g.trs_out, self._masked(diag_of(
+                self._skeleton_side(lop, sctx, ui, uo, 1), uo), ws))
         if self.cg is not None:
             if affine:
                 d = self.cg.fold_diagonal(d)

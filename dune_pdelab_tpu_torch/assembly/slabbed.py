@@ -70,6 +70,9 @@ def residual_slabbed(space, lop, cg, x, nslabs=8, time=0.0):
             or any(space.mesh.periodic)):
         raise ValueError("residual_slabbed needs a uniform non-periodic "
                          f"structured cube mesh, got {space.mesh!r}")
+    if hasattr(lop, "skip_entity") or hasattr(lop, "skip_intersection"):
+        raise ValueError("residual_slabbed takes no selective local operator: "
+                         "its masks are the whole mesh's, not a slab's")
     mesh = space.mesh
     k = space.fem.degree
     dims = space._dof_grid_dims

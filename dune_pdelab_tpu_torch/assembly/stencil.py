@@ -185,7 +185,9 @@ def compile_stencil(go, x_lin=None, time=0.0, check=True, dtype=None,
     # huge meshes: probe on a small PROXY mesh with the same spacing h;
     # translation invariance makes the weights identical. Only valid at the
     # default linearization point and without boundary kernels.
-    if (mesh.nelements > PROXY_MIN_ELEMENTS and x_lin is None
+    # (a selective operator's masks are not translation invariant: it
+    # takes the probes on the real mesh and the whole-domain check)
+    if (mesh.nelements > PROXY_MIN_ELEMENTS and x_lin is None and not go.selective
             and not go.has.get("alpha_boundary", False)
             and not go.has.get("lambda_boundary", False)
             and not go.has.get("alpha_skeleton", False)

@@ -64,6 +64,10 @@ def _qualifies(go, include_lambda):
     if any(go.has.get(n) for n in ("alpha_boundary", "lambda_boundary",
                                    "alpha_skeleton", "lambda_skeleton")):
         return False
+    if go._sel_elem is not None:
+        return False         # selective assembly: the kernel has no element mask
+    if go.cg is not None and go.cg.has_affine:
+        return False         # hanging-node rows: the kernel has no P^T R(P x)
     if include_lambda and not go.has.get("lambda_volume"):
         return False
     # the kernel takes tensor rules of at most QMAX Gauss points per axis

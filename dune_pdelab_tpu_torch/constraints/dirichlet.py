@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from dune_pdelab_tpu_torch.space.space import FunctionSpace
-from dune_pdelab_tpu_torch.utils.common import device_key, resolve_device
+from dune_pdelab_tpu_torch.utils.common import device_key, plain_tensors, resolve_device
 
 
 class DirichletConstraints:
@@ -94,20 +94,21 @@ class DirichletConstraints:
         if key not in self._dev:
             from dune_pdelab_tpu_torch.linalg.multigrid import transpose_map
 
-            rows = torch.as_tensor(self.affine_rows, device=device)
-            cols = torch.as_tensor(self.affine_cols, device=device)
-            w = torch.as_tensor(self.affine_weights, device=device)
-            tidx, tw = transpose_map(cols[:, None],
-                                     torch.ones((len(rows), 1), dtype=torch.float64,
-                                                device=device), len(self.mask_np))
-            self._dev[key] = dict(
-                hmask=torch.as_tensor(self.hanging_mask_np, device=device),
-                hrows=torch.as_tensor(self._hrows, device=device),
-                hcols=torch.as_tensor(self._hcols, device=device),
-                hw=torch.as_tensor(self._hw, device=device),
-                rows=rows, w=w,
-                # padded slots point one past the entries (a zero appended)
-                tidx=torch.where(tw != 0, tidx, len(rows)))
+            with plain_tensors():
+                rows = torch.as_tensor(self.affine_rows, device=device)
+                cols = torch.as_tensor(self.affine_cols, device=device)
+                w = torch.as_tensor(self.affine_weights, device=device)
+                tidx, tw = transpose_map(cols[:, None],
+                                         torch.ones((len(rows), 1), dtype=torch.float64,
+                                                    device=device), len(self.mask_np))
+                self._dev[key] = dict(
+                    hmask=torch.as_tensor(self.hanging_mask_np, device=device),
+                    hrows=torch.as_tensor(self._hrows, device=device),
+                    hcols=torch.as_tensor(self._hcols, device=device),
+                    hw=torch.as_tensor(self._hw, device=device),
+                    rows=rows, w=w,
+                    # padded slots point one past the entries (a zero appended)
+                    tidx=torch.where(tw != 0, tidx, len(rows)))
         return self._dev[key]
 
     def _to_parents(self, v, t):

@@ -71,6 +71,13 @@ class OneStepGridOperator:
     def elem_gdofs_cat(self):
         return self.go0.elem_gdofs_cat
 
+    @property
+    def reverse_mode_apply(self):
+        """Whether reverse mode sees through jacobian_apply: when it does
+        through both operators' (solvers/linear.py transposed_twice)."""
+        return (getattr(self.go0, "reverse_mode_apply", False)
+                and getattr(self.go1, "reverse_mode_apply", False))
+
     def _mask(self, x):
         return self.cg.mask_on(x.device)
 

@@ -28,9 +28,6 @@ CSR with `AlgebraicMultigrid.from_csr(A)`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import time as _time
 
 import numpy as np
@@ -38,9 +35,6 @@ import torch
 
 from dune_pdelab_tpu_torch.utils.common import device_key, resolve_device
 
-_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       "csrc", "amg_setup.cc")
-_GXX_FLAGS = ["-O3", "-shared", "-fPIC"]
 _NATIVE = None
 
 
@@ -64,31 +58,14 @@ def _strength_graph(A, theta):
 
 def native_library() -> ctypes.CDLL:
     """The aggregation library, compiled from csrc/amg_setup.cc with g++
-    into build/torch_kernels/ (keyed by a hash of the source and flags) on
-    first use. A missing g++ or a failed compile raises."""
+    into build/torch_kernels/ (kernels/_host.py) on first use. A missing
+    g++ or a failed compile raises."""
     global _NATIVE
     if _NATIVE is not None:
         return _NATIVE
-    from dune_pdelab_tpu_torch.kernels._build import BUILD_DIR
+    from dune_pdelab_tpu_torch.kernels._host import host_library
 
-    with open(_SOURCE, "rb") as f:
-        src = f.read()
-    h = hashlib.sha256(" ".join(_GXX_FLAGS).encode() + src).hexdigest()[:16]
-    lib = BUILD_DIR / f"libamgsetup_{h}.so"
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        try:
-            proc = subprocess.run(["g++", *_GXX_FLAGS, "-o", str(tmp), _SOURCE],
-                                  capture_output=True, text=True)
-        except FileNotFoundError as e:
-            raise RuntimeError("g++ not found: the AMG aggregation is built from "
-                               "csrc/amg_setup.cc at first use") from e
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed ({proc.returncode}) on {_SOURCE}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)
-    L = ctypes.CDLL(str(lib))
+    L = host_library("amg_setup.cc")
     i64p = ctypes.POINTER(ctypes.c_int64)
     L.amg_aggregate.restype = ctypes.c_int64
     L.amg_aggregate.argtypes = [ctypes.c_int64, i64p, i64p,

@@ -14,9 +14,9 @@ in the reference; both produce the reference's arrays in the reference's
 order (cells, vertices, parent cells, midpoints), so DOF numbering and
 every later number agree. The reference's per-element emission loops are
 vectorised here with the order kept: children are laid out in fixed slots
-per parent and read back in row-major order. Gmsh MSH 2.x input is the
-Python parser only (the reference's native reader belongs to ROADMAP slice
-13); a malformed file raises.
+per parent and read back in row-major order. Gmsh MSH 2.x input goes
+through the native C++ parser (io/msh_native.py) or the Python one, which
+give equal arrays; a malformed file raises.
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ class SimplexMesh:
 
     # -- construction --------------------------------------------------------
     @classmethod
-    def from_gmsh(cls, path, reader: str = "python"):
+    def from_gmsh(cls, path, reader: str | None = None):
         """Read a Gmsh MSH 2.x ASCII file (reference: the test grids of
         dune/pdelab/test/grids/*.msh read through dune-grid's GmshReader).
 
@@ -59,14 +59,28 @@ class SimplexMesh:
         mesh (tets win when both appear: the triangles are then boundary
         facets). Physical tags are kept: `cell_tags` (E,) per cell, and
         `facet_tags` maps a sorted boundary-facet vertex tuple to its
-        physical id. Parsing is `_parse_msh_py`; the reference's native C++
-        reader (reader="native"; the reference falls back from it to the
-        Python parser silently) is ROADMAP slice 13's."""
-        if reader != "python":
-            raise NotImplementedError(
-                f"MSH reader {reader!r} is not ported yet (the native reader: "
-                "ROADMAP slice 13); use reader='python'")
-        coords, tris, tritags, tets, tettags, lines2, linetags = cls._parse_msh_py(path)
+        physical id.
+
+        reader: "native" (csrc/msh_reader.cc, raises when it cannot be
+        built), "python" (`_parse_msh_py`), or None, the reference's rule:
+        the native reader when it can be built, else, or when it refuses
+        the file, the Python parser (both follow the same rules, so a
+        malformed file raises either way). `mesh.msh_reader` records
+        which parser gave the arrays."""
+        from dune_pdelab_tpu_torch.io import msh_native
+
+        if reader not in (None, "native", "python"):
+            raise ValueError(f"reader={reader!r}: 'native', 'python' or None")
+        parsed = None
+        if reader == "native" or (reader is None and msh_native.available()):
+            try:
+                parsed, used = msh_native.parse_msh(path), "native"
+            except (ValueError, NotImplementedError):
+                if reader == "native":
+                    raise
+        if parsed is None:
+            parsed, used = cls._parse_msh_py(path), "python"
+        coords, tris, tritags, tets, tettags, lines2, linetags = parsed
         if len(tets):
             dim, cells, ctags = 3, tets, tettags
             facets, ftags = tris, tritags
@@ -81,6 +95,7 @@ class SimplexMesh:
         m.cell_tags = ctags
         m.facet_tags = {tuple(sorted(int(v) for v in fv)): int(t)
                         for fv, t in zip(facets, ftags)}
+        m.msh_reader = used
         return m
 
     @staticmethod

@@ -92,6 +92,12 @@ class RankPool:
         store = os.path.join(self._tmp.name, "store")
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(p for p in sys.path if p)
+        # each rank's host math (torch's intra-op pool, and the BLAS and
+        # OpenMP pools numpy and scipy start with one thread per core) runs
+        # on `threads` threads: n ranks on one host must not each take
+        # every core
+        for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+            env[var] = str(self.threads)
         self._procs, self._to, self._from = [], [], []
         for r in range(self.nranks):
             task_r, task_w = os.pipe()

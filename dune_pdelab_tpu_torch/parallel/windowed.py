@@ -196,6 +196,10 @@ class WindowShardedGridOperator:
 
     def __init__(self, go, devices=None, axis_name="shard", element_owner=None,
                  group=None, device=None):
+        if go.selective:
+            raise ValueError("WindowShardedGridOperator takes no selective local "
+                             "operator: its ranks run the kernels without the "
+                             "element and face masks")
         self.go = go
         self.group = group_of(devices, group)
         self.comm = comm = Comm(self.group)

@@ -27,7 +27,9 @@ of choice:
     Chebyshev take the (block) stencil's exact diagonal;
   * general-jvp: go.jacobian_apply (torch.func.jvp) per apply; on the card
     the apply is captured once per solve into a CUDA graph and replayed
-    (GraphedApply), bit-equal to the eager apply.
+    (GraphedApply), bit-equal to the eager apply; on the CPU an operator
+    that allows it (`reverse_mode_apply`) has its apply rebuilt once per
+    solve by reverse mode applied twice (`transposed_twice`).
 
 Jacobi takes go.jacobian_diagonal on every tier but the stencil one, as in
 the reference; block Jacobi and block GS take go.element_diagonal_blocks,
@@ -108,6 +110,38 @@ class GraphedApply:
         self.z_in.copy_(z)
         self.graph.replay()
         return self.z_out.clone()
+
+
+def transposed_twice(apply, like):
+    """z -> apply(z) for a linear `apply` on vectors shaped as `like`,
+    rebuilt for the many calls of one Krylov solve on the host.
+
+    On the CPU, torch's forward mode spends ~0.4 ms of host time on each
+    operation whose other operand carries no tangent (see GraphedApply),
+    so a general-jvp apply of a pointwise-heavy kernel costs ~10x its
+    residual (config11's two-phase operator: 48 ms against 5 ms). Reverse
+    mode has no such cost: the vjp of `apply` is w -> J^T w, a linear map
+    whose vjp is z -> J z again. Both are built once (one apply and one
+    backward pass); each later call is one backward pass through the
+    second graph (4.4 ms for that operator), and gives J z up to the order
+    of its sums."""
+    z0 = torch.zeros_like(like)
+    y0, transpose = torch.func.vjp(apply, z0)
+    _, twice = torch.func.vjp(lambda w: transpose(w)[0], torch.zeros_like(y0))
+    return lambda z: twice(z)[0]
+
+
+def _general_apply(go, x_lin, b, time):
+    """The general-jvp tier's z -> go.jacobian_apply(x_lin, z, time) and a
+    note on how it runs: on the CPU transposed twice where the operator
+    allows reverse mode through its apply (a real dtype, and no
+    communicating autograd Function on the path: `reverse_mode_apply`),
+    else one jvp per call."""
+    apply = lambda z: go.jacobian_apply(x_lin, z, time)      # noqa: E731
+    if (b.device.type == "cpu" and getattr(go, "reverse_mode_apply", False)
+            and not b.is_complex()):
+        return transposed_twice(apply, b), "; transposed twice"
+    return apply, ""
 
 
 def _kernel_how(uses_kernel, name, device):
@@ -277,7 +311,7 @@ class LinearSolverBackend:
         """(A, the stencil Jacobi reads its diagonal from or None, path)."""
         if callable(self.precond) and not getattr(self.precond, "krylov_fast_tiers",
                                                   False):
-            return (lambda z: go.jacobian_apply(x_lin, z, time), None,
+            return (_general_apply(go, x_lin, b, time)[0], None,
                     "general-jvp (matrix-free) + custom preconditioner "
                     f"{type(self.precond).__name__}")
         if not self.matrix_free:
@@ -302,12 +336,10 @@ class LinearSolverBackend:
         if st is not None:
             how = _kernel_how(st.uses_stencil27, "stencil27", b.device)
             return st, st, f"compiled stencil StencilOperator [{how}]"
+        apply, how = _general_apply(go, x_lin, b, time)
         if b.device.type == "cuda":
-            return (GraphedApply(lambda z: go.jacobian_apply(x_lin, z, time)), None,
-                    "general-jvp (matrix-free batched assembly per apply; CUDA graph "
-                    "replay)")
-        return (lambda z: go.jacobian_apply(x_lin, z, time), None,
-                "general-jvp (matrix-free batched assembly per apply)")
+            apply, how = GraphedApply(apply), "; CUDA graph replay"
+        return apply, None, f"general-jvp (matrix-free batched assembly per apply{how})"
 
     def solve(self, go, x_lin, b, reduction, time=0.0, x0=None, reuse=False):
         """Solve J(x_lin) z = b to relative `reduction`; returns (z, stats).

@@ -61,6 +61,15 @@ def full_fp32_on_cuda() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def plain_tensors():
+    """A context in which tensors are made outside torch.func's
+    transforms. A device cache filled at its first use inside a jvp or vjp
+    would otherwise hold that transform's wrappers, which escape their
+    level at a later call (the general-jvp apply is transposed twice inside
+    nested vjps on the CPU: solvers/linear.py transposed_twice)."""
+    return torch._C._DisableFuncTorch()
+
+
 def device_key(device) -> torch.device:
     """The one cache key of a device: "cuda", "cuda:0" and
     torch.device("cuda", 0) all give torch.device("cuda", 0) (an unindexed

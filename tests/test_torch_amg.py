@@ -50,9 +50,8 @@ from dune_pdelab_tpu_torch.ops import ConvectionDiffusionDG as TDG
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM as TFEM
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem as TProblem
 from dune_pdelab_tpu_torch.solvers import (
-    LinearSolverBackend, SEQ_BCGS_AMG, SEQ_CG_AMG, StationaryLinearProblemSolver,
+    SEQ_BCGS_AMG, SEQ_CG_AMG, StationaryLinearProblemSolver,
 )
-from dune_pdelab_tpu_torch.space.functions import l2_difference
 from dune_pdelab_tpu_torch.utils.common import set_default_device
 
 pytestmark = pytest.mark.fast
@@ -232,25 +231,16 @@ def test_options_match_jax(opts):
 
 
 def test_config12_golden():
-    """config12_simplex_amg (models/configs.py:490-522) from the port; the
-    pure-Dirichlet problem drops its boundary kernels (skip_boundary)."""
+    """config12_simplex_amg from the port's models/configs.py."""
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
+
     want = GOLDEN["config12_simplex_amg"]
-    p = TSine()
-    V = tpt.FunctionSpace(TSimplex.from_structured(tpt.StructuredMesh([0, 0], [1, 1], (32, 32))),
-                          TPk(1, 2))
-    cons = tpt.constraints(p.dirichlet_bctype(), V)
-    go = tpt.GridOperator(V, TFEM(p), constraints=cons, skip_boundary=True)
-    amg = tamg.AlgebraicMultigrid()
-    ls = LinearSolverBackend(solver="cg", precond=amg, use_stencil=False)
-    x0 = tpt.interpolate_dirichlet(p.g, V, cons, V.zero(F64))
-    slp = StationaryLinearProblemSolver(go, ls, reduction=1e-10)
-    x = slp.apply(x0)
-    info = amg.hierarchy_info()
-    assert slp.result.converged and V.ndofs == want["ndofs"]
-    assert slp.result.linear_solver_iterations == want["iterations"]
-    assert len(info["sizes"]) == want["levels"]
-    assert info["operator_complexity"] == pytest.approx(want["operator_complexity"], rel=1e-12)
-    assert float(l2_difference(V, x, p.exact)) == pytest.approx(want["l2_error"], rel=1e-8)
+    got = ALL_CONFIGS["config12"]()
+    assert got["converged"] and got["ndofs"] == want["ndofs"]
+    assert got["iterations"] == want["iterations"]
+    assert got["levels"] == want["levels"]
+    assert got["operator_complexity"] == pytest.approx(want["operator_complexity"], rel=1e-12)
+    assert got["l2_error"] == pytest.approx(want["l2_error"], rel=1e-8)
 
 
 @pytest.mark.parametrize("which", ["cg", "bcgs"])
@@ -304,9 +294,11 @@ def test_dg_two_level_amg_matches_jax():
 
 
 def test_failed_native_build_raises(tmp_path, monkeypatch):
-    bad = tmp_path / "amg_setup.cc"
-    bad.write_text("this is not C++\n")
-    monkeypatch.setattr(tamg, "_SOURCE", str(bad))
+    from dune_pdelab_tpu_torch.kernels import _host
+
+    (tmp_path / "amg_setup.cc").write_text("this is not C++\n")
+    monkeypatch.setattr(_host, "CSRC", tmp_path)
+    monkeypatch.setattr(_host, "_LOADED", {})
     monkeypatch.setattr(tamg, "_NATIVE", None)
     S = sp.csr_matrix(np.ones((3, 3)) - np.eye(3))
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):

@@ -27,10 +27,10 @@ from dune_pdelab_tpu.ops import ConvectionDiffusionProblem as JProblem
 from dune_pdelab_tpu.solvers import LinearSolverBackend as JBackend
 from dune_pdelab_tpu_torch.assembly.stencil import compile_stencil
 from dune_pdelab_tpu_torch.linalg.gmg_lattice import LatticeGMG
+from dune_pdelab_tpu_torch.models import ALL_CONFIGS
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM as TFEM
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem as TProblem
 from dune_pdelab_tpu_torch.solvers import LinearSolverBackend
-from dune_pdelab_tpu_torch.space.functions import l2_difference
 from dune_pdelab_tpu_torch.utils.common import set_default_device
 
 pytestmark = pytest.mark.fast
@@ -61,19 +61,6 @@ class TVar(TProblem):
 
     def c(self, x):
         return 0.7 + x[..., 0]
-
-
-class TSine2D(TProblem):
-    """models/configs.py _Sine2D."""
-
-    def exact(self, p):
-        return torch.sin(PI * p[:, 0]) * torch.cos(2 * PI * p[:, 1]) + p[:, 0]
-
-    def f(self, x):
-        return 5 * PI**2 * torch.sin(PI * x[..., 0]) * torch.cos(2 * PI * x[..., 1])
-
-    def g(self, x):
-        return torch.sin(PI * x[..., 0]) * torch.cos(2 * PI * x[..., 1]) + x[..., 0]
 
 
 class JUnit(JProblem):
@@ -123,23 +110,15 @@ def test_jacobian_and_diagonal_match_reference(cells, k):
 
 
 def test_config1_poisson_2d_mf_golden():
-    """models/configs.py config1_poisson_2d_mf: 64^2 Q1, matrix-free CG +
-    Jacobi on the general-jvp tier (use_stencil=False)."""
+    """The port's models/configs.py config1_poisson_2d_mf: 64^2 Q1,
+    matrix-free CG + Jacobi on the general-jvp tier (use_stencil=False)."""
     ref = GOLDEN["config1_poisson_2d_mf"]
-    p = TSine2D()
-    mesh = tpt.StructuredMesh([0, 0], [1, 1], (64, 64))
-    V = tpt.FunctionSpace(mesh, tpt.QkFEM(1, 2))
-    cg_ = tpt.constraints(p.dirichlet_bctype(), V)
-    go = tpt.GridOperator(V, TFEM(p), constraints=cg_, skip_boundary=True)
-    ls = LinearSolverBackend(solver="cg", precond="jacobi", use_stencil=False)
-    x0 = tpt.interpolate_dirichlet(p.g, V, cg_, V.zero(F64))
-    slp = tpt.StationaryLinearProblemSolver(go, ls, reduction=1e-10, verbose=0)
-    x = slp.apply(x0)
-    assert "general-jvp" in ls.report(go)
-    assert slp.result.converged and V.ndofs == ref["ndofs"]
-    assert slp.result.linear_solver_iterations == ref["iterations"]
-    assert float(l2_difference(V, x, p.exact)) == pytest.approx(
-        ref["l2_error"], rel=1e-8, abs=1e-9)
+    info = {}
+    got = ALL_CONFIGS["config1"](info=info)
+    assert "general-jvp" in info["ls"].report(info["go"])
+    assert got["converged"] and got["ndofs"] == ref["ndofs"]
+    assert got["iterations"] == ref["iterations"]
+    assert got["l2_error"] == pytest.approx(ref["l2_error"], rel=1e-8, abs=1e-9)
 
 
 def test_callable_preconditioner_lattice_gmg_matches_jax():

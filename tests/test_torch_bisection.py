@@ -25,14 +25,9 @@ import dune_pdelab_tpu_torch as tpt
 from dune_pdelab_tpu.adaptivity.local import adapt_local_simplex as j_adapt
 from dune_pdelab_tpu.fe import PkFEM as JPk
 from dune_pdelab_tpu.mesh import SimplexMesh as JSimplex
-from dune_pdelab_tpu_torch.adaptivity import (
-    adapt_local_simplex, error_fraction, mark_elements, p1_edge_jump_indicator,
-)
+from dune_pdelab_tpu_torch.adaptivity import adapt_local_simplex
 from dune_pdelab_tpu_torch.interop import simplex_mesh_from_numpy
 from dune_pdelab_tpu_torch.mesh import SimplexMesh as TSimplex
-from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM as TFEM
-from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem as TProblem
-from dune_pdelab_tpu_torch.space.functions import l2_difference
 from dune_pdelab_tpu_torch.utils.common import set_default_device
 
 pytestmark = pytest.mark.fast
@@ -103,53 +98,18 @@ def test_transfer_matches_jax(dim, k):
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=0, atol=1e-14 * np.abs(x).max())
 
 
-def _u_exact(p):
-    p = np.asarray(p)
-    r = np.hypot(p[:, 0], p[:, 1])
-    th = np.mod(np.arctan2(p[:, 1], p[:, 0]), 2 * np.pi)
-    return np.where(r == 0, 0.0, r ** (2 / 3) * np.sin(2 * th / 3))
-
-
-class Corner(TProblem):
-    def f(self, x):
-        return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
-
-    def g(self, x):
-        return torch.as_tensor(_u_exact(x.reshape(-1, 2).cpu().numpy()).reshape(x.shape[:-1]),
-                               dtype=x.dtype, device=x.device)
-
-
 def test_config6_golden():
-    """config6_adaptive_lshape from the port: P1 on the L-shape of an 8^2
-    triangulated square, Doerfler 0.5 on the edge-jump indicator, four
-    bisection cycles, Jacobi-CG to 1e-12 with the boundary kernels built
-    (no skip_boundary)."""
+    """config6_adaptive_lshape from the port's models/configs.py: P1 on the
+    L-shape of an 8^2 triangulated square, Doerfler 0.5 on the edge-jump
+    indicator, four bisection cycles, Jacobi-CG to 1e-12 with the boundary
+    kernels built (no skip_boundary)."""
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
+
     want = GOLDEN["config6_adaptive_lshape"]
-
-    def exact(q):
-        return _u_exact(q.cpu().numpy())
-
-    def solve(V):
-        cons = tpt.constraints(True, V)
-        go = tpt.GridOperator(V, TFEM(Corner()), constraints=cons)
-        x0 = tpt.interpolate_dirichlet(exact, V, cons, V.zero(F64))
-        slp = tpt.StationaryLinearProblemSolver(go, tpt.SEQ_CG_Jacobi(maxiter=20000),
-                                                reduction=1e-12, verbose=0)
-        return slp.apply(x0), slp.result.linear_solver_iterations
-
-    sq = TSimplex.from_structured(tpt.StructuredMesh([-1, -1], [1, 1], (8, 8)))
-    c = sq.element_centers()
-    V = tpt.FunctionSpace(sq.submesh(~((c[:, 0] > 0) & (c[:, 1] < 0))).oriented_for_bisection(),
-                          tpt.PkFEM(1, 2))
-    x, its = solve(V)
+    got = ALL_CONFIGS["config6"]()
     for cyc in range(4):
-        assert V.ndofs == want[f"ndofs_cycle{cyc}"]
-        assert float(l2_difference(V, x, exact)) == pytest.approx(want[f"l2_cycle{cyc}"],
-                                                                  rel=1e-10)
-        eta2 = p1_edge_jump_indicator(V, x)
-        marks, _ = mark_elements(eta2, error_fraction(eta2, 0.5))
-        V, x = adapt_local_simplex(V, x, marks)
-        x, its = solve(V)
-    assert V.ndofs == want["ndofs"]
-    assert float(l2_difference(V, x, exact)) == pytest.approx(want["l2_error"], rel=1e-10)
-    assert its == want["iterations"]
+        assert got[f"ndofs_cycle{cyc}"] == want[f"ndofs_cycle{cyc}"]
+        assert got[f"l2_cycle{cyc}"] == pytest.approx(want[f"l2_cycle{cyc}"], rel=1e-10)
+    assert got["ndofs"] == want["ndofs"]
+    assert got["l2_error"] == pytest.approx(want["l2_error"], rel=1e-10)
+    assert got["iterations"] == want["iterations"]

@@ -9,7 +9,22 @@ holds one, even with the one operator a tier knows (ConvectionDiffusionFEM),
 so these spaces run on the general torch.func.jvp apply; the linear solver
 backend names every declined tier in report(). CPU, fp64; no tolerances
 (None or a report line).
+
+Selective operators (skip_entity / skip_intersection) as well: the fused
+structured operator (K3) declines them, as the reference does
+(structured_fused.py:78-81); every other tier gives the masked operator's
+result or declines: the compiled stencil (K2; its whole-domain check, and
+no proxy mesh, whose masks would be another mesh's), the fused CG that
+runs on it (K1), the lattice ELL (K4; probed through the masked J.v, or
+declined by the direct assembly, which reads the volume kernel), and the
+block stencil (K5/K6), on and off its proxy branch; the window-sharded
+GridOperators of parallel/ raise. Results are held to
+the masked jacobian_apply on a random vector within 1e-12 relative. K3's
+other decline, hanging-node (affine) rows, is reachable: a user's
+DirichletConstraints may carry affine rows on a uniform lattice, and K3
+declines them there.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -122,3 +137,134 @@ def test_report_names_declined_tiers(kind, matrix_free):
     else:
         assert "solve path: assembled sparse COO matvec" in rep
         assert "declined lattice-ELL:" in rep
+
+
+# ---- selective operators --------------------------------------------------
+class LeftCD(ConvectionDiffusionFEM):
+    """Convection-diffusion on the elements with centre x < 0.5."""
+
+    def skip_entity(self, centers):
+        return centers[..., 0] >= 0.5
+
+
+def _left_dg():
+    from dune_pdelab_tpu_torch.ops import ConvectionDiffusionDG
+
+    class LeftDG(ConvectionDiffusionDG):
+        def skip_entity(self, centers):
+            return centers[..., 0] >= 0.5
+
+        def skip_intersection(self, mids):
+            return mids[..., 1] > 0.8
+    return LeftDG(ConvectionDiffusionProblem())
+
+
+def _q1_selective(n, lop_class=LeftCD):
+    """Pure Dirichlet (skip_boundary), so that only the selection can make a
+    tier decline."""
+    V = tpt.FunctionSpace(tpt.StructuredMesh([0] * 3, [1] * 3, (n,) * 3), tpt.QkFEM(1, 3))
+    return tpt.GridOperator(V, lop_class(ConvectionDiffusionProblem()),
+                            constraints=tpt.constraints(True, V), skip_boundary=True)
+
+
+def _dg_selective(n):
+    V = tpt.FunctionSpace(tpt.StructuredMesh([0] * 3, [1] * 3, (n,) * 3), tpt.QkDGFEM(1, 3))
+    return tpt.GridOperator(V, _left_dg())
+
+
+def _masked_result(go, op):
+    """None, or op's apply held to the masked J.v on a random vector."""
+    if op is None:
+        return None
+    z = torch.as_tensor(np.random.default_rng(4).standard_normal(go.space.ndofs), dtype=F64)
+    want = go.jacobian_apply(torch.zeros_like(z), z)
+    got = op._apply_impl(z)
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    return op
+
+
+SELECTIVE = {
+    "stencil": lambda mp: _masked_result(g := _q1_selective(8), compile_stencil(g, dtype=F64)),
+    "stencil-proxy": lambda mp: (mp.setattr("dune_pdelab_tpu_torch.assembly.stencil."
+                                            "PROXY_MIN_ELEMENTS", 512),
+                                 _masked_result(g := _q1_selective(9),
+                                                compile_stencil(g, dtype=F64)))[1],
+    "fused-residual": lambda mp: make_fused_residual(_q1_selective(6)),
+    "fused-japply": lambda mp: make_fused_japply(_q1_selective(6)),
+    "ell": lambda mp: _masked_result(g := _q1_selective(6), assemble_ell(g, torch.zeros(
+        g.space.ndofs, dtype=F64))),
+    "ell-device": lambda mp: _masked_result(g := _q1_selective(6), assemble_ell_device(
+        g, torch.zeros(g.space.ndofs, dtype=F64))),
+    "ell-direct": lambda mp: assemble_ell_direct(_q1_selective(6)),
+    "block-stencil": lambda mp: _masked_result(g := _dg_selective(6),
+                                               compile_block_stencil(g, dtype=F64)),
+    "block-stencil-proxy": lambda mp: (mp.setattr("dune_pdelab_tpu_torch.assembly.stencil."
+                                                  "PROXY_MIN_ELEMENTS", 216),
+                                       _masked_result(g := _dg_selective(7),
+                                                      compile_block_stencil(g, dtype=F64)))[1],
+}
+# the tiers that must decline outright (the reference's K3 gate; the direct
+# ELL assembly reads the unmasked volume kernel)
+MUST_DECLINE = ("fused-residual", "fused-japply", "ell-direct")
+
+
+@pytest.mark.parametrize("tier", list(SELECTIVE))
+def test_selective_operator_tiers(tier, monkeypatch):
+    got = SELECTIVE[tier](monkeypatch)
+    if tier in MUST_DECLINE:
+        assert got is None
+        # the same operator without the selection takes the tier
+        plain = _q1_selective(6, ConvectionDiffusionFEM)
+        assert {"fused-residual": make_fused_residual, "fused-japply": make_fused_japply,
+                "ell-direct": assemble_ell_direct}[tier](plain) is not None
+    if tier in ("ell", "ell-device"):
+        assert got is not None       # probing through the masked J.v is exact
+
+
+def test_selective_operator_fused_cg_unreachable():
+    """The fused CG (K1) runs only on a compiled stencil that qualifies; the
+    selective operator's stencil is declined, so a CG solve lands on the
+    general-jvp apply and report() names the declined stencil."""
+    go = _q1_selective(8)
+    assert compile_stencil(go, dtype=F64) is None
+    ls = LinearSolverBackend(solver="cg", precond="jacobi", maxiter=3)
+    x = torch.zeros(go.space.ndofs, dtype=F64)
+    ls.solve(go, x, torch.ones(go.space.ndofs, dtype=F64), 1e-8)
+    rep = ls.report(go)
+    assert "solve path: general-jvp" in rep and "declined stencil:" in rep
+    assert "fused" not in rep.split("solve path:")[1].splitlines()[0]
+
+
+@pytest.mark.parametrize("cls", ["WindowShardedGridOperator", "ShardedGridOperator",
+                                 "NonoverlappingShardedGridOperator"])
+def test_selective_operator_sharded_raises(cls):
+    """The window-sharded operators run the local operator's kernels on each
+    rank's slice of the contexts, without the element and face masks: they
+    refuse a selective operator (before any process group is needed)."""
+    from dune_pdelab_tpu_torch import parallel
+
+    with pytest.raises(ValueError, match="selective"):
+        getattr(parallel, cls)(_q1_selective(4))
+
+
+def test_fused_operator_declines_affine_rows():
+    """Affine (hanging-node) rows reach K3's gate through a user's
+    DirichletConstraints on a uniform 3D Q1 lattice; K3 declines them, as
+    the reference does, and the general path computes r = P^T R(P x)."""
+    V = tpt.FunctionSpace(tpt.StructuredMesh([0] * 3, [1] * 3, (6,) * 3), tpt.QkFEM(1, 3))
+    base = tpt.constraints(True, V)
+    mask = base.mask_np.copy()
+    hang = 7 * 7 * 3 + 7 * 3 + 3                     # an interior vertex
+    mask[hang] = True
+    cons = DirichletConstraints(mask, affine_rows=[hang, hang],
+                                affine_cols=[hang - 1, hang + 1],
+                                affine_weights=[0.5, 0.5], device="cpu")
+    assert cons.has_affine
+    go = tpt.GridOperator(V, ConvectionDiffusionFEM(ConvectionDiffusionProblem()),
+                          constraints=cons, skip_boundary=True)
+    assert make_fused_residual(go) is None and make_fused_japply(go) is None
+    plain = tpt.GridOperator(V, ConvectionDiffusionFEM(ConvectionDiffusionProblem()),
+                             constraints=base, skip_boundary=True)
+    assert make_fused_residual(plain) is not None
+    r = go.residual(torch.ones(V.ndofs, dtype=F64))
+    assert bool(torch.isfinite(r).all()) and float(r[hang]) == 0.0

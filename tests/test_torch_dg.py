@@ -29,8 +29,6 @@ from dune_pdelab_tpu.ops.convectiondiffusiondg import ConvectionDiffusionDG as J
 from dune_pdelab_tpu.ops.convectiondiffusiondg import DGMethod
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionDG as TDG
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem as TProblem
-from dune_pdelab_tpu_torch.solvers import SEQ_BCGS_Jacobi
-from dune_pdelab_tpu_torch.space.functions import l2_difference
 from dune_pdelab_tpu_torch.utils.common import set_default_device
 
 pytestmark = pytest.mark.fast
@@ -185,26 +183,6 @@ def test_slab_and_index_face_transfers_agree():
     _close(index.residual(x), slab.residual(x).numpy(), rel=1e-14)
 
 
-class TSine2D(TProblem):
-    """models/configs.py _Sine2D with config3's convection."""
-
-    def exact(self, p):
-        return (torch.sin(np.pi * p[:, 0]) * torch.cos(2 * np.pi * p[:, 1])
-                + p[:, 0])
-
-    def b(self, x):
-        return torch.broadcast_to(torch.tensor([1.0, 0.5], dtype=x.dtype), x.shape)
-
-    def f(self, x):
-        s, c = torch.sin(np.pi * x[..., 0]), torch.cos(2 * np.pi * x[..., 1])
-        gx = np.pi * torch.cos(np.pi * x[..., 0]) * c + 1.0
-        gy = -2 * np.pi * s * torch.sin(2 * np.pi * x[..., 1])
-        return 5 * np.pi**2 * s * c + 1.0 * gx + 0.5 * gy
-
-    def g(self, x):
-        return torch.sin(np.pi * x[..., 0]) * torch.cos(2 * np.pi * x[..., 1]) + x[..., 0]
-
-
 # BiCGStab on config3 stalls near its 1e-10 target for ~30 steps (the
 # relative defect moves between 1e-10 and 4e-9 from step ~245 on), so the
 # step at which it first falls below the target, and the algebraic error
@@ -218,13 +196,13 @@ CONFIG3_L2_BAND = 2e-5
 
 
 def _config3(reduction):
-    p = TSine2D()
-    V = tpt.FunctionSpace(tpt.StructuredMesh([0, 0], [1, 1], (32, 32)), tpt.QkDGFEM(2, 2))
-    go = tpt.GridOperator(V, TDG(p))
-    ls = SEQ_BCGS_Jacobi()
-    slp = tpt.StationaryLinearProblemSolver(go, ls, reduction=reduction, verbose=0)
-    x = slp.apply(V.zero(F64))
-    return V, ls.report(go), slp.result, float(l2_difference(V, x, p.exact))
+    """The port's models/configs.py config3_convdiff_sipg at `reduction`."""
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
+
+    info = {}
+    got = ALL_CONFIGS["config3"](reduction=reduction, info=info)
+    return (info["space"], info["ls"].report(info["go"]), info["solver"].result,
+            got["l2_error"])
 
 
 def test_config3_golden():

@@ -40,7 +40,6 @@ from dune_pdelab_tpu_torch.ops import ConvectionDiffusionDG as TDG
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM as TFEM
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem as TProblem
 from dune_pdelab_tpu_torch.solvers import LinearSolverBackend, SEQ_CG_BlockJacobi
-from dune_pdelab_tpu_torch.space.functions import l2_difference
 from dune_pdelab_tpu_torch.utils.common import set_default_device
 
 pytestmark = pytest.mark.fast
@@ -89,19 +88,6 @@ def test_two_level_cycles_match_jax_flat_cycle():
         assert _rel(tl.apply(torch.from_numpy(r)).numpy(), want) <= 1e-10
 
 
-class TSine2D(TProblem):
-    """models/configs.py _Sine2D."""
-
-    def exact(self, p):
-        return torch.sin(np.pi * p[:, 0]) * torch.cos(2 * np.pi * p[:, 1]) + p[:, 0]
-
-    def f(self, x):
-        return 5 * np.pi**2 * torch.sin(np.pi * x[..., 0]) * torch.cos(2 * np.pi * x[..., 1])
-
-    def g(self, x):
-        return torch.sin(np.pi * x[..., 0]) * torch.cos(2 * np.pi * x[..., 1]) + x[..., 0]
-
-
 def test_config7_golden():
     """config7_dg_twolevel (models/configs.py:268-291): 32^2 Q1 SIPG, CG +
     DGTwoLevel (LatticeGMG on the Q1 subspace, the element-major block
@@ -114,19 +100,16 @@ def test_config7_golden():
     to the JAX package as it runs, and to the golden's L2 error."""
     from dune_pdelab_tpu.models.configs import config7_dg_twolevel
 
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
+
     want = GOLDEN["config7_dg_twolevel"]
     ref = config7_dg_twolevel()
-    p = TSine2D()
-    V = tpt.FunctionSpace(tpt.StructuredMesh([0, 0], [1, 1], (32, 32)), tpt.QkDGFEM(1, 2))
-    go = tpt.GridOperator(V, TDG(p))
-    pre = DGTwoLevel(go, TFEM(p), bctype=p.dirichlet_bctype())
-    ls = LinearSolverBackend(solver="cg", precond=pre, use_stencil=False)
-    slp = tpt.StationaryLinearProblemSolver(go, ls, reduction=1e-10, verbose=0)
-    x = slp.apply(V.zero(F64))
-    assert V.ndofs == want["ndofs"] and slp.result.converged
-    assert "custom preconditioner DGTwoLevel" in ls.report(go)
-    assert slp.result.linear_solver_iterations == ref["iterations"]
-    l2 = float(l2_difference(V, x, p.exact))
+    info = {}
+    got = ALL_CONFIGS["config7"](info=info)
+    assert got["ndofs"] == want["ndofs"] and got["converged"]
+    assert "custom preconditioner DGTwoLevel" in info["ls"].report(info["go"])
+    assert got["iterations"] == ref["iterations"]
+    l2 = got["l2_error"]
     assert l2 == pytest.approx(ref["l2_error"], rel=1e-10)
     assert l2 == pytest.approx(want["l2_error"], rel=1e-8)
 

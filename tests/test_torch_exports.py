@@ -7,9 +7,9 @@ of its modules (`from dune_pdelab_tpu.X.Y import a` or a submodule
 counterpart module (dune_pdelab_tpu_torch/X/Y.py). If it has, the name
 must import from the port's counterpart of the same subpackage; if it has
 not, the name must be in EXPECTED_MISSING, the names of the modules still
-to port (ROADMAP Queue 1: slice 13d). Every name in
-EXPECTED_MISSING must still be missing, so the list shrinks with each
-ported module.
+to port. Every module is ported, so EXPECTED_MISSING is empty: every name
+the reference's `__init__`s export, io and models included, must import
+from the port.
 """
 import ast
 import importlib
@@ -22,17 +22,10 @@ pytestmark = pytest.mark.fast
 ROOT = Path(__file__).resolve().parent.parent
 REF, PORT = "dune_pdelab_tpu", "dune_pdelab_tpu_torch"
 
-# (reference subpackage, name): modules not ported yet
-EXPECTED_MISSING = {
-    # 13d: models and io
-    *{("dune_pdelab_tpu.models", n) for n in (
-        "StructuredGrid", "CGSpace", "DGSpace", "P0Space", "GalerkinGlobalAssembler",
-        "solve_stationary", "linear_solver_from_config", "config1_poisson_2d_mf",
-        "config2_poisson_3d_gmg", "config3_convdiff_sipg",
-        "config4_heat_theta_newton", "config5_stokes_taylor_hood", "ALL_CONFIGS")},
-    *{("dune_pdelab_tpu.io", n) for n in (
-        "VTKWriter", "VTKSequenceWriter", "ParallelVTKWriter", "read_dgf")},
-}
+# (reference subpackage, name): modules not ported yet. Every module of
+# the reference is ported, so the list is empty and stays so: a module the
+# reference gains must be ported with its exports.
+EXPECTED_MISSING: set[tuple[str, str]] = set()
 
 
 def _inits():

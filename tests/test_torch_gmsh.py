@@ -7,7 +7,8 @@ reference checkout's grids).
     facet tags equal;
   * a P1 Poisson solve on the read mesh equals the reference's;
   * malformed files raise (missing section, short element line, unknown
-    node id, MSH 4), and the native reader names ROADMAP slice 13.
+    node id, MSH 4); a good file reads through the native reader by
+    default, with the Python parser's arrays.
 """
 import numpy as np
 import pytest
@@ -128,6 +129,9 @@ def test_good_file_and_native_reader(tmp_path):
     path = tmp_path / "ok.msh"
     path.write_text(BODY)
     m = TSimplex.from_gmsh(str(path))
-    assert m.nelements == 1 and m.nvertices == 3
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        TSimplex.from_gmsh(str(path), reader="native")
+    assert m.nelements == 1 and m.nvertices == 3 and m.msh_reader == "native"
+    n = TSimplex.from_gmsh(str(path), reader="native")
+    p = TSimplex.from_gmsh(str(path), reader="python")
+    assert (n.msh_reader, p.msh_reader) == ("native", "python")
+    np.testing.assert_array_equal(n.cells, p.cells)
+    np.testing.assert_array_equal(n.vertices, p.vertices)

@@ -32,8 +32,7 @@ from dune_pdelab_tpu_torch.interop import ell_from_numpy, vector_from_numpy
 from dune_pdelab_tpu_torch.linalg import ilu as tilu
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionFEM as TFEM
 from dune_pdelab_tpu_torch.ops import ConvectionDiffusionProblem as TProblem
-from dune_pdelab_tpu_torch.solvers import SEQ_BCGS_ILU0, SEQ_CG_ILU0, SEQ_CG_ILUn
-from dune_pdelab_tpu_torch.space.functions import l2_difference
+from dune_pdelab_tpu_torch.solvers import SEQ_BCGS_ILU0, SEQ_CG_ILUn
 from dune_pdelab_tpu_torch.utils.common import set_default_device
 
 pytestmark = pytest.mark.fast
@@ -149,45 +148,19 @@ def test_ilu_backends_match_jax(backend):
     assert np.linalg.norm(z.numpy() - z_j) <= 1e-9 * np.linalg.norm(z_j)
 
 
-class Var3D(TProblem):
-    """models/configs.py config9_assembled_ilu: u = sin(pi x) sin(pi y)
-    sin(pi z), A = a I with a = 1 + 0.5 sin(2x) y."""
-
-    def exact(self, p):
-        return torch.sin(PI * p[:, 0]) * torch.sin(PI * p[:, 1]) * torch.sin(PI * p[:, 2])
-
-    def A(self, x):
-        a = 1.0 + 0.5 * torch.sin(2 * x[..., 0]) * x[..., 1]
-        return a[..., None, None] * torch.eye(x.shape[-1], dtype=x.dtype)
-
-    def f(self, x):
-        xx, yy, zz = x[..., 0], x[..., 1], x[..., 2]
-        sx, sy, sz = torch.sin(PI * xx), torch.sin(PI * yy), torch.sin(PI * zz)
-        a = 1.0 + 0.5 * torch.sin(2 * xx) * yy
-        dax = torch.cos(2 * xx) * yy
-        day = 0.5 * torch.sin(2 * xx)
-        ux = PI * torch.cos(PI * xx) * sy * sz
-        uy = PI * sx * torch.cos(PI * yy) * sz
-        return 3 * PI**2 * a * sx * sy * sz - dax * ux - day * uy
-
-
 def test_config9_assembled_ilu_golden():
-    """12^3 Q1 cells, SEQ_CG_ILU0(use_stencil=False) through the stationary
-    solver: the callable ILU runs on the general-jvp tier, its ELL feeds only
+    """The port's config9: 12^3 Q1 cells, SEQ_CG_ILU0(use_stencil=False)
+    through the stationary solver: the callable ILU runs on the general-jvp tier, its ELL feeds only
     the factorization (solvers/linear.py:302-312 in the reference)."""
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
+
     ref = GOLDEN["config9_assembled_ilu"]
-    p = Var3D()
-    V = tpt.FunctionSpace(tpt.StructuredMesh([0] * 3, [1] * 3, (12, 12, 12)),
-                          tpt.QkFEM(1, 3))
-    cg_ = tpt.constraints(p.dirichlet_bctype(), V)
-    go = tpt.GridOperator(V, TFEM(p), constraints=cg_, skip_boundary=True)
-    ls = SEQ_CG_ILU0(use_stencil=False)
-    slp = tpt.StationaryLinearProblemSolver(go, ls, reduction=1e-10, verbose=0)
-    x = slp.apply(V.zero(F64))
-    assert "general-jvp (matrix-free) + custom preconditioner" in ls.report(go)
-    assert slp.result.converged and V.ndofs == ref["ndofs"]
-    assert slp.result.linear_solver_iterations == ref["iterations"]
-    l2 = float(l2_difference(V, x, p.exact))
-    assert abs(l2 - ref["l2_error"]) <= 1e-6 * ref["l2_error"]
+    info = {}
+    got = ALL_CONFIGS["config9"](info=info)
+    go, V = info["go"], info["space"]
+    assert "general-jvp (matrix-free) + custom preconditioner" in info["ls"].report(go)
+    assert got["converged"] and got["ndofs"] == ref["ndofs"]
+    assert got["iterations"] == ref["iterations"]
+    assert abs(got["l2_error"] - ref["l2_error"]) <= 1e-6 * ref["l2_error"]
     # the ELL the ILU factors is the one assemble_ell gives
     assert assemble_ell(go, V.zero(F64)).values.shape == (27, 13, 13, 13)

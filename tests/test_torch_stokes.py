@@ -289,7 +289,7 @@ def _velocity_l2(W, x, exact):
 
 
 def _config5(mass_cheby):
-    """models/configs.py config5_stokes_taylor_hood on the port."""
+    """config5's recipe on the port with StokesGMGSchur's mass_cheby set."""
     W = taylor_hood_space(_mesh(tpt, 2, 8), 2)
     go = tpt.GridOperator(W, TaylorHoodNavierStokes(_params(NavierStokesParameters, f=_f2d)),
                           constraints=stokes_constraints(W))
@@ -303,10 +303,14 @@ def _config5(mass_cheby):
 
 
 def test_config5():
-    """The JAX package's count and error (its config5 run here) with the
-    default preconditioner; the golden's 42 with the Jacobi pressure-mass
-    Schur it was recorded with."""
-    its, l2 = _config5(mass_cheby=4)
+    """The port's ALL_CONFIGS["config5"] against the JAX package's count and
+    error (its config5 run here); the golden's 42 with the Jacobi
+    pressure-mass Schur it was recorded with (config5's recipe, mass_cheby=0)."""
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
+
+    got = ALL_CONFIGS["config5"]()
+    assert got["converged"] and got["ndofs"] == GOLDEN["config5_stokes_taylor_hood"]["ndofs"]
+    its, l2 = got["iterations"], got["velocity_l2_error"]
     jax_run = j_config5()
     assert jax_run["converged"] and jax_run["ndofs"] == GOLDEN["config5_stokes_taylor_hood"]["ndofs"]
     assert its == jax_run["iterations"]
@@ -318,38 +322,16 @@ def test_config5():
 
 
 def test_config10_golden():
-    """models/configs.py config10_stokes_outflow on the port: Poiseuille
+    """The port's models/configs.py config10_stokes_outflow: Poiseuille
     with a stress-Neumann outflow, StokesBlockJacobi GMRES."""
-    MU, L, P0 = 0.7, 2.0, 1.3
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
+
     want = GOLDEN["config10_stokes_outflow"]
-
-    def u_exact(p):
-        return torch.stack([p[:, 1] * (1 - p[:, 1]), torch.zeros_like(p[:, 0])], dim=-1)
-
-    def bctype(x):
-        on_wall = (x[..., 1] < 1e-10) | (x[..., 1] > 1 - 1e-10)
-        return torch.where(on_wall, StokesBC.VELOCITY_DIRICHLET,
-                           torch.where(x[..., 0] > L - 1e-10, StokesBC.STRESS_NEUMANN,
-                                       StokesBC.VELOCITY_DIRICHLET))
-
-    prm = _params(NavierStokesParameters, mu=MU, bctype=bctype,
-                  g=lambda x: torch.stack([x[..., 1] * (1 - x[..., 1]),
-                                           torch.zeros_like(x[..., 0])], dim=-1),
-                  j=lambda x, n: P0 * n)
-    W = taylor_hood_space(tpt.StructuredMesh([0, 0], [L, 1], (12, 6)), degree=2)
-    cgm = tpt.constraints((prm.velocity_bctype(), None), W)
-    go = tpt.GridOperator(W, TaylorHoodNavierStokes(prm), constraints=cgm)
-    ls = LinearSolverBackend(solver="gmres", precond=StokesBlockJacobi(W, MU),
-                             restart=150, maxiter=40000)
-    slp = StationaryLinearProblemSolver(go, ls, reduction=1e-11, verbose=0)
-    xg = W.interpolate((u_exact, lambda p: torch.zeros(len(p), dtype=F64)), dtype=F64)
-    x = slp.apply(torch.where(cgm.mask, xg, 0.0))
-    l2_p = float(l2_difference(W.children[1], W.restrict(x, 1),
-                               lambda p: 2 * MU * (L - p[:, 0]) + P0))
-    assert slp.result.converged and W.ndofs == want["ndofs"]
-    assert slp.result.linear_solver_iterations == want["iterations"]
-    assert _velocity_l2(W, x, u_exact) == pytest.approx(want["l2_v_error"], rel=1e-8, abs=1e-9)
-    assert l2_p == pytest.approx(want["l2_p_error"], rel=1e-8, abs=1e-9)
+    got = ALL_CONFIGS["config10"]()
+    assert got["converged"] and got["ndofs"] == want["ndofs"]
+    assert got["iterations"] == want["iterations"]
+    assert got["l2_v_error"] == pytest.approx(want["l2_v_error"], rel=1e-8, abs=1e-9)
+    assert got["l2_p_error"] == pytest.approx(want["l2_p_error"], rel=1e-8, abs=1e-9)
 
 
 def test_stokes3d_gmres_matches_jax():

@@ -90,19 +90,6 @@ class Lap(ConvectionDiffusionProblem):
         return 1.0
 
 
-class Sine2D(ConvectionDiffusionProblem):
-    """models/configs.py _Sine2D (config8)."""
-
-    def exact(self, p):
-        return np.sin(np.pi * p[:, 0]) * np.cos(2 * np.pi * p[:, 1]) + p[:, 0]
-
-    def f(self, x):
-        return 5 * np.pi**2 * torch.sin(np.pi * x[..., 0]) * torch.cos(2 * np.pi * x[..., 1])
-
-    def g(self, x):
-        return torch.sin(np.pi * x[..., 0]) * torch.cos(2 * np.pi * x[..., 1]) + x[..., 0]
-
-
 class AmgProblem(ConvectionDiffusionProblem):
     """tests/test_shardedamg.py _Problem."""
 
@@ -338,21 +325,11 @@ def alias_diag(group):
 
 @rank_task
 def config8(group, cells=16, reduction=1e-10):
-    """models/configs.py config8_windowed_sharded on the group's ranks."""
-    from dune_pdelab_tpu_torch.space.functions import l2_difference
-    p = Sine2D()
-    mesh = pt.StructuredMesh([0, 0], [1, 1], (cells, cells))
-    V = pt.FunctionSpace(mesh, pt.QkDGFEM(1, 2))
-    go = pt.GridOperator(V, ConvectionDiffusionDG(p, method=DGMethod.SIPG))
-    w = WindowShardedGridOperator(go, group=group, device=CPU)
-    x0 = V.zero(dtype=F64)
-    b = go.residual(x0)
-    z, stats = w.solve_cg(x0, b, diag=go.jacobian_diagonal(x0),
-                          tol=reduction * float(torch.linalg.norm(b)), maxiter=5000)
-    x = x0 - z
-    return {"l2_error": float(l2_difference(V, x, p.exact)),
-            "iterations": int(stats.iterations), "ndofs": V.ndofs,
-            "ndevices": dist.get_world_size(group)}
+    """The port's models/configs.py config8_windowed_sharded on every rank
+    of the world group (the pool's eight)."""
+    from dune_pdelab_tpu_torch.models import ALL_CONFIGS
+    assert dist.get_world_size(group) == dist.get_world_size()
+    return ALL_CONFIGS["config8"](cells=cells, reduction=reduction, device=CPU)
 
 
 @rank_task
