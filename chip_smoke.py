@@ -117,16 +117,16 @@ Phases (each passes or raises; there is no CPU path):
      512^2 and 1024^2 squares (N = 788,481) and the adaptive loop from the
      64^2 L-shape (p1_edge_jump_indicator -> Doerfler 0.5 ->
      adapt_local_simplex, SEQ_CG_AMG with Chebyshev smoothing to 1e-10)
-     until N >= 10^6 or 25 cycles, with the per-cycle split of host and
+     until N >= 5e4 or 25 cycles, with the per-cycle split of host and
      device seconds, held to: N rising, L2 falling, <= 25 iterations, true
      defect <= 1e-9, slope of log L2 on log N (N >= 1e4) below -0.75, an
      iterate below the uniform 1024^2 error at no more DOFs, a conforming
      final mesh; (c) 3D Traxler bisection on the Fichera problem: uniform
-     16^3 and 32^3 Kuhn meshes and the adaptive loop to N >= 2e5 beating
+     16^3 and 32^3 Kuhn meshes and the adaptive loop to N >= 5e4 beating
      the uniform 32^3 error at no more DOFs; (d) the hanging-node
      AdaptiveMesh Q1 loop (volume_residual_indicator, Doerfler 0.7,
-     Jacobi-CG) to N >= 5e4 against a uniform 256^2 run, the host loops
-     timed at ~1e5 leaves, and jacobian_apply against the assembled
+     Jacobi-CG) to N >= 2.5e4 against a uniform 256^2 run, and
+     jacobian_apply against the assembled
      P^T J P; (e) periodic 3D Poisson at 32^3/64^3 (L2 ratio 3-5), the
      fully periodic heat run at 256^2, and the stencil, ELL and K3 tiers'
      declines; (f) curved Dirichlet, Neumann-arc and periodic full-annulus
@@ -215,23 +215,50 @@ Phases (each passes or raises; there is no CPU path):
      solve_instationary from tests/test_boilerplate_config.py's INI at
      256^2 with its .pvd and checkpoints written from the card: t = 0.2,
      the latest checkpoint step 8, the L2 error below that test's 0.01.
+ 17. the fifteen example scripts (dune_pdelab_tpu_torch/examples/, one per
+     script of examples/), each run() on the card at its reference script's
+     size and dtype and held to that script's checks: ex01-ex06 and ex15
+     (fp32; ex15 with its fp64 refinement; ex02's SIPG solves on the
+     element-major block stencil, order in [1.8, 2.2]), ex09 (the Darcy
+     reconstruction's max |div v| < 1e-7 and inflow = outflow), ex10
+     (reflection and transmission bounds), ex11 (misfit down 1e6, theta to
+     1e-6), ex12 (last effectivity in [0.9, 1.1]), ex13 (liquid mass
+     balance), and on 8 gloo ranks ex14 (ShardedAMG-CG equal to the
+     sequential iterations, solutions within 1e-12), ex07 (the sharded
+     Jacobi-CG equal to the sequential one) and ex08 (window-sharded
+     Taylor-Hood GMRES, the velocity error bound); then ex01 as a user runs
+     it, in a subprocess, exiting 0 with "OK". Nine examples (ex02 and
+     ex15 among them) run in this process; the others in four helper
+     processes started beside them (ex05; ex09 + ex13; ex14 + ex07 on an
+     8-rank pool; ex08 on another), whose launches are added to this
+     process's counts. Each example's seconds and launches are logged.
 
 The goldens of phases 5d, 6e, 7d, 8b, 9b, 10b, 11a, 12a, 13a and 15b run
 through the port's own configurations, dune_pdelab_tpu_torch.models.ALL_CONFIGS
 (config5's mass_cheby=0 variant through its recipe with that setting).
 
-Launch counts are set to 0 before each of phases 3 to 16 and read after
-it; a kernel of that path that was never launched fails the run (the
+Phases 1-7 run in this process, one after another. Then phases 10-14 and
+16, host-bound loops that leave the card mostly idle, run in three lane
+processes (13 + 16, 10 + 14, 12 + 11, each lane its phases in turn)
+beside phases 8, 9 and 15 in this process; phase 17 starts when every lane
+is done. The times logged for phases 8-16 are those of phases sharing the
+host's cores and the card.
+
+Launch counts are set to 0 before each of phases 3 to 17 and read after
+it, in the process that drives it (a lane reports its phases' counts to
+this process); a kernel of that path that was never launched fails the run (the
 comparison launches of phases 6a, 6c, 7a, 9a, 9c, 13k and 15a are not
 counted). Prints phase results and times, the card's name and power limit,
 one JSON line {"kernels": [...]} with each kernel's launches over phases
-3-16, error, times and bound, and as its last line {"ok": true, "device":
+3-17, error, times and bound, and as its last line {"ok": true, "device":
 {...}}.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -289,7 +316,8 @@ GMG_CELLS = (32, 64)   # phase 8a: 3D Q2 CG + GeometricMultigrid (64^3: N = 2,14
 C2_CELLS = 16          # phase 8b: the config2 golden
 DGGMG_CELLS = 32       # phase 8c: DGTwoLevel(gmg_kwargs) on 2D Q1 SIPG
 HEAT_CELLS = 128       # phase 9a: 3D Q1 heat, N = 2,146,689
-HEAT_L2_MAX = 4e-5     # phase 9a: L2 error at t = 0.2 (CN, dt = 0.02; 1.91e-5 measured)
+HEAT_L2_MAX = 4e-5     # phase 9a: L2 error at the end (CN, dt = 0.02; 1.91e-5 measured at t = 0.2)
+HEAT_STEPS = 5         # phase 9a: steps of 0.02 (few: the command's time limit)
 HEAT_NEWTON_MAX = 2    # phase 9a: Newton iterations per step (a linear problem)
 NL_CELLS = 128         # phase 9c: -lap u + u^3 = f, 3D Q1
 NL_L2_MAX = 4.2e-5     # phase 9c: L2 error of the Newton solution (2.09e-5 measured)
@@ -312,6 +340,7 @@ JAX_CONFIG5_ITS = 32      # phase 10b: config5 on the JAX package today (the gol
 CC_CELLS = 256            # phase 10c: Cahouet-Chabard instationary Stokes, 2D, fp64
 CC_ITS_MAX = 80           # phase 10c: GMRES iterations per step (tests/test_stokes3d.py:185)
 CC_L2_MAX = 5e-4          # phase 10c: velocity L2 error at T (tests/test_stokes3d.py:184)
+CC_T = 0.04               # phase 10c: T, 2 steps of 0.02 (the command's time limit)
 CAVITY_CELLS = 64         # phase 10d: Newton lid-driven cavity, StokesGMGSchur GMRES
 DGNS_CELLS = 32           # phase 10d: DGNavierStokes Q2dg/Q1dg, N = 22,528
 DGNS_APPLY_REL = 1e-12    # phase 10d: card against CPU residual and J.v (fp64, of max|y|)
@@ -330,7 +359,7 @@ EIGEN_CELLS = 128         # phase 11f: lobpcg on the 2D Q1 Dirichlet Laplacian w
 GENEO_CELLS = 128         # phase 11f: GenEO (method="ilu"), boxes (4, 4)
 ADAPT_UNIFORM = (256, 512, 1024)   # phase 12b: uniform L-shapes, N up to 788,481
 ADAPT_START = 64          # phase 12b: the adaptive loop's initial L-shape (64^2 square)
-ADAPT_TARGET = 10 ** 6    # phase 12b: run until N >= this
+ADAPT_TARGET = 5 * 10 ** 4   # phase 12b: run until N >= this (the command's time limit)
 ADAPT_MAX_CYCLES = 25     # phase 12b: or this many cycles
 ADAPT_ITS_MAX = 25        # phase 12b: AMG-CG iterations per cycle
 ADAPT_SLOPE_NMIN = 10 ** 4   # phase 12b: the slope is fitted over cycles with N >= this
@@ -338,10 +367,10 @@ ADAPT_AMG = {"smoother": "chebyshev"}   # phase 12: the AMG smoother (with Jacob
 # smoothing AMG-CG drifts to 29 iterations on 12b's graded meshes by 7e4 DOFs, and
 # the DGTwoLevel coarse solve of 12f to 29 iterations at 64^2; CPU runs)
 FICHERA_UNIFORM = (16, 32)   # phase 12c: uniform Kuhn Fichera meshes
-FICHERA_TARGET = 2 * 10 ** 5   # phase 12c: adaptive loop until N >= this
+FICHERA_TARGET = 25_000   # phase 12c: adaptive loop until N >= this (time limit)
 FICHERA_MAX_CYCLES = 30   # Doerfler 0.6 grows N ~1.5x a cycle: 2e5 at cycle 26
 HANG_UNIFORM = 256        # phase 12d: uniform Q1 run, N = 66,049
-HANG_TARGET = 5 * 10 ** 4  # phase 12d: AdaptiveMesh loop until N >= this
+HANG_TARGET = 25_000      # phase 12d: AdaptiveMesh loop until N >= this (time limit)
 HANG_MAX_CYCLES = 40
 PERIODIC_CELLS = (32, 64)   # phase 12e: periodic 3D Poisson
 HEAT_PERIODIC_CELLS = 256   # phase 12e: fully periodic 2D heat
@@ -402,7 +431,7 @@ ELAST_BUDGET_S = 40.0
 ELAST_ORDER_MIN = 2.7     # tests/test_elasticity.py:85
 ACOUSTICS_CELLS = 256     # 13f: 2D Q2 standing wave, N = 1,769,472
 MAXWELL_CELLS = 32        # 13f: 3D Q1 cavity, 32^3 cells, N = 1,572,864
-WAVE_STEPS = 50
+WAVE_STEPS = 25          # phase 13f: shu3 steps (few: the command's time limit)
 WAVE_SMALL_TOL = 1e-12
 PROJ_CELLS = 64           # 13g: L2 projections of polynomials
 PROJ_TOL = 1e-12
@@ -471,6 +500,11 @@ type = cg
 preconditioner = jacobi
 maxiter = 4000
 """
+P17_RANKS = 8             # 17: ex07, ex08 and ex14's sharded AMG on 8 gloo ranks
+P17_ORDER = (1.8, 2.2)    # 17: ex02's SIPG order over 16^2 -> 32^2 (the reference: 2.02)
+P17_THETA_ERR = 1e-6      # 17: ex11's recovered theta against theta_true
+P17_PARITY = 1e-12        # 17: ex07/ex14 sharded against sequential solutions
+P17_HELPER_THREADS = 2    # 17: CPU threads of each helper process (five processes share 8 cores)
 CARD = "card not read yet"   # nvidia-smi name and power limit, set by main()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -2102,7 +2136,7 @@ def newton_heat(torch, pt, dev):
     operator's lattice ELL is assembled again at each Newton step and every
     Krylov apply is the ell27 kernel."""
     l2, nits, rec, rep, N, first = heat_run(torch, pt, 3, HEAT_CELLS, torch.float64, dev,
-                                            matrix_free=False)
+                                            matrix_free=False, steps=HEAT_STEPS)
     ell_check(torch, first, "phase 9a", dev)
     del first
     wall = sum(r[2] for r in rec)
@@ -2113,7 +2147,7 @@ def newton_heat(torch, pt, dev):
     log(f"[phase 9a] heat 3D Q1 {HEAT_CELLS}^3 cells (N = {N}) fp64, CN + Newton, "
         f"{len(rec)} steps of 0.02: {nits} Newton and {sum(r[1] for r in rec)} CG "
         f"iterations, {wall / len(rec):.3f} s/step, ELL assembly {100 * asm / wall:.1f}% "
-        f"of it; L2 error at t = 0.2: {l2:.6e}\n{rep}")
+        f"of it; L2 error at t = {0.02 * len(rec):.2f}: {l2:.6e}\n{rep}")
     if "assembled EllMatrix [ell27 CUDA kernel]" not in rep:
         raise AssertionError("phase 9a did not take the ell27 tier")
     # Newton stops at 1e-9 of the first defect or at its absolute limit
@@ -2558,8 +2592,9 @@ def stokes_goldens(torch, pt, dev):
 
 def cahouet_chabard(torch, pt, dev):
     """Phase 10c: the instationary Stokes problem of tests/test_stokes3d.py
-    (_run_cc: u = e^-t u0, implicit Euler, dt 0.02 to T 0.1,
-    CahouetChabardSchur GMRES(150) to 1e-9) at CC_CELLS^2 cells, fp64."""
+    (_run_cc: u = e^-t u0, implicit Euler, dt 0.02, CahouetChabardSchur
+    GMRES(150) to 1e-9) at CC_CELLS^2 cells to T = CC_T (the test runs to
+    0.1), fp64."""
     from dune_pdelab_tpu_torch import instationary as inst
     from dune_pdelab_tpu_torch.ops import (
         NavierStokesMass, NavierStokesParameters, TaylorHoodNavierStokes,
@@ -2594,7 +2629,7 @@ def cahouet_chabard(torch, pt, dev):
     x = W.interpolate((stokes_u2d, lambda p: p[:, 0] ** 3 + p[:, 1] ** 3 - 0.5),
                       dtype=torch.float64, device=dev)
     t, per_step, walls = 0.0, [], []
-    while t < 0.1 - 1e-12:
+    while t < CC_T - 1e-12:
         before = osm.result.total_linear_iterations
         x, w = timed(torch, lambda: osm.apply(t, 0.02, x))
         t += 0.02
@@ -3413,16 +3448,6 @@ def adapt_hanging(torch, pt, dev):
         log(f"[phase 12d] cycle {cyc}: N = {V.ndofs}, {V.mesh.nelements} leaves, "
             f"{nh} hanging rows, L2 {e:.6e} (before refining), Jacobi-CG {its} iterations "
             f"{s:.3f} s; s: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
-    # the host loops at 10^5 leaves: one more Doerfler refinement of the
-    # final mesh, its vertex numbering and hanging rows (no solve)
-    eta2 = volume_residual_indicator(go, p, x)
-    big, refine_s = timed(torch, lambda: V.mesh.refine(eta2.cpu().numpy()
-                                                       >= error_fraction(eta2, 0.7)))
-    _, vert_s = timed(torch, big.vertices)
-    rows_big, hang_s = timed(torch, big.hanging_constraints)
-    log(f"[phase 12d] host loops at {big.nelements} leaves, {big.nvertices} vertices: refine "
-        f"{refine_s:.3f} s, vertices {vert_s:.3f} s, hanging_constraints {hang_s:.3f} s "
-        f"({len(rows_big[0])} rows)")
     rng = np.random.default_rng(12)
     xr = torch.as_tensor(rng.standard_normal(V.ndofs), device=dev)
     z = torch.as_tensor(rng.standard_normal(V.ndofs), device=dev)
@@ -4432,11 +4457,11 @@ def projections(torch, pt, dev):
 
 
 def checkpoints(torch, pt, dev, tmp):
-    """Phase 13g: config11 run to t = 0.004, saved through
-    CheckpointManager, restored on the card and continued to 0.008: the
-    end state bit-equal to continuing from the state kept in memory;
-    and an .npz written by numpy.savez in the reference's layout loaded
-    onto the card."""
+    """Phase 13g: config11 run to t = 0.002, saved through
+    CheckpointManager, restored on the card and continued to 0.004: the
+    end state bit-equal to continuing from the state kept in memory; and
+    an .npz written by numpy.savez in the reference's layout loaded onto
+    the card."""
     import numpy as np
     from dune_pdelab_tpu_torch.utils import CheckpointManager, load_checkpoint
 
@@ -4445,12 +4470,12 @@ def checkpoints(torch, pt, dev, tmp):
         return osm.solve(t0, 1e-3, t1, x, max_step_retries=4)
 
     x0 = twophase_setup(torch, pt, (TP_C11_CELLS, 2), dev)[-1]
-    t4, x4 = leg(x0, 0.0, 0.004)
-    t_all, x_all = leg(x4.clone(), t4, 0.008)          # uninterrupted: x4 stays in memory
+    t4, x4 = leg(x0, 0.0, 0.002)
+    t_all, x_all = leg(x4.clone(), t4, 0.004)          # uninterrupted: x4 stays in memory
     mgr = CheckpointManager(str(tmp / "ckpt"), keep=2)
     mgr.save(4, {"x": x4}, {"t": t4})
     arrays, meta = mgr.restore(device=dev)
-    t_res, x_res = leg(arrays["x"], meta["t"], 0.008)
+    t_res, x_res = leg(arrays["x"], meta["t"], 0.004)
     same = bool(torch.equal(x_res, x_all)) and t_res == t_all
     log(f"[phase 13g] config11 restart at t = {t4}: restored on {arrays['x'].device}, end "
         f"state bit-equal to the uninterrupted run: {same}")
@@ -5800,6 +5825,314 @@ def phase_slice13d(torch, pt, dev):
             log(f"[phase {tag}] {time.perf_counter() - t0:.2f} s")
 
 
+# ---- phase 17: the examples/ scripts (dune_pdelab_tpu_torch.examples) -------
+P17_MAIN = ("ex02_convectiondiffusion_dg", "ex15_north_star_scaling", "ex01_poisson",
+            "ex03_nonlinear_newton", "ex04_instationary_heat", "ex06_adaptive_lshape",
+            "ex12_goal_oriented_adaptivity", "ex10_acoustics_explicit_rk")
+P17_RANKED = ("ex14_unstructured_amg", "ex07_parallel_poisson",
+              "ex08_windowed_stokes_parallel")
+# the examples that helper processes run beside this process's (host-bound
+# loops each, the card mostly idle): one process per group, a group of
+# multi-rank examples with its own pool
+P17_GROUPS = (("ex05_stokes_taylor_hood", "ex11_pde_constrained_optimization"),
+              ("ex09_darcy_porous_media", "ex13_twophase_flow"),
+              ("ex14_unstructured_amg", "ex07_parallel_poisson"),
+              ("ex08_windowed_stokes_parallel",))
+
+
+def p17_checks(name, r):
+    """The reference scripts' checks that run() does not make itself (it
+    raises on the others: 07, 08, 09, 10, 11's misfit, 12, 13, 14)."""
+    import numpy as np
+    bad = []
+    if name == "ex02_convectiondiffusion_dg":
+        if not P17_ORDER[0] <= r["order"] <= P17_ORDER[1]:
+            bad.append(f"order {r['order']}")
+        if "element-major" not in r["solve_path"]:
+            bad.append(f"solve path {r['solve_path']}")
+    elif name == "ex11_pde_constrained_optimization":
+        if not r["theta_error"] <= P17_THETA_ERR:
+            bad.append(f"theta {r['theta']}")
+    elif name == "ex15_north_star_scaling":
+        if not (r["converged"] and r["refine_rel"] <= 1e-8):
+            bad.append(f"{r}")
+    elif name in ("ex07_parallel_poisson", "ex14_unstructured_amg"):
+        s = r if name == "ex07_parallel_poisson" else r["sharded"]
+        diff = s["max_diff"] if name == "ex07_parallel_poisson" else s["diff"]
+        if not (s["iterations"] == s["iterations_seq"] and diff <= P17_PARITY
+                and s["ranks"] == P17_RANKS):
+            bad.append(f"{s}")
+    finite = [v for v in r.values() if isinstance(v, float)]
+    if not all(np.isfinite(finite)):
+        bad.append("non-finite result")
+    return bad
+
+
+def p17_summary(r):
+    """The numbers of a run's dict worth a log line (no arrays or paths)."""
+    import numpy as np
+    keep = {}
+    for k, v in r.items():
+        if isinstance(v, dict):
+            keep[k] = p17_summary(v)
+        elif isinstance(v, str) and k not in ("vtu", "pvtu"):
+            keep[k] = " | ".join(line.strip() for line in v.splitlines())
+        elif isinstance(v, (int, float, bool)):
+            keep[k] = v
+        elif isinstance(v, list) and len(v) <= 12 and all(
+                isinstance(e, (int, float, str)) for e in v):
+            keep[k] = v
+        elif isinstance(v, np.ndarray) and v.size <= 8:
+            keep[k] = v.tolist()
+    return keep
+
+
+def p17_one(torch, name, dev, out, pool=None):
+    """One example's run() at the reference's size, timed, with its kernel
+    launches and the checks' failures."""
+    import importlib
+
+    from dune_pdelab_tpu_torch.examples import _kernels
+
+    mod = importlib.import_module(f"dune_pdelab_tpu_torch.examples.{name}")
+    kw = {"refine": True} if name == "ex15_north_star_scaling" else {}
+    if pool is not None:
+        kw["pool"] = pool
+    before = _kernels.snapshot()
+    t0 = time.perf_counter()
+    r = mod.run(device=dev, out_dir=str(Path(out) / name), **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    # this process's launches and, for a multi-rank example, its ranks'
+    launches = _kernels.summed([_kernels.since(before), r.get("rank_launches", {})])
+    return {"name": name, "seconds": time.perf_counter() - t0,
+            "launches": launches, "why": p17_checks(name, r),
+            "summary": p17_summary(r)}
+
+
+def p17_worker(names, out, card, device):
+    """A helper process of phase 17: runs `names` (on one pool of P17_RANKS
+    gloo ranks when they are multi-rank examples) and prints one "P17
+    {json}" line per example. Started by phase_examples."""
+    import torch
+
+    global CARD
+    CARD = card
+    torch.set_num_threads(P17_HELPER_THREADS)
+    dev = torch.device(device)
+    if set(names) & set(P17_RANKED):
+        from dune_pdelab_tpu_torch.parallel.launch import RankPool
+        with RankPool(P17_RANKS, backend="gloo", timeout=900,
+                      device="cpu" if dev.type == "cpu" else None) as pool:
+            for name in names:
+                print("P17 " + json.dumps(p17_one(torch, name, dev, out, pool), default=str),
+                      flush=True)
+    else:
+        for name in names:
+            print("P17 " + json.dumps(p17_one(torch, name, dev, out), default=str), flush=True)
+
+
+def p17_log(res):
+    log(f"[phase 17] {res['name']}: {res['seconds']:.2f} s, launches {res['launches']}, "
+        f"{'checks held' if not res['why'] else 'FAILED ' + '; '.join(res['why'])}; "
+        f"{json.dumps(res['summary'], default=str)}; {CARD}")
+    return [f"{res['name']}: {w}" for w in res["why"]]
+
+
+def phase_examples(torch, pt, dev):
+    """Phase 17: the fifteen example scripts' run() on the card at the
+    reference scripts' sizes (ex15 with its fp64 refinement), each held to
+    the reference's checks. P17_MAIN run in this process; each group of
+    P17_GROUPS in a helper process started first, beside them (a group of
+    multi-rank examples on a pool of P17_RANKS gloo ranks), whose kernel
+    launches are added to this process's counts; and ex01 as a user runs
+    it, `python -m dune_pdelab_tpu_torch.examples.ex01_poisson`, in a
+    subprocess beside them. Logs each example's seconds and launches."""
+    import tempfile
+
+    from dune_pdelab_tpu_torch.examples import _kernels
+
+    bad = []
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p17_") as d:
+        out = Path(d)
+        helpers = []
+        for i, names in enumerate(P17_GROUPS):
+            code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke as c; "
+                    f"c.p17_worker({list(names)!r}, {d!r}, {CARD!r}, {str(dev)!r})")
+            helpers.append((names, start_group(code, out / f"group{i}.log", P17_HELPER_THREADS)))
+        cli_out = out / "cli"
+        cmd = [sys.executable, "-m", "dune_pdelab_tpu_torch.examples.ex01_poisson",
+               "--out", str(cli_out)]
+        t_cli = time.perf_counter()
+        with open(out / "cli.log", "w") as f:
+            cli = subprocess.Popen(cmd, cwd=str(ROOT), stdout=f, stderr=subprocess.STDOUT,
+                                   start_new_session=True)
+        try:
+            for name in P17_MAIN:
+                bad += p17_log(p17_one(torch, name, dev, d))
+            log(f"[phase 17] this process's examples done {time.perf_counter() - t_phase:.2f} s "
+                f"after the phase began")
+
+            rc = cli.wait(timeout=900)
+            lines = (out / "cli.log").read_text().strip().splitlines()
+            log(f"[phase 17] {' '.join(cmd[1:])}: exit {rc}, "
+                f"{time.perf_counter() - t_cli:.2f} s after its start (beside the examples), "
+                f"last lines {lines[-3:]}")
+            if not (rc == 0 and lines and lines[-1] == "OK"
+                    and (cli_out / "poisson.vtu").is_file()):
+                bad.append(f"ex01 command: exit {rc}, {lines[-20:]}")
+
+            for i, (names, proc) in enumerate(helpers):
+                rc = proc.wait(timeout=1200)
+                text = (out / f"group{i}.log").read_text()
+                got = [json.loads(line[4:]) for line in text.splitlines()
+                       if line.startswith("P17 ")]
+                for res in got:
+                    bad += p17_log(res)
+                    for k, n in res["launches"].items():
+                        mod, attr = _kernels.COUNTERS[k]
+                        setattr(mod, attr, getattr(mod, attr) + n)
+                missing = [n for n in names if n not in {r["name"] for r in got}]
+                log(f"[phase 17] helper {i} ({', '.join(names)}): exit {rc}, done "
+                    f"{time.perf_counter() - t_phase:.2f} s after the phase began")
+                if rc != 0 or missing:
+                    bad.append(f"helper {i}: exit {rc}, missing {missing}: {text[-3000:]}")
+        finally:
+            for proc in [cli] + [proc for _, proc in helpers]:
+                stop_group(proc)
+    if bad:
+        raise AssertionError("phase 17: " + "; ".join(bad))
+
+
+# ---- lanes: phases 10-14 and 16 in processes beside phases 8, 9 and 15 -----
+# Each of these phases is a host-bound loop that leaves the card mostly idle
+# and needs nothing of an earlier phase but the built kernel library. After
+# phase 7 (the last phase that times a kernel for the kernels line) the
+# lanes start, one process each, which runs its phases in turn; phases 8, 9
+# and 15 run in this process meanwhile, and phase 17 starts when every lane
+# is done. Each phase still sets the launch counts to 0, drives its path
+# and reads them (drive_path); this process adds them to its totals.
+LANE_PHASES = {       # number: (title, function, kernels the path must launch)
+    "10": ("phase 10 (composite spaces, Stokes)", "phase_stokes", ()),
+    "11": ("phase 11 (algebraic solvers)", "phase_algebraic", ("stencil27", "blockstencil_mm")),
+    "12": ("phase 12 (adaptivity, mesh breadth)", "phase_adaptivity", ()),
+    "13": ("phase 13 (slice 13a: P0, modal DG, CCFV, two-phase, waves)", "phase_slice13a",
+           ("blockstencil_em", "blockstencil_mm")),
+    "14": ("phase 14 (slices 13b/13c: H(div), H(curl), mimetic, adjoints)",
+           "phase_slice13bc", ()),
+    "16": ("phase 16 (slice 13d: io, models, selective assembly)", "phase_slice13d",
+           ("stencil27",)),
+}
+LANES = (("13", "16"), ("10", "14"), ("12", "11"))   # ~200 s each alone (PERF.md section 5)
+LANE_THREADS = 2      # CPU threads of a lane (three lanes, this process and asides share 8 cores)
+LANE_WAIT = 900       # seconds a lane may take after the lanes start
+
+
+def drive_path(torch, name, run):
+    """Set every launch count to 0, drive one path, read the counts after it;
+    logs and returns the path's seconds and counts."""
+    from dune_pdelab_tpu_torch.examples import _kernels
+
+    for mod, attr in _kernels.COUNTERS.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.empty_cache()    # other processes start ranks on the card
+    res = {"name": name, "seconds": time.perf_counter() - t0,
+           "counts": {k: getattr(mod, attr) for k, (mod, attr) in _kernels.COUNTERS.items()},
+           "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+    log(f"{name}: {res['seconds']:.2f} s, launch counts {res['counts']}, "
+        f"{res['reserved_gib']:.2f} GiB reserved after it")
+    return res
+
+
+def lane_worker(keys, card):
+    """A lane process: drives LANE_PHASES[k] for k in keys, in turn, and
+    prints one "LANE {json}" line (drive_path's result) after each."""
+    import torch
+
+    global CARD
+    CARD = card
+    torch.set_num_threads(LANE_THREADS)
+    import dune_pdelab_tpu_torch as pt
+    from dune_pdelab_tpu_torch.kernels import _build
+
+    _build.library()            # built by the main process: loaded here
+    dev = torch.device("cuda")
+    for k in keys:
+        title, fn, _ = LANE_PHASES[k]
+        res = drive_path(torch, title, lambda: globals()[fn](torch, pt, dev))
+        print("LANE " + json.dumps(res), flush=True)
+
+
+def start_group(code, log_path, threads):
+    """`python -c code` from the checkout, its output to log_path, in a
+    session of its own, so that stop_group ends it and every process it
+    started."""
+    env = dict(os.environ, **{v: str(threads) for v in
+                              ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")})
+    with open(log_path, "w") as f:
+        return subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT), stdout=f,
+                                stderr=subprocess.STDOUT, env=env, start_new_session=True)
+
+
+def stop_group(proc):
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass                    # it and every process it started have ended
+    proc.wait()
+
+
+def start_lanes(d):
+    """Start one process per group of LANES; returns (keys, process, log)."""
+    lanes = []
+    for keys in LANES:
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke as c; "
+                f"c.lane_worker({list(keys)!r}, {CARD!r})")
+        path = Path(d) / f"lane_{'_'.join(keys)}.log"
+        lanes.append((keys, start_group(code, path, LANE_THREADS), path))
+    log(f"[lanes] phases {', '.join('+'.join(k) for k in LANES)} started, one process each, "
+        f"beside phases 8, 9 and 15")
+    return lanes
+
+
+def lane_failed(keys, rc, path):
+    text = path.read_text()
+    return AssertionError(f"the lane of phases {', '.join(keys)} exited {rc}:\n{text[-4000:]}")
+
+
+def check_lanes(lanes):
+    """Fail now if a lane has already failed."""
+    for keys, proc, path in lanes:
+        rc = proc.poll()
+        if rc not in (None, 0):
+            raise lane_failed(keys, rc, path)
+
+
+def finish_lanes(lanes, t_start):
+    """Wait for every lane, print its log, and return each phase's result
+    with the kernels it must have launched."""
+    out = []
+    for keys, proc, path in lanes:
+        try:
+            rc = proc.wait(timeout=max(LANE_WAIT - (time.perf_counter() - t_start), 1))
+        except subprocess.TimeoutExpired:
+            raise lane_failed(keys, "nothing (still running)", path) from None
+        text = path.read_text()
+        got = [json.loads(line[5:]) for line in text.splitlines() if line.startswith("LANE ")]
+        print("".join(line + "\n" for line in text.splitlines() if not line.startswith("LANE ")),
+              end="", flush=True)
+        log(f"[lanes] phases {', '.join(keys)}: exit {rc}, done "
+            f"{time.perf_counter() - t_start:.2f} s after the lanes started")
+        if rc != 0 or len(got) != len(keys):
+            raise lane_failed(keys, rc, path)
+        out += [(res, LANE_PHASES[k][2]) for k, res in zip(keys, got)]
+    return out
+
+
 def main():
     if not (ROOT / "dune_pdelab_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -5812,12 +6145,8 @@ def main():
                          f"{torch.cuda.get_device_name(0)}")
     sys.path.insert(0, str(ROOT))
     import dune_pdelab_tpu_torch as pt
+    from dune_pdelab_tpu_torch.examples import _kernels
     from dune_pdelab_tpu_torch.kernels import _build
-    from dune_pdelab_tpu_torch.kernels import blockstencil as bk
-    from dune_pdelab_tpu_torch.kernels import ell27 as ek
-    from dune_pdelab_tpu_torch.kernels import fused_cg as fk
-    from dune_pdelab_tpu_torch.kernels import stencil27 as sk
-    from dune_pdelab_tpu_torch.kernels import structured_fused as sfk
 
     dev = torch.device("cuda")
     global CARD
@@ -5842,11 +6171,8 @@ def main():
     phase_stencil_levels(torch, dev)
     record.update(phase_fused_kernel(torch, pt, dev))
 
-    counters = {"stencil27": (sk, "launches"), "fused_cg_k1": (fk, "launches_k1"),
-                "fused_cg_k2": (fk, "launches_k2"), "structured_fused": (sfk, "launches"),
-                "ell27": (ek, "launches"), "blockstencil_mm": (bk, "launches_mm"),
-                "blockstencil_em": (bk, "launches_em")}
-    paths = [
+    counters = _kernels.COUNTERS
+    first = [
         ("phase 3 (fused CG)", lambda: phase_main(torch, pt, MAIN_CELLS, MAIN_ITERS, dev),
          ("stencil27", "fused_cg_k1", "fused_cg_k2")),
         ("phase 4 (README)", lambda: phase_readme(torch, pt, README_CELLS, dev),
@@ -5857,37 +6183,47 @@ def main():
          ("structured_fused", "ell27")),
         ("phase 7 (DG)", lambda: phase_dg(torch, pt, dev, record),
          ("blockstencil_mm", "blockstencil_em", "stencil27")),
+    ]
+    beside = [      # beside the lanes (LANE_PHASES)
         ("phase 8 (geometric multigrid)", lambda: phase_gmg(torch, pt, dev),
          ("blockstencil_em",)),
         ("phase 9 (Newton, time stepping)", lambda: phase_newton(torch, pt, dev),
          ("ell27",)),
-        ("phase 10 (composite spaces, Stokes)", lambda: phase_stokes(torch, pt, dev), ()),
-        ("phase 11 (algebraic solvers)", lambda: phase_algebraic(torch, pt, dev),
-         ("stencil27", "blockstencil_mm")),
-        ("phase 12 (adaptivity, mesh breadth)", lambda: phase_adaptivity(torch, pt, dev), ()),
-        ("phase 13 (slice 13a: P0, modal DG, CCFV, two-phase, waves)",
-         lambda: phase_slice13a(torch, pt, dev), ("blockstencil_em", "blockstencil_mm")),
-        ("phase 14 (slices 13b/13c: H(div), H(curl), mimetic, adjoints)",
-         lambda: phase_slice13bc(torch, pt, dev), ()),
         ("phase 15 (slice 12: parallel/ on ranks sharing the card)",
          lambda: phase_parallel(torch, pt, dev), ("stencil27",)),
-        ("phase 16 (slice 13d: io, models, selective assembly)",
-         lambda: phase_slice13d(torch, pt, dev), ("stencil27",)),
+    ]
+    last = [
+        ("phase 17 (examples)", lambda: phase_examples(torch, pt, dev),
+         ("stencil27", "blockstencil_em")),
     ]
     totals = dict.fromkeys(counters, 0)
-    for name, run, needed in paths:
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-        t0 = time.perf_counter()
-        run()
-        counts = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
-        log(f"{name}: {time.perf_counter() - t0:.2f} s, launch counts {counts}")
-        missing = [k for k in needed if counts[k] == 0]
+
+    def account(res, needed):
+        missing = [k for k in needed if res["counts"][k] == 0]
         if missing:
-            raise AssertionError(f"{name} never launched {missing}: {counts}")
+            raise AssertionError(f"{res['name']} never launched {missing}: {res['counts']}")
         for k in totals:
-            totals[k] += counts[k]
-    log(f"launch counts over phases 3-16: {totals}")
+            totals[k] += res["counts"][k]
+
+    import tempfile
+    lanes = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lanes_") as d:
+        try:
+            for name, run, needed in first:
+                account(drive_path(torch, name, run), needed)
+            lanes = start_lanes(d)
+            t_lanes = time.perf_counter()
+            for name, run, needed in beside:
+                account(drive_path(torch, name, run), needed)
+                check_lanes(lanes)
+            for res, needed in finish_lanes(lanes, t_lanes):
+                account(res, needed)
+            for name, run, needed in last:
+                account(drive_path(torch, name, run), needed)
+        finally:
+            for _, proc, _ in lanes:
+                stop_group(proc)
+    log(f"launch counts over phases 3-17: {totals}")
 
     meta = {
         "stencil27": ("dune_pdelab_tpu_torch/csrc/stencil27.cu",

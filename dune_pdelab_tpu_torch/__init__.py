@@ -46,7 +46,9 @@ VTK writers with .pvd and .pvtu output, the native binary .vtu writer and
 MSH parser built from csrc/ with g++, the DGF reader), models/ (the
 boilerplate entry points and ALL_CONFIGS) and selective assembly
 (skip_entity/skip_intersection) in the GridOperator. Every module of the
-JAX package has its counterpart here.
+JAX package has its counterpart here, and examples/ holds one runnable
+script per script of the JAX package's examples/ (`python -m
+dune_pdelab_tpu_torch.examples.ex01_poisson`).
 
 Entry points put their tensors on `default_device()`, the card, unless the
 caller names a device or calls `set_default_device` (the CPU tests do).

@@ -96,11 +96,18 @@ class DarcyVelocityFromHeadCCFV:
     (darcyccfv.hh:60 analog).
 
     Face-normal velocities reproduce the CCFV solver's two-point fluxes
-    (ops/ccfv.py): interior v_d = -A_face (u_out - u_in)/h_d, Dirichlet
-    ghost values at distance h/2, Neumann faces take the prescribed flux.
-    Because they ARE the solver's fluxes, `cell_divergence()` of a
-    converged solve equals the cell-mean source (local conservation).
-    Only the diffusive (Darcy) flux is reconstructed.
+    (ops/ccfv.py): interior v_d = -A_h (u_out - u_in)/h_d with A_h the
+    harmonic mean 2 A_in A_out / (A_in + A_out) of the normal diffusivities
+    at the two cell centers; Dirichlet faces take A at the inside cell
+    center and the ghost value at distance h/2; Neumann faces take the
+    prescribed flux. Because they ARE the solver's fluxes,
+    `cell_divergence()` of a converged solve equals the cell-mean source
+    (local conservation) for any A. Only the diffusive (Darcy) flux is
+    reconstructed.
+
+    The reference evaluates A at the face center instead
+    (dune_pdelab_tpu/ops/darcy.py:132,154,157), which differs from its own
+    solver's fluxes wherever A jumps between a face and a cell center.
     """
 
     def __init__(self, mesh, problem, u):
@@ -135,13 +142,21 @@ class DarcyVelocityFromHeadCCFV:
                 grids.append(c)
             mg = np.meshgrid(*grids[::-1], indexing="ij")   # lattice order
             pts = np.stack(mg[::-1], axis=-1)               # (..., dim)
-            Af = _axis_A(p, pts, d)
+            # cell centers below and above each face, as the solver places
+            # them (face point -+ (h/2) e_d)
+            e = np.zeros(dim)
+            e[d] = 0.5 * h[d]
+            A_below = _axis_A(p, pts - e, d)
+            A_above = _axis_A(p, pts + e, d)
 
             def sl(part):
                 return tuple(slice(None) if a != ax else part for a in range(dim))
             sl_lo, sl_hi, sl_in = sl(slice(0, 1)), sl(slice(-1, None)), sl(slice(1, -1))
-            # interior: -A (u_next - u_prev)/h
-            V[sl_in] = -Af[sl_in] * np.diff(U, axis=ax) / h[d]
+            # interior: -A_h (u_next - u_prev)/h, A_h the harmonic mean of
+            # the two cell centers' diffusivities
+            Ai, Ao = A_below[sl_in], A_above[sl_in]
+            Ah = 2.0 * Ai * Ao / (Ai + Ao + 1e-300)
+            V[sl_in] = -Ah * np.diff(U, axis=ax) / h[d]
             # boundaries: Dirichlet ghost at h/2, Neumann prescribed flux
             for side, s_ in ((0, sl_lo), (1, sl_hi)):
                 fpts = pts[s_]
@@ -150,11 +165,12 @@ class DarcyVelocityFromHeadCCFV:
                 g = np.broadcast_to(np.asarray(_eval(p.g, fpts), np.float64), shp)
                 jf = np.broadcast_to(np.asarray(_eval(p.j, fpts), np.float64), shp)
                 uc = U[sl_lo] if side == 0 else U[sl_hi]
+                # A at the inside cell center: above the low face, below the high one
                 if side == 0:      # du/dx_d ~ (u_cell - g)/(h/2)
-                    vdir = -Af[s_] * (uc - g) / (h[d] / 2)
+                    vdir = -A_above[s_] * (uc - g) / (h[d] / 2)
                     vneu = -jf     # outward normal is -e_d
                 else:              # du/dx_d ~ (g - u_cell)/(h/2)
-                    vdir = -Af[s_] * (g - uc) / (h[d] / 2)
+                    vdir = -A_below[s_] * (g - uc) / (h[d] / 2)
                     vneu = jf
                 V[s_] = np.where(bct == BCType.DIRICHLET, vdir,
                                  np.where(bct == BCType.NEUMANN, vneu, 0.0))

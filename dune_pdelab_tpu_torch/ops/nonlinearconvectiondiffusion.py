@@ -84,6 +84,11 @@ class NonlinearConvectionDiffusionProblem:
 
 
 def _as(v, like):
+    """v as a tensor of like's dtype and device; a Python number is filled
+    there (no copy from the host, so the apply can be captured into a CUDA
+    graph)."""
+    if isinstance(v, (int, float)):
+        return torch.full((), v, dtype=like.dtype, device=like.device)
     return torch.as_tensor(v, dtype=like.dtype, device=like.device)
 
 

@@ -447,7 +447,7 @@ class TwoPhaseVelocity:
         Pp, rho, nu, mu, kr, s_l = self._phase_fields(
             centers.reshape(-1, dim), self.pl.reshape(-1), self.pg.reshape(-1))
         P = Pp.reshape(lat)
-        rho, nu, mu = (np.broadcast_to(a, P.shape).reshape(lat) for a in (rho, nu, mu))
+        rho, nu, mu = (np.broadcast_to(a, (P.size,)).reshape(lat) for a in (rho, nu, mu))
         S = s_l.reshape(lat)
         Kc = np.broadcast_to(
             to_numpy(p.k_abs(torch.as_tensor(centers))), lat).astype(float)

@@ -178,12 +178,19 @@ class Comm:
             return [t]
         t0 = time.perf_counter()
         src = t.contiguous()
-        if self._staged(src):
-            src = src.to("cpu")
-        out = [torch.empty_like(src) for _ in range(self.size)]
+        staged = self._staged(src)
+        if staged:
+            # through pinned host buffers: one copy each way, whatever the size
+            h = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            h.copy_(src, non_blocking=True)
+            torch.cuda.current_stream().synchronize()   # before gloo reads the buffer
+            src = h
+        buf = torch.empty((self.size,) + tuple(src.shape), dtype=src.dtype,
+                          device=src.device, pin_memory=staged)
+        out = list(buf.unbind(0))
         dist.all_gather(out, src, group=self.group)
-        if src.device != t.device:
-            out = [o.to(t.device) for o in out]
+        if staged:
+            out = list(buf.to(t.device, non_blocking=True).unbind(0))
         _count("allgather", t.numel() * t.element_size(), t.numel(), time.perf_counter() - t0)
         return out
 

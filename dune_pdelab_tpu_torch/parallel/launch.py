@@ -241,6 +241,9 @@ def _child(task_fd, res_fd, rank, world, store, backend, device, threads):
             pickle.dumps(reply)
         except BaseException:
             reply = ("err", traceback.format_exc())
+        if not device:
+            # the ranks share the card: hand a finished task's cached blocks back
+            torch.cuda.empty_cache()
         results.send(reply)
     dist.destroy_process_group()
 

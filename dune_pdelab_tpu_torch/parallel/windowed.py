@@ -330,8 +330,19 @@ class WindowShardedGridOperator:
         self.mask_padded = torch.as_tensor(mask_np[me * B:(me + 1) * B].copy(),
                                            device=self.device)
         self._my_old = old_of_new[me * B:(me + 1) * B]
+        # the flat J.v: every rank's window in the full (old) numbering,
+        # split into the slots its owner holds and the others
+        self._win_old = np.maximum(old_of_new[win], 0)
+        self._win_real = old_of_new[win] >= 0
+        self._sum_plan = []
+        for d in range(ndev):
+            old_d, own_d = old_of_new[wins[d]], wins[d] // B == d
+            real = old_d >= 0
+            self._sum_plan.append((np.nonzero(own_d & real)[0], old_d[own_d & real],
+                                   np.nonzero(~own_d & real)[0], old_d[~own_d & real]))
+        self._wmax = max(len(w) for w in wins)
         self._cache = {}
-        self._lin = None      # (x, x._version, its exchanged window): jacobian_apply
+        self._lin = None      # (x, x._version, time, its local J.v): jacobian_apply
 
     # ---- per (dtype, device) tensors ---------------------------------------
     def _t(self, key, build, device):
@@ -515,14 +526,69 @@ class WindowShardedGridOperator:
         return _Gather.apply(self.residual_unconstrained_padded(xp, time, lambdas), self)
 
     def jacobian_apply(self, x, z, time=0.0):
-        """Flat J(x) z. The window state of a tensor x is kept for the next
-        call with the same, unchanged x (a Krylov loop's linearization
-        point)."""
-        x = torch.as_tensor(x)
+        """Flat J(x) z on full vectors that every rank holds: each rank reads
+        its window from x and z itself, and one all-gather of the window
+        results replaces the halo exchange, the combine and the gather of
+        the padded path; the sums keep the combine's order (the owner's
+        contribution first, then the other ranks' in rank order), so the
+        result is the padded path's, bit for bit. The window state of a
+        tensor x is kept for the next call with the same, unchanged x (a
+        Krylov loop's linearization point)."""
+        self.comm.refuse_capture("WindowShardedGridOperator")
+        x = torch.as_tensor(x).to(self.device)
+        z = torch.as_tensor(z).to(self.device)
         held = self._lin
-        if not (held is not None and held[0] is x and held[1] == x._version):
-            held = self._lin = (x, x._version, self._linearization(self._slice(x)))
-        return self._gather(self._japply(held[2], self._slice(z), time))
+        if not (held is not None and held[0] is x and held[1] == x._version
+                and held[2] == time):
+            held = self._lin = (x, x._version, time, self._local_jv(x, time))
+        return torch.where(self._full_mask(z.device), z, self._sum_windows(held[3](z)))
+
+    def _local_jv(self, x, time):
+        """z -> this rank's window contributions to J(x) z, which involve no
+        communication: on the card replayed from a CUDA graph from its
+        second call on (solvers/linear.py GraphedApply, the same bits)."""
+        wx = self._prolong_win(self._window_of(x))
+        mask = self._full_mask(x.device)
+
+        def apply(z):
+            wz = self._prolong_win(self._window_of(torch.where(mask, 0.0, z)))
+            _, jw = jvp(lambda w: self._local(w, time, lambdas=False), (wx,), (wz,))
+            return self._restrict_t_win(jw)
+        if x.device.type == "cuda":
+            from dune_pdelab_tpu_torch.solvers.linear import GraphedApply
+            return GraphedApply(apply)
+        return apply
+
+    def _window_of(self, x):
+        """This rank's window values (W,) read from a full (N,) vector."""
+        dev = x.device
+        w = x[self._ints("win_old", self._win_old, dev)]
+        return torch.where(self._ints("win_real", self._win_real, dev), w, 0.0)
+
+    def _full_mask(self, device):
+        def build():
+            m = (self.go.cg.mask_np if self.go.cg is not None
+                 else np.zeros(self.N, bool))
+            return torch.as_tensor(np.asarray(m, bool), device=device)
+        return self._t(("full_mask",), build, device)
+
+    def _sum_windows(self, rw):
+        """Every rank's window contributions (W,) summed into the full (N,)
+        vector on every rank, by one all-gather."""
+        dev = rw.device
+        pad = torch.zeros(self._wmax, dtype=rw.dtype, device=dev)
+        pad[:len(rw)] = rw
+        parts = self.comm.allgather(pad)
+        y = torch.zeros(self.N, dtype=rw.dtype, device=dev)
+        for d, part in enumerate(parts):
+            own_pos, own_old = self._sum_plan[d][:2]
+            y[self._ints(("own_old", d), own_old, dev)] = part[
+                self._ints(("own_pos", d), own_pos, dev)]
+        for d, part in enumerate(parts):
+            pos, old = self._sum_plan[d][2:]
+            idx = self._ints(("other_old", d), old, dev)
+            y[idx] = y[idx] + part[self._ints(("other_pos", d), pos, dev)]
+        return y
 
     def jacobian_diagonal(self, x, time=0.0):
         """Delegates to the sequential probe (a preconditioner-setup

@@ -315,7 +315,14 @@ class CahouetChabardSchur(StokesGMGSchur):
 class StokesBlockJacobi:
     """Block-diagonal preconditioner callable for LinearSolverBackend:
     velocity rows: Jacobi on diag(J); pressure rows: Jacobi on the scaled
-    pressure mass matrix (Schur approximation S ~ (1/mu) M_p)."""
+    pressure mass matrix (Schur approximation S ~ (1/mu) M_p).
+
+    It keeps the backend's fast tiers (`krylov_fast_tiers`): the stencil
+    tiers decline a composite space, so its solves take the general-jvp
+    apply as with any callable preconditioner, but on the card replayed
+    from a CUDA graph (the same bits)."""
+
+    krylov_fast_tiers = True
 
     def __init__(self, space: CompositeSpace, mu: float = 1.0, device=None):
         from dune_pdelab_tpu_torch.assembly.gridoperator import GridOperator

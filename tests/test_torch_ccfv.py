@@ -11,6 +11,9 @@ operators of the port against the JAX package (fp64).
     Darcy tests and the linear limit of the nonlinear kernel (its Newton
     convergence test belongs to the nonlinear kernel's own slice and takes
     ~70 s on the port here);
+  * the RT0 reconstruction's local conservation with K discontinuous
+    between a face and a cell center (examples/09's quarter-five-spot at
+    16^2), where the JAX package's face-center K violates it;
   * CombinedOperator (mass + diffusion, weights 0.5 and 2) and
     ScaledOperator residuals and J.v against the JAX package's (1e-12).
 """
@@ -356,6 +359,78 @@ def test_darcy_ccfv_3d_conservation():
     assert np.allclose(vz, -2.0, atol=1e-12)
     assert np.allclose(dv.at_centers(), [0.0, 0.0, -2.0], atol=1e-12)
     assert np.allclose(dv.cell_divergence(), 0.0, atol=1e-10)
+
+
+class _FiveSpot(ConvectionDiffusionProblem):
+    """examples/09's quarter-five-spot: head 1 -> 0 from left to right, no
+    flow through top and bottom, K = 1e-3 inside |x - 0.5|, |y - 0.5| <
+    0.15. At 16^2 the inclusion's edge x = 0.35 lies between the face at
+    5/16 and the cell center at 5.5/16."""
+
+    def A(self, x):
+        inside = (torch.abs(x[..., 0] - 0.5) < 0.15) & (torch.abs(x[..., 1] - 0.5) < 0.15)
+        return torch.where(inside, 1e-3, 1.0).to(x.dtype)
+
+    def bctype(self, x):
+        on_x = (x[..., 0] < 1e-12) | (x[..., 0] > 1 - 1e-12)
+        return torch.where(on_x, BCType.DIRICHLET, BCType.NEUMANN)
+
+    def g(self, x):
+        return 1.0 - x[..., 0]
+
+    def j(self, x):
+        return 0.0
+
+
+class _JFiveSpot(JProblem):
+    def A(self, x):
+        inside = (jnp.abs(x[..., 0] - 0.5) < 0.15) & (jnp.abs(x[..., 1] - 0.5) < 0.15)
+        return jnp.where(inside, 1e-3, 1.0)
+
+    def bctype(self, x):
+        on_x = (x[..., 0] < 1e-12) | (x[..., 0] > 1 - 1e-12)
+        return jnp.where(on_x, BCType.DIRICHLET, BCType.NEUMANN)
+
+    def g(self, x):
+        return 1.0 - x[..., 0]
+
+    def j(self, x):
+        return 0.0
+
+
+def test_darcy_ccfv_conservation_discontinuous_k():
+    """The port's reconstruction reproduces the solver's fluxes where K
+    jumps between a face and a cell center (harmonic mean of the cell
+    centers' K, as ops/ccfv.py): div v = 0 per cell to solver tolerance and
+    inflow = outflow. The JAX package's reconstruction of its own head
+    takes K at the face center (dune_pdelab_tpu/ops/darcy.py:132) and
+    violates conservation there: the deliberate difference."""
+    from dune_pdelab_tpu.ops import DarcyVelocityFromHeadCCFV as JDarcy
+    from dune_pdelab_tpu.solvers import SEQ_CG_Jacobi as JCG
+
+    n = 16
+    mesh = tpt.StructuredMesh([0, 0], [1, 1], (n, n))
+    V = tpt.FunctionSpace(mesh, P0FEM(2))
+    p = _FiveSpot()
+    slp = StationaryLinearProblemSolver(tpt.GridOperator(V, ConvectionDiffusionCCFV(p)),
+                                        SEQ_CG_Jacobi(), reduction=1e-13)
+    head = slp.apply(V.zero(dtype=F64))
+    assert slp.result.converged
+    rt0 = DarcyVelocityFromHeadCCFV(mesh, p, head)
+    vx, vy = rt0.face_normal_velocities()
+    vmax = max(np.abs(vx).max(), np.abs(vy).max())
+    assert np.max(np.abs(rt0.cell_divergence())) < 1e-8 * vmax
+    inflow, outflow = vx[:, 0].sum() / n, vx[:, -1].sum() / n
+    assert abs(inflow - outflow) < 1e-10 * abs(inflow)
+
+    jmesh = jpt.StructuredMesh([0, 0], [1, 1], (n, n))
+    jV = jpt.FunctionSpace(jmesh, JP0(2))
+    jp = _JFiveSpot()
+    jhead = jpt.StationaryLinearProblemSolver(
+        jpt.GridOperator(jV, JCCFV(jp)), JCG(), reduction=1e-13).apply(jV.zero())
+    assert _rel(head.numpy(), np.asarray(jhead)) < 1e-9
+    jdiv = np.asarray(JDarcy(jmesh, jp, jhead).cell_divergence())
+    assert np.max(np.abs(jdiv)) > 1e-2 * vmax
 
 
 def test_permeability_adapters():

@@ -16,10 +16,14 @@
     mass Chebyshev); config10 (134, the golden); the 3D Taylor-Hood problem
     of tests/test_stokes3d.py at 4^3 (_solve3d); the Cahouet-Chabard
     instationary run at 4^2, two steps (_run_cc); the Newton lid-driven
-    cavity at 4^2 and the DG Stokes solve at 4^2.
+    cavity at 4^2 and the DG Stokes solve at 4^2. The JAX package's
+    config5, _solve3d and _run_cc runs are computed ahead by two spawned
+    worker processes started with the module (tests/torch_stokes_refs.py).
 """
 import json
 import math
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -29,8 +33,8 @@ import torch
 
 import dune_pdelab_tpu as jpt
 import dune_pdelab_tpu_torch as tpt
+import torch_stokes_refs
 from dune_pdelab_tpu import instationary as jinst
-from dune_pdelab_tpu.models.configs import config5_stokes_taylor_hood as j_config5
 from dune_pdelab_tpu.ops.dgnavierstokes import DGNavierStokes as JDGNS
 from dune_pdelab_tpu.ops.stokes import NavierStokesMass as JMass
 from dune_pdelab_tpu.ops.stokes import NavierStokesParameters as JParams
@@ -56,14 +60,24 @@ from dune_pdelab_tpu_torch.solvers.stokes import (
 )
 from dune_pdelab_tpu_torch.space.functions import l2_difference
 from dune_pdelab_tpu_torch.utils.common import set_default_device
-from test_stokes3d import _run_cc as j_run_cc
-from test_stokes3d import _solve3d as j_solve3d
 
 pytestmark = pytest.mark.fast
 torch.set_num_threads(1)
 set_default_device("cpu")
 F64 = torch.float64
 GOLDEN = json.loads((Path(__file__).parent / "golden_parity.json").read_text())
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_solves():
+    """The JAX package's whole solves, started with the module's first test."""
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=torch_stokes_refs.init)
+    runs = {"solve3d": pool.submit(torch_stokes_refs.solve3d, 4),
+            "run_cc": pool.submit(torch_stokes_refs.run_cc, 4, 0.04),
+            "config5": pool.submit(torch_stokes_refs.config5)}
+    yield runs
+    pool.shutdown(wait=True, cancel_futures=True)
 
 
 def _rel(a, b):
@@ -302,7 +316,7 @@ def _config5(mass_cheby):
     return slp.result.linear_solver_iterations, _velocity_l2(W, x, _u2d)
 
 
-def test_config5():
+def test_config5(jax_solves):
     """The port's ALL_CONFIGS["config5"] against the JAX package's count and
     error (its config5 run here); the golden's 42 with the Jacobi
     pressure-mass Schur it was recorded with (config5's recipe, mass_cheby=0)."""
@@ -311,7 +325,7 @@ def test_config5():
     got = ALL_CONFIGS["config5"]()
     assert got["converged"] and got["ndofs"] == GOLDEN["config5_stokes_taylor_hood"]["ndofs"]
     its, l2 = got["iterations"], got["velocity_l2_error"]
-    jax_run = j_config5()
+    jax_run = jax_solves["config5"].result()
     assert jax_run["converged"] and jax_run["ndofs"] == GOLDEN["config5_stokes_taylor_hood"]["ndofs"]
     assert its == jax_run["iterations"]
     assert l2 == pytest.approx(jax_run["velocity_l2_error"], rel=1e-8)
@@ -334,7 +348,7 @@ def test_config10_golden():
     assert got["l2_p_error"] == pytest.approx(want["l2_p_error"], rel=1e-8, abs=1e-9)
 
 
-def test_stokes3d_gmres_matches_jax():
+def test_stokes3d_gmres_matches_jax(jax_solves):
     """tests/test_stokes3d.py _solve3d(4) on the port: unpinned pressure,
     triangular StokesGMGSchur on real GMG, GMRES(100) to 1e-8."""
     W = taylor_hood_space(_mesh(tpt, 3, 4), 2)
@@ -345,13 +359,13 @@ def test_stokes3d_gmres_matches_jax():
     ls = LinearSolverBackend(solver="gmres", precond=pre, restart=100, maxiter=2000)
     slp = StationaryLinearProblemSolver(go, ls, reduction=1e-8, verbose=0)
     x = slp.apply(W.zero(F64))
-    j_its, j_conv, j_l2, j_pre = j_solve3d(4)
-    assert slp.result.converged and j_conv and j_pre._vgmg is not None
+    j_its, j_conv, j_l2, j_gmg = jax_solves["solve3d"].result()
+    assert slp.result.converged and j_conv and j_gmg
     assert slp.result.linear_solver_iterations == j_its
     assert _velocity_l2(W, x, _u3d) == pytest.approx(j_l2, rel=1e-8)
 
 
-def test_cahouet_chabard_instationary():
+def test_cahouet_chabard_instationary(jax_solves):
     """tests/test_stokes3d.py _run_cc(n=4, T=0.04) on the port: implicit
     Euler, two steps of 0.02, CahouetChabardSchur GMRES(150) to 1e-9."""
     def f(self, x):
@@ -382,7 +396,7 @@ def test_cahouet_chabard_instationary():
     its = osm.result.total_linear_iterations / max(
         1, osm.result.total_newton_iterations + steps)
     err = _velocity_l2(W, x, lambda p: math.exp(-t) * _u2d(p))
-    j_err, j_its, _ = j_run_cc(n=4, T=0.04)
+    j_err, j_its = jax_solves["run_cc"].result()
     assert its == pytest.approx(j_its, abs=1e-12)
     assert err == pytest.approx(j_err, rel=1e-8)
     assert its <= 80

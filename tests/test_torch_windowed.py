@@ -267,6 +267,17 @@ def test_windowed_cd_q2_parity(pool, ndev):
     _parity(pool, "cd", (10, 2, 2), nranks=ndev)
 
 
+@pytest.mark.parametrize("case,args,owner", [
+    ("taylor_hood", (), None), ("cd", (12, 2, 1), (2, 4)), ("adaptive", ((5, 10),), None)])
+def test_flat_jacobian_apply_equals_padded(pool, case, args, owner):
+    """The flat J.v on full vectors (one all-gather of window results)
+    equals the padded path (halo exchange, combine, gather) bit for bit:
+    composite space, a block partition, hanging nodes."""
+    for r in pool.run(ranks.flat_jv_equals_padded, case, args, owner):
+        assert r["equal"], r["max_diff"]
+        assert r["flat_calls"] == 1
+
+
 def test_windowed_2d_device_mesh_block_partition(pool):
     """A (2, 4) rank grid with the block partition: halo-sized windows."""
     V, _ = _cd_go(12, 2, 1)

@@ -264,6 +264,24 @@ def residual_jvp(group, case, args=(), cls="windowed", owner=None, seed=0, x_dis
 
 
 @rank_task
+def flat_jv_equals_padded(group, case, args=(), owner=None, seed=3):
+    """The flat J.v (each rank reads its window from the full vectors, one
+    all-gather) against the padded path's exchange, combine and gather, bit
+    for bit, and the collectives each takes."""
+    V, go = GOS[case](*args)
+    if isinstance(owner, tuple):
+        owner = block_partition(go.mesh, owner)
+    w = WindowShardedGridOperator(go, group=group, element_owner=owner, device=CPU)
+    x, z = _rng_vec(V.ndofs, seed, count=2)
+    pcomm.reset_stats()
+    flat = w.jacobian_apply(x, z)
+    n_flat = sum(v["calls"] for v in pcomm.stats().values())
+    padded = w.gather(w.jacobian_apply_padded(w.device_put(x), w.device_put(z)))
+    return {"equal": bool(torch.equal(flat, padded)), "flat_calls": n_flat,
+            "max_diff": float((flat - padded).abs().max())}
+
+
+@rank_task
 def window_layout(group, case, args=(), owner=None):
     """The renumbering and every rank's window (compared index for index
     with the reference's WindowShardedGridOperator)."""
